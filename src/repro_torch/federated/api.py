@@ -1,0 +1,612 @@
+"""Composable federation API: pluggable recruitment / selection / aggregation.
+
+The port of the JAX package's ``federated/api.py`` for the sequential engine.
+Three stages are the extension points of the runtime:
+
+* ``RecruitmentPolicy`` — who joins the federation, decided once before
+  round one from the disclosure tuples ``(P_co, n_c)``.  Built-ins:
+  ``"nu-greedy"`` (the paper's greedy threshold rule), ``"random-k"``,
+  ``"top-n-samples"`` and ``"all"``.
+* ``SelectionPolicy`` — which federation members train in a given round.
+  Built-ins: ``"uniform"``, ``"round-robin"`` and ``"loss-weighted"``.
+* ``Aggregator`` — how client updates become the new global params.
+  Built-in: ``"fedavg"``.
+
+Every policy resolves from a string spec ``name`` or ``name:arg,...``, or an
+instance can be passed directly.  The round program is::
+
+    build_federation -> select -> train -> aggregate -> record
+
+Seeded replay: a run is a function of ``FederationConfig.seed``.  The
+recruitment generator is ``default_rng([seed, 1])``, the shared batch-plan
+generator ``default_rng(seed)`` (consumed client-major by selection and
+``padded_batches``, exactly as in the reference, so participants and batch
+order match it), and a ``torch.Generator`` seeded with ``seed`` on the
+training device draws dropout masks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import difflib
+import time
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.recruitment import (
+    BALANCED,
+    ClientStats,
+    RecruitmentConfig,
+    RecruitmentResult,
+    preset_recruitment,
+    recruit,
+)
+from repro_torch.data.pipeline import ClientDataset
+from repro_torch.federated.client import LocalTrainer
+from repro_torch.federated.fedavg import aggregate_stacked, params_nbytes, stack_trees
+from repro_torch.federated.selection import round_robin_clients, select_clients
+from repro_torch.optim.adamw import AdamW
+from repro_torch.tree import PyTree, tree_leaves, tree_map
+
+ENGINES = ("sequential",)
+
+
+# ---------------------------------------------------------------------------
+# policy protocols
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RecruitmentDecision:
+    """What a recruitment policy returns: the federation, plus optional detail."""
+
+    federation_ids: np.ndarray            # sorted client ids admitted to the federation
+    detail: RecruitmentResult | None = None  # nu/iota accounting when the policy has it
+
+
+class RecruitmentPolicy:
+    """Decides, once, which candidate clients form the federation.
+
+    Policies see only the disclosure tuples ``(P_co, n_c)``.  ``rng`` is a
+    dedicated generator for stochastic policies.
+    """
+
+    def recruit(
+        self, stats: Sequence[ClientStats], rng: np.random.Generator
+    ) -> RecruitmentDecision:
+        raise NotImplementedError
+
+
+class SelectionPolicy:
+    """Decides which federation members train in one round.
+
+    ``rng`` is the run's shared numpy generator.  Implementations return
+    participant ids in sorted order.  ``observe`` receives the participants
+    and their mean local losses after every round.
+    """
+
+    def select(
+        self, round_index: int, federation_ids: np.ndarray, rng: np.random.Generator
+    ) -> np.ndarray:
+        raise NotImplementedError
+
+    def observe(self, participant_ids: np.ndarray, losses: np.ndarray) -> None:
+        pass
+
+
+class Aggregator:
+    """Combines one round's client updates into the new global params.
+
+    ``mode = "reduced"``: the engine's weighted FedAvg reduction is this
+    aggregator's result.  The other modes of the reference (grouped,
+    stacked) come with their aggregators in a later slice of the port.
+    """
+
+    mode: str = "reduced"
+
+    def aggregate(self, stacked: PyTree, weights: np.ndarray) -> PyTree:
+        """Reduce a client-stacked tree (leading client axis) to params."""
+        raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# string registries
+# ---------------------------------------------------------------------------
+
+_RECRUITMENTS: dict[str, Callable[..., RecruitmentPolicy]] = {}
+_SELECTIONS: dict[str, Callable[..., SelectionPolicy]] = {}
+_AGGREGATORS: dict[str, Callable[..., Aggregator]] = {}
+
+
+def _register(registry: dict, name: str):
+    def deco(factory):
+        registry[name] = factory
+        return factory
+    return deco
+
+
+def register_recruitment(name: str):
+    """Register a recruitment factory under ``name`` (``@register_recruitment("x")``)."""
+    return _register(_RECRUITMENTS, name)
+
+
+def register_selection(name: str):
+    return _register(_SELECTIONS, name)
+
+
+def register_aggregator(name: str):
+    return _register(_AGGREGATORS, name)
+
+
+def _parse_arg(token: str):
+    token = token.strip()
+    try:
+        return int(token)
+    except ValueError:
+        pass
+    try:
+        return float(token)
+    except ValueError:
+        return token
+
+
+def _resolve(registry: dict, spec, kind: str, base: type):
+    if isinstance(spec, base):
+        return spec
+    if not isinstance(spec, str):
+        raise TypeError(f"{kind} must be a {base.__name__} or a spec string, got {type(spec).__name__}")
+    name, _, rest = spec.partition(":")
+    if name not in registry:
+        known = ", ".join(sorted(registry))
+        close = difflib.get_close_matches(name, registry, n=1)
+        hint = f"; did you mean {close[0]!r}?" if close else ""
+        raise ValueError(
+            f"unknown {kind} policy {name!r}{hint}; choose from: {known}"
+        )
+    args = [_parse_arg(t) for t in rest.split(",")] if rest else []
+    return registry[name](*args)
+
+
+def resolve_recruitment(spec) -> RecruitmentPolicy:
+    """``"nu-greedy"`` / ``"nu-greedy:0.5,0.5,0.1"`` / instance -> policy."""
+    return _resolve(_RECRUITMENTS, spec, "recruitment", RecruitmentPolicy)
+
+
+def resolve_selection(spec) -> SelectionPolicy:
+    """``"uniform"`` / ``"uniform:0.1"`` / ``"round-robin:4"`` / instance -> policy."""
+    return _resolve(_SELECTIONS, spec, "selection", SelectionPolicy)
+
+
+def resolve_aggregator(spec) -> Aggregator:
+    """``"fedavg"`` / instance -> policy."""
+    return _resolve(_AGGREGATORS, spec, "aggregator", Aggregator)
+
+
+# ---------------------------------------------------------------------------
+# recruitment policies
+# ---------------------------------------------------------------------------
+
+
+@register_recruitment("all")
+class AllRecruitment(RecruitmentPolicy):
+    """Everyone joins — standard FL (the paper's ac/sc baselines)."""
+
+    def recruit(self, stats, rng) -> RecruitmentDecision:
+        ids = np.array(sorted(s.client_id for s in stats), dtype=np.int64)
+        return RecruitmentDecision(federation_ids=ids)
+
+
+class NuGreedyRecruitment(RecruitmentPolicy):
+    """The paper's greedy threshold rule (section 4.2) over nu_c.
+
+    Spec forms: ``"nu-greedy"`` (BALANCED), ``"nu-greedy:quality-greedy"``
+    (a section 6.2 preset), or ``"nu-greedy:gamma_dv,gamma_sa,gamma_th"``.
+    """
+
+    def __init__(self, config: RecruitmentConfig = BALANCED) -> None:
+        self.config = config
+
+    def recruit(self, stats, rng) -> RecruitmentDecision:
+        result = recruit(stats, self.config)
+        return RecruitmentDecision(
+            federation_ids=np.sort(result.recruited_ids), detail=result
+        )
+
+
+@register_recruitment("nu-greedy")
+def _nu_greedy(*args) -> NuGreedyRecruitment:
+    if not args:
+        return NuGreedyRecruitment(BALANCED)
+    if len(args) == 1 and isinstance(args[0], str):
+        return NuGreedyRecruitment(preset_recruitment(args[0]))
+    if len(args) == 3:
+        return NuGreedyRecruitment(RecruitmentConfig(*[float(a) for a in args]))
+    raise ValueError(
+        "nu-greedy spec takes no args, one preset name, or gamma_dv,gamma_sa,gamma_th"
+    )
+
+
+@register_recruitment("random-k")
+class RandomKRecruitment(RecruitmentPolicy):
+    """Recruit ``k`` clients uniformly at random — the recruitment control."""
+
+    def __init__(self, k: int) -> None:
+        if int(k) < 1:
+            raise ValueError(f"random-k needs k >= 1, got {k}")
+        self.k = int(k)
+
+    def recruit(self, stats, rng) -> RecruitmentDecision:
+        ids = np.array(sorted(s.client_id for s in stats), dtype=np.int64)
+        k = min(self.k, len(ids))
+        return RecruitmentDecision(np.sort(rng.choice(ids, size=k, replace=False)))
+
+
+@register_recruitment("top-n-samples")
+class TopNSamplesRecruitment(RecruitmentPolicy):
+    """Recruit the ``n`` clients with the most local samples (ties: lower id)."""
+
+    def __init__(self, n: int) -> None:
+        if int(n) < 1:
+            raise ValueError(f"top-n-samples needs n >= 1, got {n}")
+        self.n = int(n)
+
+    def recruit(self, stats, rng) -> RecruitmentDecision:
+        ids = np.array([s.client_id for s in stats], dtype=np.int64)
+        sizes = np.array([s.n for s in stats], dtype=np.int64)
+        order = np.lexsort((ids, -sizes))
+        return RecruitmentDecision(np.sort(ids[order[: min(self.n, len(ids))]]))
+
+
+# ---------------------------------------------------------------------------
+# selection policies
+# ---------------------------------------------------------------------------
+
+
+def _frac_or_count(arg) -> dict[str, Any]:
+    """Spec arg -> kwargs: a float is a participation fraction, an int a count.
+
+    ``"uniform:0.1"`` samples 10%, ``"uniform:12"`` samples 12 clients, so
+    full participation by fraction is spelled ``"uniform:1.0"``.
+    """
+    if arg is None:
+        return {}
+    if isinstance(arg, float):
+        return {"fraction": arg}
+    if isinstance(arg, int):
+        return {"count": arg}
+    raise ValueError(f"selection arg must be a fraction or a count, got {arg!r}")
+
+
+def _check_frac_count(fraction: float | None, count: int | None) -> None:
+    """Fail at policy construction, not mid-run, on a bad participation spec."""
+    if fraction is not None and count is not None:
+        raise ValueError("give fraction or count, not both")
+    if fraction is not None and not (0.0 < fraction <= 1.0):
+        raise ValueError(f"fraction must be in (0, 1], got {fraction}")
+    if count is not None and int(count) < 1:
+        raise ValueError(f"count must be >= 1, got {count}")
+
+
+def _round_count(fraction: float | None, count: int | None, n: int) -> int:
+    if fraction is None and count is None:
+        return n
+    if count is not None:
+        return min(int(count), n)
+    return max(1, int(round(fraction * n)))
+
+
+class UniformSelection(SelectionPolicy):
+    """The paper's per-round sampling: uniform without replacement.
+
+    ``fraction``/``count`` both ``None`` means every federation member
+    participates every round (the ac/arc settings).
+    """
+
+    def __init__(self, fraction: float | None = None, count: int | None = None) -> None:
+        _check_frac_count(fraction, count)
+        self.fraction, self.count = fraction, count
+
+    def select(self, round_index, federation_ids, rng) -> np.ndarray:
+        return select_clients(rng, federation_ids, fraction=self.fraction, count=self.count)
+
+
+@register_selection("uniform")
+def _uniform(arg=None) -> UniformSelection:
+    return UniformSelection(**_frac_or_count(arg))
+
+
+class RoundRobinSelection(SelectionPolicy):
+    """Deterministic rotation through the sorted federation — no RNG at all."""
+
+    def __init__(self, fraction: float | None = None, count: int | None = None) -> None:
+        _check_frac_count(fraction, count)
+        self.fraction, self.count = fraction, count
+
+    def select(self, round_index, federation_ids, rng) -> np.ndarray:
+        count = _round_count(self.fraction, self.count, len(federation_ids))
+        return round_robin_clients(round_index, federation_ids, count)
+
+
+@register_selection("round-robin")
+def _round_robin(arg=None) -> RoundRobinSelection:
+    return RoundRobinSelection(**_frac_or_count(arg))
+
+
+class LossWeightedSelection(SelectionPolicy):
+    """Sample proportionally to each client's last observed local loss.
+
+    Clients not yet observed weigh in at the mean observed loss (or
+    uniformly before any observation).
+    """
+
+    def __init__(self, fraction: float | None = None, count: int | None = None) -> None:
+        _check_frac_count(fraction, count)
+        self.fraction, self.count = fraction, count
+        self._loss: dict[int, float] = {}
+
+    def observe(self, participant_ids, losses) -> None:
+        for cid, loss in zip(np.asarray(participant_ids), np.asarray(losses)):
+            if np.isfinite(loss):
+                self._loss[int(cid)] = float(loss)
+
+    def select(self, round_index, federation_ids, rng) -> np.ndarray:
+        ids = np.asarray(federation_ids)
+        count = _round_count(self.fraction, self.count, len(ids))
+        default = float(np.mean(list(self._loss.values()))) if self._loss else 1.0
+        w = np.array([self._loss.get(int(c), default) for c in ids], dtype=np.float64)
+        w = np.maximum(w, 1e-12)
+        chosen = rng.choice(ids, size=count, replace=False, p=w / w.sum())
+        return np.sort(chosen)
+
+
+@register_selection("loss-weighted")
+def _loss_weighted(arg=None) -> LossWeightedSelection:
+    return LossWeightedSelection(**_frac_or_count(arg))
+
+
+# ---------------------------------------------------------------------------
+# aggregators
+# ---------------------------------------------------------------------------
+
+
+@register_aggregator("fedavg")
+class FedAvgAggregator(Aggregator):
+    """Sample-size-weighted parameter averaging (McMahan et al. 2017)."""
+
+    mode = "reduced"
+
+    def aggregate(self, stacked, weights):
+        return aggregate_stacked(stacked, weights)
+
+
+# ---------------------------------------------------------------------------
+# run records
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    round_index: int
+    participant_ids: list[int]       # sorted — the cohort stacking order
+    mean_local_loss: float
+    local_steps: int
+    params_down: int                 # parameter tensors broadcast server -> clients
+    params_up: int                   # parameter tensors returned clients -> server
+    bytes_transferred: int           # down + up, from the param tree's real sizes
+    wall_time_s: float
+    # Async-runtime and DP fields of the reference; None on these rounds.
+    virtual_time: float | None = None
+    staleness: float | None = None
+    epsilon: float | None = None
+
+    @property
+    def round_time_s(self) -> float:
+        """Host wall-clock this round took, results on the host included."""
+        return self.wall_time_s
+
+    def to_state(self) -> dict:
+        """JSON-serializable form, with the reference's field names."""
+        state = dataclasses.asdict(self)
+        state["round_time_s"] = state.pop("wall_time_s")
+        return state
+
+
+@dataclasses.dataclass
+class FederatedRunResult:
+    params: PyTree
+    history: list[RoundRecord]
+    recruitment: RecruitmentResult | None
+    federation_ids: np.ndarray
+    total_wall_time_s: float
+    total_local_steps: int
+    # The reference's metrics-registry snapshot; the registry is not ported yet.
+    metrics: dict[str, Any] | None = None
+
+    def summary(self) -> dict[str, Any]:
+        return {
+            "rounds": len(self.history),
+            "federation_size": int(self.federation_ids.size),
+            "recruited": None if self.recruitment is None else self.recruitment.num_recruited,
+            "total_wall_time_s": self.total_wall_time_s,
+            "total_round_time_s": sum(r.round_time_s for r in self.history),
+            "total_local_steps": self.total_local_steps,
+            "params_down": sum(r.params_down for r in self.history),
+            "params_up": sum(r.params_up for r in self.history),
+            "bytes_transferred": sum(r.bytes_transferred for r in self.history),
+            # The async runtime and DP are not ported: no record carries
+            # a virtual time, a staleness or an epsilon yet.
+            "virtual_time": None,
+            "mean_staleness": None,
+            "epsilon": None,
+            "metrics": self.metrics,
+        }
+
+
+# ---------------------------------------------------------------------------
+# the facade
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FederationConfig:
+    """Declarative federation: every stage is a policy spec or instance."""
+
+    rounds: int = 15
+    local_epochs: int = 4
+    batch_size: int = 128
+    recruitment: str | RecruitmentPolicy = "all"
+    selection: str | SelectionPolicy = "uniform"
+    aggregator: str | Aggregator = "fedavg"
+    seed: int = 0
+    # Only the per-client engine is ported; the vectorized cohort engine is
+    # a later slice.
+    engine: str = "sequential"
+
+    def __post_init__(self) -> None:
+        if self.engine not in ENGINES:
+            raise NotImplementedError(
+                f"engine {self.engine!r} is not ported yet; the port runs {ENGINES}"
+            )
+
+
+class Federation:
+    """Runs the round program over in-process clients with pluggable policies.
+
+    ``Federation(config, clients, loss_fn, optimizer, device=None)`` resolves
+    the three policy stages up front (unknown spec strings fail here, not
+    mid-run).  ``device`` defaults to the card.
+    """
+
+    def __init__(
+        self,
+        config: FederationConfig,
+        clients: Sequence[ClientDataset],
+        loss_fn: Callable[..., Any],
+        optimizer: AdamW,
+        device: str | torch.device | None = None,
+    ) -> None:
+        self.config = config
+        self.recruitment_policy = resolve_recruitment(config.recruitment)
+        self.selection_policy = resolve_selection(config.selection)
+        self.aggregator = resolve_aggregator(config.aggregator)
+        if self.aggregator.mode != "reduced":
+            raise NotImplementedError(
+                f"aggregator mode {self.aggregator.mode!r} is not ported yet; "
+                "the grouped and stacked aggregators come in a later slice"
+            )
+        self.all_clients = {c.client_id: c for c in clients}
+        self.trainer = LocalTrainer(
+            loss_fn=loss_fn,
+            optimizer=optimizer,
+            batch_size=config.batch_size,
+            local_epochs=config.local_epochs,
+            device=device,
+        )
+        self.device = self.trainer.device
+
+    @property
+    def effective_engine(self) -> str:
+        return self.config.engine
+
+    # -- stage 1: build_federation ------------------------------------------
+
+    def build_federation(
+        self, rng: np.random.Generator | None = None
+    ) -> tuple[np.ndarray, RecruitmentResult | None]:
+        """Recruitment happens here — before the federation exists."""
+        if rng is None:
+            rng = np.random.default_rng([self.config.seed, 1])
+        all_ids = sorted(self.all_clients)
+        stats = [self.all_clients[i].stats() for i in all_ids]
+        decision = self.recruitment_policy.recruit(stats, rng)
+        ids = np.sort(np.asarray(decision.federation_ids, dtype=np.int64))
+        unknown = set(ids.tolist()) - set(all_ids)
+        if unknown:
+            raise ValueError(f"recruitment returned unknown client ids: {sorted(unknown)}")
+        if ids.size == 0:
+            raise ValueError("recruitment returned an empty federation")
+        return ids, decision.detail
+
+    # -- stages 3+4: train + aggregate --------------------------------------
+
+    def _train_round(
+        self, params: PyTree, participants: np.ndarray, rng, generator
+    ) -> tuple[PyTree, np.ndarray, int]:
+        """Train every participant in turn, then FedAvg-reduce once (the
+        ``"reduced"`` mode: the engine's reduction is the aggregation)."""
+        client_params, weights, losses, steps = [], [], [], 0
+        for cid in participants:
+            client = self.all_clients[int(cid)]
+            new_params, loss, n_c = self.trainer.train_client(params, client, rng, generator)
+            client_params.append(new_params)
+            weights.append(n_c)
+            losses.append(loss)
+            steps += self.trainer.steps_per_round(client)
+        params = aggregate_stacked(
+            stack_trees(client_params), np.asarray(weights, dtype=np.float32)
+        )
+        return params, np.asarray(losses, dtype=np.float32), steps
+
+    # -- the round program ---------------------------------------------------
+
+    def run(
+        self,
+        init_params: PyTree,
+        progress: Callable[[RoundRecord], None] | None = None,
+    ) -> FederatedRunResult:
+        """Run the round program; ``progress`` receives each record as it lands."""
+        cfg = self.config
+        rng = np.random.default_rng(cfg.seed)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(cfg.seed)
+
+        federation_ids, recruitment = self.build_federation()
+        params = tree_map(lambda p: p.detach().to(self.device), init_params)
+        history: list[RoundRecord] = []
+        # Communication accounting: each participant receives the full param
+        # tree and returns one of the same shape.
+        n_tensors = len(tree_leaves(init_params))
+        model_nbytes = params_nbytes(init_params)
+        t_start = time.perf_counter()
+
+        for rnd in range(cfg.rounds):
+            t_round = time.perf_counter()
+            participants = np.asarray(self.selection_policy.select(rnd, federation_ids, rng))
+            if not (
+                len(participants) > 0
+                and np.all(np.diff(participants) > 0)
+                and set(participants.tolist()) <= set(federation_ids.tolist())
+            ):
+                raise ValueError(
+                    "selection must return a non-empty, strictly sorted subset of the federation"
+                )
+            # The per-client loss readback inside waits for each client's steps.
+            params, losses, steps = self._train_round(params, participants, rng, generator)
+            self.selection_policy.observe(participants, losses)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the aggregate is done too
+            wall = time.perf_counter() - t_round
+            record = RoundRecord(
+                round_index=rnd,
+                participant_ids=[int(c) for c in participants],
+                mean_local_loss=float(np.nanmean(losses)) if len(losses) else float("nan"),
+                local_steps=steps,
+                params_down=len(participants) * n_tensors,
+                params_up=len(participants) * n_tensors,
+                bytes_transferred=2 * len(participants) * model_nbytes,
+                wall_time_s=wall,
+            )
+            history.append(record)
+            if progress is not None:
+                progress(record)
+
+        return FederatedRunResult(
+            params=params,
+            history=history,
+            recruitment=recruitment,
+            federation_ids=federation_ids,
+            total_wall_time_s=time.perf_counter() - t_start,
+            total_local_steps=sum(r.local_steps for r in history),
+        )

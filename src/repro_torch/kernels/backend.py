@@ -1,0 +1,111 @@
+"""The port's kernel router, and the build of its CUDA kernels.
+
+Routing is by the device of the tensors a wrapper is given, and by nothing
+else: CUDA tensors go to the hand-written kernel (or the call raises — a
+build failure, a refused launch or an unsupported shape is an error, never a
+reason to compute elsewhere); CPU tensors go to the plain PyTorch version in
+the kernel's ``ref.py``.  There is no environment switch.
+
+Kernels are CUDA C++ sources under ``repro_torch/csrc/``, compiled at first
+use with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface and loaded with ``ctypes``.  The library's name carries a hash of
+its source, so an edited source is rebuilt and a stale build never loads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# <checkout>/build/repro_torch when the package runs from src/ of a checkout.
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def route(*tensors: torch.Tensor) -> str:
+    """``"cuda"`` or ``"cpu"``: where a wrapper must run for these tensors.
+
+    All tensors must share one device type; anything but CUDA or CPU raises.
+    """
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"tensors lie on more than one device: {sorted(kinds)}")
+    kind = kinds.pop()
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"the port's kernels take CUDA or CPU tensors, got {kind}")
+    return kind
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into ``BUILD_DIR`` (once per source hash).
+
+    The compiler's report (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) is kept beside the library as ``<lib>.log``.
+    """
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {src} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_library(name: str, signatures: dict[str, tuple[list, type]]) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built at first use.
+
+    ``signatures`` maps each C entry point to ``(argtypes, restype)``; they
+    are declared once, when the library is loaded.
+    """
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err}")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as a pointer-sized int."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,38 @@
+"""A full GRU layer: input projection as one matmul, then the recurrence kernel.
+
+``GRUScan`` is the port of the JAX ``gru_scan_op`` ``custom_vjp``: its
+forward saves ``(x_gates, w_hh, b_hh, h_seq)`` and its backward is the
+single reverse pass of ``gru_scan_bwd`` (the CUDA kernel on the card, the
+plain reverse loop on the CPU) with no forward recompute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.gru_scan.kernel import gru_scan, gru_scan_bwd
+
+
+class GRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_gates, w_hh, b_hh):
+        h_seq = gru_scan(x_gates, w_hh, b_hh)
+        ctx.save_for_backward(x_gates, w_hh, b_hh, h_seq)
+        return h_seq
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_gates, w_hh, b_hh, h_seq = ctx.saved_tensors
+        return gru_scan_bwd(x_gates, w_hh, b_hh, h_seq, dy.contiguous())
+
+
+def gru_sequence(
+    x: torch.Tensor,       # (B, T, F)
+    w_ih: torch.Tensor,    # (F, 3N)
+    w_hh: torch.Tensor,    # (N, 3N)
+    b_ih: torch.Tensor,    # (3N,)
+    b_hh: torch.Tensor,    # (3N,)
+) -> torch.Tensor:
+    """Hidden sequence (B, T, N) for one GRU layer."""
+    x_gates = x @ w_ih + b_ih  # one large matmul over all timesteps
+    return GRUScan.apply(x_gates, w_hh, b_hh)

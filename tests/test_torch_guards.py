@@ -1,0 +1,132 @@
+"""Guards of the port: what it imports, where it runs, and no silent fallback.
+
+* ``repro_torch`` imports neither ``jax`` nor anything of ``repro``.
+* Entry points default to the card and raise where there is none.
+* CPU tensors go through the plain versions and count no kernel launch;
+  the router accepts nothing but CUDA and CPU tensors.
+"""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels.gru_scan import kernel  # noqa: E402
+from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref  # noqa: E402
+
+torch.set_num_threads(1)
+
+PKG = Path(repro_torch.__file__).parent
+ROOT = PKG.parents[1]
+
+
+def port_modules() -> list[str]:
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix="repro_torch.")
+    )
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks behaviour where no CUDA device is present")
+
+
+def test_importing_every_module_pulls_in_no_jax_and_no_repro():
+    modules = port_modules()
+    assert "repro_torch.experiments.paper" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", [PKG, ROOT / "chip_smoke.py"], ids=["package", "chip_smoke"])
+def test_sources_import_no_jax_and_no_repro(path):
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|import repro\b|from repro\b import)", re.M)
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders
+
+
+def test_kernel_sources_ship_with_the_package():
+    assert (PKG / "csrc" / "gru_scan.cu").is_file()
+
+
+def test_entry_points_raise_without_a_card(no_cuda):
+    from repro_torch.data.synth_eicu import CohortConfig, generate_cohort
+    from repro_torch.experiments.paper import ExperimentConfig, run_setting
+    from repro_torch.federated.client import LocalTrainer
+    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    cohort = generate_cohort(CohortConfig(num_hospitals=4, total_stays=40, min_hospital_size=5), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_setting("central", ExperimentConfig(central_epochs=1), cohort, seed=0)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        init_gru(torch.Generator(), GRUConfig())
+    with pytest.raises(RuntimeError):
+        LocalTrainer(make_loss_fn(GRUConfig()), AdamW(), batch_size=4, local_epochs=1)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
+    rng = torch.Generator().manual_seed(0)
+    xg, w, b = torch.randn(3, 4, 6, generator=rng), torch.randn(2, 6, generator=rng), torch.randn(6, generator=rng)
+    dy = torch.randn(3, 4, 2, generator=rng)
+    before = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
+    h = kernel.gru_scan(xg, w, b)
+    grads = kernel.gru_scan_bwd(xg, w, b, h, dy)
+    assert (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches) == before
+    assert torch.equal(h, gru_scan_ref(xg, w, b))
+    assert all(torch.equal(g, r) for g, r in zip(grads, gru_scan_bwd_ref(xg, w, b, h, dy)))
+
+
+def test_router_takes_only_cuda_or_cpu_tensors_on_one_device():
+    assert backend.route(torch.zeros(1), torch.zeros(2)) == "cpu"
+    with pytest.raises(ValueError):
+        backend.route(torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError):
+        kernel.gru_scan(torch.zeros(3, 4, 6, device="meta"), torch.zeros(2, 6, device="meta"),
+                        torch.zeros(6, device="meta"))
+
+
+def test_resolve_device_takes_the_cpu_only_when_asked():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_unported_options_say_so():
+    from repro_torch.federated.api import FederationConfig, resolve_recruitment, resolve_selection
+    from repro_torch.federated.client import LocalTrainer
+    from repro_torch.models.gru import GRUConfig, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    with pytest.raises(NotImplementedError, match="vectorized"):
+        FederationConfig(engine="vectorized")
+    with pytest.raises(NotImplementedError, match="privacy"):
+        LocalTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, device="cpu", dp=object())
+    with pytest.raises(ValueError, match="did you mean 'nu-greedy'"):
+        resolve_recruitment("nu-gredy")
+    with pytest.raises(ValueError, match="did you mean 'round-robin'"):
+        resolve_selection("round-robbin:2")
