@@ -7,13 +7,18 @@ Phases, each printing JSON lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device  — the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. build   — compiles ``src/repro_torch/csrc/gru_scan.cu`` with nvcc for
-             sm_90a (ptxas report included).
+2. build   — compiles ``src/repro_torch/csrc/gru_scan.cu`` and ``ssd.cu``
+             with nvcc for sm_90a, one nvcc per source, started together
+             (ptxas reports included).
 3. kernels — ``gru_scan`` and ``gru_scan_bwd`` on the card against their
              plain PyTorch versions at the main path's shapes and more
              (ragged batch, client axis, N = 2, 8, 64), two backward runs
              compared bit for bit, then times: kernel, plain version, the
              roofline bound, and cuDNN's GRU layer as a yardstick.
+             ``ssd_chunk_scan`` against its plain versions (with and
+             without the entry states) at the serving slice's shape, one
+             chunk, the reduced config, and a ragged sequence with H=3
+             through ``ssd_full``; runs compared bit for bit; then times.
 4. parity  — a small federation trained on the card against the same one
              trained on the CPU through the plain versions.
 5. slice   — the paper's path at full width: the full 189-hospital cohort,
@@ -23,6 +28,17 @@ exit code and no result line:
              the run implies.
 6. profile — one client's local round under torch.profiler: step time,
              device busy time and idle share, the kernels that take most of it.
+7. mamba2 parity — mamba2-130m at full width in float32, B=2, prompts of
+             512 and 300 tokens: prefill logits and hidden states on the card
+             against the CPU, and the card's prefill logits against its
+             decode path after the same prompt.
+8. serve slice — the published mamba2-130m (bfloat16): ``make_prefill_step``
+             at B=8 on a 2,048-token prompt (tokens/s, 24 SSD launches per
+             call), then the same prompt and 64 greedy tokens through
+             ``make_serve_step`` (tokens/s, no SSD launch).
+9. serve profile — one prefill call and one decode step under
+             torch.profiler: wall time, device busy time and idle share, the
+             kernels that take most of it.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -35,6 +51,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,6 +61,11 @@ FWD_TOL = 1e-5
 DX_TOL = 1e-5
 DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in another order
 PARITY_TOL = 1e-4
+SSD_TOL = 1e-4               # times max(1, max|ref|): sums of up to L*N and L*P products in another order
+MAMBA_TOL = 1e-4             # times max(1, max|ref|): 24 float32 layers, card against CPU
+DECODE_ATOL, DECODE_RTOL = 2e-4, 1e-4   # decode path against prefill, as tests/test_decode.py
+PARITY_PROMPTS = (512, 300)  # phase 7: B=2; 300 is ragged against the chunk of 256
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64   # phase 8
 
 
 def emit(**fields) -> None:
@@ -82,27 +104,44 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     from repro_torch.kernels import backend
     from repro_torch.kernels.gru_scan import kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
 
     t0 = time.perf_counter()
-    lib_path = backend.build("gru_scan")
+    sources = ("gru_scan", "ssd")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        libs = dict(zip(sources, pool.map(backend.build, sources)))
     K._library()
-    emit(phase="build", seconds=time.perf_counter() - t0, library=lib_path.name,
-         ptxas=lib_path.with_suffix(".log").read_text())
+    SK._library()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         libraries={k: v.name for k, v in libs.items()},
+         ptxas={k: v.with_suffix(".log").read_text() for k, v in libs.items()})
 
     # -- 3. kernels against their plain versions ------------------------------
     kernel_rows = check_kernels(torch, dev, K)
+    kernel_rows.append(check_ssd_kernel(torch, dev, SK))
 
     # -- 4. the whole path on the card against the CPU ------------------------
     check_parity(torch)
 
     # -- 5. the slice at full width -------------------------------------------
     launches, cohort = run_slice(torch, K)
-    for row in kernel_rows:
-        row["launches"] = launches[row["name"]]
-        require(row["launches"] > 0, f"{row['name']} never launched on the main path")
 
     # -- 6. where a local step's time goes ------------------------------------
     profile_local_training(torch, cohort)
+
+    # -- 7. Mamba2 at full width: card against CPU, prefill against decode ----
+    check_mamba2_parity(torch)
+
+    # -- 8. the serving slice: mamba2-130m, bfloat16 --------------------------
+    serve_launches, serve_state = run_serve_slice(torch, SK)
+    launches.update(serve_launches)
+
+    # -- 9. where a prefill call's and a decode step's time goes --------------
+    profile_serving(torch, *serve_state)
+
+    for row in kernel_rows:
+        row["launches"] = launches[row["name"]]
+        require(row["launches"] > 0, f"{row['name']} never launched on the main path")
 
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -258,6 +297,124 @@ def cudnn_gru_ms(torch, dev, b, t, f, n) -> tuple[float, float]:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, ssd_chunk_scan
+# ---------------------------------------------------------------------------
+
+SSD_CASES = (
+    # name, B, NC, L, H, P, N
+    ("slice", 8, 8, 256, 24, 64, 128),     # the serving slice's prefill call
+    ("one-chunk", 1, 1, 256, 24, 64, 128),
+    ("reduced", 2, 4, 16, 16, 32, 16),     # mamba2-130m .reduced()
+)
+SSD_RAGGED = (2, 300, 3, 64, 128, 256)     # B, S, H, P, N, chunk: through ssd_full
+
+
+def ssd_inputs(torch, dev, shape, seed):
+    """x, B, C standard normal; dt = softplus(normal); A = -0.02 exp(0.5 z)
+    (-0.054 to -0.007 at two sigma), so a 256-step chunk decays by about
+    e^-1..e^-10 and the carried state matters."""
+    *lead, h, p = shape[:-1]
+    n = shape[-1]
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(*lead, h, generator=g))
+    a = -torch.exp(torch.randn(h, generator=g) * 0.5) * 0.02
+    x = torch.randn(*lead, h, p, generator=g)
+    bm = torch.randn(*lead, n, generator=g)
+    cm = torch.randn(*lead, n, generator=g)
+    return [t.to(dev) for t in (x, dt, a, bm, cm)]
+
+
+def scaled_err(got, ref) -> float:
+    return max_err(got, ref) / max(1.0, float(ref.abs().max()))
+
+
+def check_ssd_kernel(torch, dev, SK) -> dict:
+    from repro_torch.kernels.ssd.ops import ssd_full
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref, ssd_chunk_states_ref, ssd_ref
+
+    worst = 0.0
+    for i, (case, b, nc, l_len, h, p, n) in enumerate(SSD_CASES):
+        x, dt, a, bm, cm = ssd_inputs(torch, dev, (b, nc, l_len, h, p, n), seed=200 + i)
+        args = (x, dt, torch.cumsum(dt * a, dim=2), bm, cm)
+        y = SK.ssd_chunk_scan(*args)
+        y2, states = SK.ssd_chunk_scan(*args, return_states=True)
+        y3, states3 = SK.ssd_chunk_scan(*args, return_states=True)
+        torch.cuda.synchronize()
+        y_ref, s_ref = ssd_chunk_scan_ref(*args), ssd_chunk_states_ref(*args)
+        e = {"y": scaled_err(y, y_ref), "states": scaled_err(states, s_ref)}
+        same = torch.equal(y, y2) and torch.equal(y2, y3) and torch.equal(states, states3)
+        emit(phase="ssd_kernels", case=case, B=b, NC=nc, L=l_len, H=h, P=p, N=n,
+             scaled_err=e, max_abs_err=max_err(y, y_ref), max_abs_ref=float(y_ref.abs().max()),
+             bitwise_repeat=same)
+        require(max(e.values()) <= SSD_TOL, f"ssd {case}: error {e}")
+        require(same, f"ssd {case}: two runs differ")
+        worst = max(worst, max_err(y, y_ref), max_err(states, s_ref))
+
+    # Ragged S with H=3 through ssd_full (padding in the wrapper), against the
+    # step-by-step recurrence on the same card.
+    b, s, h, p, n, chunk = SSD_RAGGED
+    x, dt, a, bm, cm = ssd_inputs(torch, dev, (b, s, h, p, n), seed=210)
+    y = ssd_full(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    y_ref = ssd_ref(x, dt, a, bm, cm)
+    e = scaled_err(y, y_ref)
+    emit(phase="ssd_kernels", case="ragged-ssd_full", B=b, S=s, H=h, P=p, N=n, chunk=chunk,
+         scaled_err=e, max_abs_err=max_err(y, y_ref))
+    require(e <= SSD_TOL, f"ssd ragged through ssd_full: error {e}")
+    worst = max(worst, max_err(y, y_ref))
+
+    # Times at the serving slice's shape.
+    _, b, nc, l_len, h, p, n = SSD_CASES[0]
+    x, dt, a, bm, cm = ssd_inputs(torch, dev, (b, nc, l_len, h, p, n), seed=220)
+    args = (x, dt, torch.cumsum(dt * a, dim=2), bm, cm)
+    ms = time_ms(torch, lambda: SK.ssd_chunk_scan(*args), iters=20, warmup=3)
+    ms_states = time_ms(torch, lambda: SK.ssd_chunk_scan(*args, return_states=True),
+                        iters=20, warmup=3)
+    plain = time_ms(torch, lambda: ssd_chunk_scan_ref(*args), iters=3, warmup=1)
+    nbytes, ops, ops_full = ssd_work(b, nc, l_len, h, p, n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    emit(phase="ssd_timing", shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n},
+         ssd_chunk_scan_ms=ms, with_states_ms=ms_states, plain_ms=plain, bytes=nbytes,
+         flops_causal=ops, flops_full_block=ops_full, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+         achieved_tflops=ops / ms / 1e9,
+         library_ms=None, library_note="no single PyTorch call computes the chunk scan")
+    return {
+        "name": "ssd_chunk_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:87",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int, int]:
+    """Bytes the call must move (float32 inputs read once, y written once) and
+    its float ops, counting the causal pairs l >= m of each L x L block that
+    the scan needs (and, beside it, the full L x L block).
+
+    Per (batch, chunk): C B^T once, 2N per pair (shared by the heads).  Per
+    head: the weights exp(cum_l - cum_m) dt_m G (a subtraction, an exp and
+    two products: 4 per pair) and W x (2P per pair); the carried-state term
+    C S and the state update (2NP per row each) and the per-row decays (4).
+    """
+    bytes_ = 4 * (2 * b * nc * l_len * h * p + 2 * b * nc * l_len * h + 2 * b * nc * l_len * n)
+
+    def ops_for(pairs: int) -> int:
+        per_head = pairs * (4 + 2 * p) + l_len * (4 * n * p + 4)
+        return b * nc * (2 * n * pairs + h * per_head)
+
+    return bytes_, ops_for(l_len * (l_len + 1) // 2), ops_for(l_len * l_len)
+
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -372,12 +529,25 @@ def run_slice(torch, K) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
+def device_times(prof) -> tuple[dict[str, float], int]:
+    """Summed device time (us) of each GPU kernel name in a profile, and the
+    number of kernels the device ran."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, float] = {}
+    count = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            count += 1
+    return by_name, count
+
+
 def profile_local_training(torch, cohort) -> None:
     """One client's local round (the largest hospital, 4 epochs, batch 128)
     under torch.profiler: wall time, summed device time of every GPU kernel,
     the device's idle share, and the kernels that take the most device time."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import build_client_datasets
@@ -399,10 +569,7 @@ def profile_local_training(torch, cohort) -> None:
         trainer.train_client(params, client, np.random.default_rng(1), gen)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by_name, count = device_times(prof)
     device_s = sum(by_name.values()) / 1e6
     steps = trainer.steps_per_round(client)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -410,8 +577,161 @@ def profile_local_training(torch, cohort) -> None:
          wall_s=wall_s, step_ms=wall_s / steps * 1e3,
          device_busy_s=device_s if device_s > 0 else None,
          device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
-         kernels_launched=sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA),
+         kernels_launched=count,
          top_device_us={name[:80]: us for name, us in top})
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the Mamba2 serving path
+# ---------------------------------------------------------------------------
+
+
+def prompt_tokens(torch, vocab: int, b: int, s: int, seed: int):
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, vocab, (b, s)))
+
+
+def decode_prompt(serve, params, model, toks, device):
+    """Feed ``toks`` (B, S) through the decode path; returns (last logits, cache)."""
+    cache = model.init_cache(toks.shape[0], toks.shape[1], device)
+    logits = None
+    for t in range(toks.shape[1]):
+        logits, cache = serve(params, toks[:, t : t + 1], cache, t)
+    return logits, cache
+
+
+def check_mamba2_parity(torch) -> None:
+    """mamba2-130m at full width in float32: the card against the CPU (hidden
+    states and prefill logits), and on the card the prefill logits against
+    the decode path's after the same prompt (the property of
+    tests/test_decode.py)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), dtype="float32")
+    model = Model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    params = tree_map(lambda t: t.to("cuda"), params_cpu)
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    failures = []
+    for s in PARITY_PROMPTS:
+        toks = prompt_tokens(torch, cfg.vocab_size, 2, s, seed=s)
+        toks_card = toks.cuda()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            h_card = model.hidden(params, {"tokens": toks_card})[0].cpu()
+            h_cpu = model.hidden(params_cpu, {"tokens": toks})[0]
+        lg_card = prefill(params, {"tokens": toks_card})
+        lg_cpu = prefill(params_cpu, {"tokens": toks})
+        lg_dec, _ = decode_prompt(serve, params, model, toks_card, "cuda")
+        torch.cuda.synchronize()
+        e = {"hidden": scaled_err(h_card, h_cpu), "logits": scaled_err(lg_card.cpu(), lg_cpu)}
+        dec_gap = (lg_dec - lg_card).abs()
+        dec_ok = bool((dec_gap <= DECODE_ATOL + DECODE_RTOL * lg_card.abs()).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in (h_card, lg_card, lg_dec))
+        emit(phase="mamba2_parity", B=2, S=s, dtype="float32", card_vs_cpu_scaled_err=e,
+             decode_vs_prefill_max_abs=float(dec_gap.max()), decode_within_tol=dec_ok,
+             max_abs_logit=float(lg_cpu.abs().max()), seconds=time.perf_counter() - t0)
+        if not finite:
+            failures.append(f"S={s}: non-finite outputs")
+        if max(e.values()) > MAMBA_TOL:
+            failures.append(f"S={s}: card against CPU {e}")
+        if not dec_ok:
+            failures.append(f"S={s}: decode against prefill {float(dec_gap.max())}")
+    require(not failures, "; ".join(failures))
+
+
+def run_serve_slice(torch, SK):
+    """The published mamba2-130m (bfloat16, random weights from seed 0):
+    prefill steps at B=8 on a 2,048-token prompt, then the same prompt and
+    64 greedy tokens through the decode path.  The SSD launch count is set
+    to 0 just before and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.zoo import Model
+
+    cfg = get_config("mamba2-130m")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    b, s, gen = SERVE_B, SERVE_PROMPT, SERVE_GEN
+    toks = prompt_tokens(torch, cfg.vocab_size, b, s, seed=0).cuda()
+    batch = {"tokens": toks}
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+
+    SK.ssd_chunk_scan.launches = 0
+    call_s = []
+    for _ in range(4):  # the first call is the cold one
+        before = SK.ssd_chunk_scan.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+        per_call = SK.ssd_chunk_scan.launches - before
+        require(per_call == cfg.num_layers,
+                f"a prefill call launched ssd_chunk_scan {per_call} times, not {cfg.num_layers}")
+    prefill_launches = SK.ssd_chunk_scan.launches
+    warm_s = sum(call_s[1:]) / len(call_s[1:])
+
+    t0 = time.perf_counter()
+    lg, cache = decode_prompt(serve, params, model, toks, "cuda")
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    gap = float((lg - logits).abs().max())
+    finite = [bool(torch.isfinite(logits).all()), bool(torch.isfinite(lg).all())]
+    tok = torch.argmax(lg, dim=-1)[:, None]
+    generated = []
+    t0 = time.perf_counter()
+    for k in range(gen):
+        lg, cache = serve(params, tok, cache, s + k)
+        tok = torch.argmax(lg, dim=-1)[:, None]
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    finite.append(bool(torch.isfinite(lg).all()))
+    decode_launches = SK.ssd_chunk_scan.launches - prefill_launches
+    emit(phase="serve_slice", arch=cfg.name, dtype=cfg.dtype, B=b, prompt=s, gen=gen,
+         prefill_call_s=call_s, prefill_tokens_per_s=b * s / warm_s,
+         prefill_cold_tokens_per_s=b * s / call_s[0],
+         decode_feed_tokens_per_s=b * s / feed_s, decode_tokens_per_s=b * gen / decode_s,
+         decode_step_ms=decode_s / gen * 1e3,
+         ssd_launches={"prefill": prefill_launches, "decode": decode_launches},
+         bf16_prefill_vs_decode_max_abs=gap, max_abs_logit=float(logits.abs().max()),
+         sample=torch.cat(generated, dim=1)[0, :16].tolist(),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(all(finite), f"serve slice outputs not finite: {finite}")
+    require(decode_launches == 0, f"the decode path launched ssd_chunk_scan {decode_launches} times")
+    step = lambda: serve(params, tok, cache, s + gen)  # one more decode step
+    return {"ssd_chunk_scan": prefill_launches}, (lambda: prefill(params, batch), step)
+
+
+def profile_serving(torch, prefill, decode_step) -> None:
+    """One prefill call, then one decode step, of the serving slice under
+    torch.profiler: wall time, device busy time and idle share, kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for what, fn in (("prefill", prefill), ("decode_step", decode_step)):
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        by_name, count = device_times(prof)
+        device_s = sum(by_name.values()) / 1e6
+        ssd_us = sum(us for name, us in by_name.items() if "ssd_chunk_scan" in name)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        emit(phase="serve_profile", call=what, B=SERVE_B, prompt=SERVE_PROMPT,
+             wall_s=wall_s, device_busy_s=device_s if device_s > 0 else None,
+             device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
+             ssd_share_of_device=ssd_us / 1e6 / device_s if device_s > 0 else None,
+             kernels_launched=count, top_device_us={name[:80]: us for name, us in top})
 
 
 if __name__ == "__main__":

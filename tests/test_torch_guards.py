@@ -4,6 +4,7 @@
 * Entry points default to the card and raise where there is none.
 * CPU tensors go through the plain versions and count no kernel launch;
   the router accepts nothing but CUDA and CPU tensors.
+* The arch ids and model families not ported yet raise ``NotImplementedError``.
 """
 
 import pkgutil
@@ -12,11 +13,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
+from repro_torch.configs import UNPORTED_ARCH_IDS, get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels.gru_scan import kernel  # noqa: E402
@@ -43,6 +46,7 @@ def no_cuda():
 def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     modules = port_modules()
     assert "repro_torch.experiments.paper" in modules
+    assert {"repro_torch.models.zoo", "repro_torch.launch.serve"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -69,6 +73,7 @@ def test_sources_import_no_jax_and_no_repro(path):
 
 def test_kernel_sources_ship_with_the_package():
     assert (PKG / "csrc" / "gru_scan.cu").is_file()
+    assert (PKG / "csrc" / "ssd.cu").is_file()
 
 
 def test_entry_points_raise_without_a_card(no_cuda):
@@ -87,6 +92,62 @@ def test_entry_points_raise_without_a_card(no_cuda):
         init_gru(torch.Generator(), GRUConfig())
     with pytest.raises(RuntimeError):
         LocalTrainer(make_loss_fn(GRUConfig()), AdamW(), batch_size=4, local_epochs=1)
+
+
+def test_lm_entry_points_raise_without_a_card(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.zoo import Model, params_from_jax
+
+    model = Model(get_config("mamba2-130m").reduced())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"embed": np.zeros((2, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--batch", "1", "--prompt-len", "1", "--gen", "1"])
+
+
+def test_cpu_tensors_through_the_ssd_wrapper_count_no_launch():
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref, ssd_chunk_states_ref
+
+    rng = torch.Generator().manual_seed(0)
+    b, nc, l_len, h, p, n = 1, 2, 4, 3, 2, 5
+    args = (torch.randn(b, nc, l_len, h, p, generator=rng), torch.rand(b, nc, l_len, h, generator=rng),
+            -torch.rand(b, nc, l_len, h, generator=rng).cumsum(2),
+            torch.randn(b, nc, l_len, n, generator=rng), torch.randn(b, nc, l_len, n, generator=rng))
+    before = ssd_kernel.ssd_chunk_scan.launches
+    y, states = ssd_kernel.ssd_chunk_scan(*args, return_states=True)
+    y2 = ssd_ops.ssd_chunk_scan(*args)
+    assert ssd_kernel.ssd_chunk_scan.launches == before
+    assert torch.equal(y, ssd_chunk_scan_ref(*args)) and torch.equal(y2, y)
+    assert torch.equal(states, ssd_chunk_states_ref(*args))
+
+
+@pytest.mark.parametrize("arch", UNPORTED_ARCH_IDS)
+def test_unported_arch_ids_raise(arch):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        get_config(arch)
+
+
+def test_only_the_ssm_family_builds_a_model():
+    import dataclasses
+
+    from repro_torch.configs import ArchType
+    from repro_torch.models.zoo import Model, count_params_config
+
+    cfg = get_config("mamba2-130m")
+    dense = dataclasses.replace(cfg, arch_type=ArchType.DENSE)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        Model(dense)
+    with pytest.raises(NotImplementedError):
+        count_params_config(dense)
+    with pytest.raises(KeyError):
+        get_config("mamba3-1t")
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
