@@ -19,6 +19,9 @@ exit code and no result line:
              without the entry states) at the serving slice's shape, one
              chunk, the reduced config, and a ragged sequence with H=3
              through ``ssd_full``; runs compared bit for bit; then times.
+             ``ssd_chunk_scan_bwd`` against its plain version at the train
+             slice's shape, one chunk, the reduced config and NC=3 with H=3;
+             runs compared bit for bit; then times.
 4. parity  — a small federation trained on the card against the same one
              trained on the CPU through the plain versions.
 5. slice   — the paper's path at full width: the full 189-hospital cohort,
@@ -39,6 +42,18 @@ exit code and no result line:
 9. serve profile — one prefill call and one decode step under
              torch.profiler: wall time, device busy time and idle share, the
              kernels that take most of it.
+10. mamba2 train parity — mamba2-130m at full width in float32, B=2,
+             sequences of 512 and 300 tokens: the loss, every gradient leaf
+             and the params after one ``make_train_step`` on the card against
+             the CPU; on the card, remat on against remat off.
+11. train slice — the published mamba2-130m (bfloat16) through
+             ``make_train_step`` with AdamW(1e-3) at B=8 x 2,048 tokens on one
+             fixed batch: 2 warm-up and 5 timed steps (step time, tokens/s,
+             peak memory, a finite and falling loss), with exactly 24 forward
+             and 24 backward SSD launches a step (48 and 24 with remat).
+12. train profile — one train step under torch.profiler: wall time,
+             device busy time and idle share, the kernels that take most of
+             it, and the SSD kernels' shares of device time.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -62,10 +77,14 @@ DX_TOL = 1e-5
 DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in another order
 PARITY_TOL = 1e-4
 SSD_TOL = 1e-4               # times max(1, max|ref|): sums of up to L*N and L*P products in another order
-MAMBA_TOL = 1e-4             # times max(1, max|ref|): 24 float32 layers, card against CPU
+MAMBA_TOL = 1e-4             # 24 float32 layers, card against CPU: times max(1, max|ref|), a gradient leaf times its own max|ref|
+DECAY_GRAD_TOL = 1e-3        # times its own max|ref|: the A_log and dt_bias leaves (phase 10)
+DECAY_LEAVES = ("A_log", "dt_bias")
 DECODE_ATOL, DECODE_RTOL = 2e-4, 1e-4   # decode path against prefill, as tests/test_decode.py
-PARITY_PROMPTS = (512, 300)  # phase 7: B=2; 300 is ragged against the chunk of 256
+PARITY_PROMPTS = (512, 300)  # phases 7 and 10: B=2; 300 is ragged against the chunk of 256
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64   # phase 8
+TRAIN_B, TRAIN_SEQ, TRAIN_LR = 8, 2048, 1e-3     # phase 11
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 
 
 def emit(**fields) -> None:
@@ -119,6 +138,7 @@ def main() -> int:
     # -- 3. kernels against their plain versions ------------------------------
     kernel_rows = check_kernels(torch, dev, K)
     kernel_rows.append(check_ssd_kernel(torch, dev, SK))
+    kernel_rows.append(check_ssd_bwd_kernel(torch, dev, SK))
 
     # -- 4. the whole path on the card against the CPU ------------------------
     check_parity(torch)
@@ -138,6 +158,18 @@ def main() -> int:
 
     # -- 9. where a prefill call's and a decode step's time goes --------------
     profile_serving(torch, *serve_state)
+    del serve_state
+
+    # -- 10. Mamba2 training at full width: card against CPU, remat on and off -
+    check_mamba2_train_parity(torch)
+
+    # -- 11. the train slice: mamba2-130m, bfloat16, B=8 x 2,048 ---------------
+    train_launches, train_step = run_train_slice(torch, SK)
+    launches["ssd_chunk_scan"] += train_launches["ssd_chunk_scan"]
+    launches["ssd_chunk_scan_bwd"] = train_launches["ssd_chunk_scan_bwd"]
+
+    # -- 12. where a train step's time goes -----------------------------------
+    profile_training(torch, train_step)
 
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
@@ -328,6 +360,22 @@ def scaled_err(got, ref) -> float:
     return max_err(got, ref) / max(1.0, float(ref.abs().max()))
 
 
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """The leaves' paths, in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, item in enumerate(tree) for q in leaf_paths(item, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def leaf_err(got, ref) -> float:
+    """The error relative to the largest entry of ``ref`` itself (no floor at
+    1, so a leaf of small gradients is held as tightly as one of large)."""
+    top = float(ref.abs().max())
+    return max_err(got, ref) / top if top > 0 else max_err(got, ref)
+
+
 def check_ssd_kernel(torch, dev, SK) -> dict:
     from repro_torch.kernels.ssd.ops import ssd_full
     from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref, ssd_chunk_states_ref, ssd_ref
@@ -392,6 +440,97 @@ def check_ssd_kernel(torch, dev, SK) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
     }
+
+
+SSD_BWD_CASES = (
+    # name, B, NC, L, H, P, N
+    ("train", 8, 8, 256, 24, 64, 128),     # the train slice's backward call
+    ("one-chunk", 1, 1, 256, 24, 64, 128),
+    ("reduced", 2, 4, 16, 16, 32, 16),     # mamba2-130m .reduced()
+    ("nc3-h3", 2, 3, 256, 3, 64, 128),     # the last row's dcum term across three chunks
+)
+
+
+def check_ssd_bwd_kernel(torch, dev, SK) -> dict:
+    """``ssd_chunk_scan_bwd`` against ``ssd_chunk_scan_bwd_ref`` on the same
+    inputs (the entry states from the forward kernel, dy standard normal),
+    two runs compared bit for bit; then times at the train slice's shape."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan_bwd_ref
+
+    names = ("dx", "ddt", "dcum", "db", "dc")
+    worst = 0.0
+
+    def bwd_inputs(shape, seed):
+        x, dt, a, bm, cm = ssd_inputs(torch, dev, shape, seed)
+        args = (x, dt, torch.cumsum(dt * a, dim=2), bm, cm)
+        _, states = SK.ssd_chunk_scan(*args, return_states=True)
+        g = torch.Generator().manual_seed(seed + 1)
+        return (*args, states, torch.randn(tuple(x.shape), generator=g).to(dev))
+
+    for i, (case, b, nc, l_len, h, p, n) in enumerate(SSD_BWD_CASES):
+        args = bwd_inputs((b, nc, l_len, h, p, n), seed=230 + i)
+        got = SK.ssd_chunk_scan_bwd(*args)
+        again = SK.ssd_chunk_scan_bwd(*args)
+        torch.cuda.synchronize()
+        ref = ssd_chunk_scan_bwd_ref(*args)
+        e = {k: scaled_err(g, r) for k, g, r in zip(names, got, ref)}
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        emit(phase="ssd_bwd_kernels", case=case, B=b, NC=nc, L=l_len, H=h, P=p, N=n,
+             scaled_err=e, max_abs_err={k: max_err(g, r) for k, g, r in zip(names, got, ref)},
+             max_abs_ref={k: float(r.abs().max()) for k, r in zip(names, ref)},
+             bitwise_repeat=same)
+        require(finite, f"ssd bwd {case}: non-finite cotangents")
+        require(max(e.values()) <= SSD_TOL, f"ssd bwd {case}: error {e}")
+        require(same, f"ssd bwd {case}: two runs differ")
+        worst = max(worst, *(max_err(g, r) for g, r in zip(got, ref)))
+        del args, got, again, ref
+
+    _, b, nc, l_len, h, p, n = SSD_BWD_CASES[0]
+    args = bwd_inputs((b, nc, l_len, h, p, n), seed=240)
+    ms = time_ms(torch, lambda: SK.ssd_chunk_scan_bwd(*args), iters=10, warmup=2)
+    plain = time_ms(torch, lambda: ssd_chunk_scan_bwd_ref(*args), iters=2, warmup=1)
+    nbytes, ops = ssd_bwd_work(b, nc, l_len, h, p, n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    emit(phase="ssd_bwd_timing", shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n},
+         ssd_chunk_scan_bwd_ms=ms, plain_ms=plain, bytes=nbytes, flops=ops,
+         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, achieved_tflops=ops / ms / 1e9,
+         library_ms=None, library_note="no single PyTorch call computes the chunk scan's backward")
+    return {
+        "name": "ssd_chunk_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:212",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+def ssd_bwd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int]:
+    """Bytes the backward must move and its float ops, over the causal pairs.
+
+    Bytes: x, dy, dt, cum, B, C and the entry states read once; dx, ddt,
+    dcum, dB and dC written once.  Scratch that one implementation keeps
+    (the kernel's per-head shares of dB and dC) is not the function's.
+    Per (batch, chunk) and causal pair, shared by the heads: C B^T
+    recomputed, and dC = dG B, dB = dG^T C from the head-summed dG (2N
+    each).  Per head and pair: dW = dy x^T and dx = W^T dy (2P each) and ~10
+    for the decay, the weights and the dt and cum sums.  Per head and row,
+    four products of 2NP each: U = (e dy) S (dC's carried term), V = B dS^T
+    (dx's state term), Z = x dS (dB's) and the update of dS; the y_inter term
+    of dcum is C . U (2N) and g is x . V (2P); ~10 for the decays.
+    """
+    rows = b * nc * l_len
+    bytes_ = 4 * (3 * rows * h * p + 4 * rows * h + 4 * rows * n + b * nc * h * p * n)
+    pairs = l_len * (l_len + 1) // 2
+    per_head = pairs * (4 * p + 10) + l_len * (8 * n * p + 2 * n + 2 * p + 10)
+    return bytes_, b * nc * (3 * 2 * n * pairs + h * per_head)
 
 
 def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int, int]:
@@ -732,6 +871,213 @@ def profile_serving(torch, prefill, decode_step) -> None:
              device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
              ssd_share_of_device=ssd_us / 1e6 / device_s if device_s > 0 else None,
              kernels_launched=count, top_device_us={name[:80]: us for name, us in top})
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: the Mamba2 training path
+# ---------------------------------------------------------------------------
+
+
+def lm_batch(torch, vocab: int, b: int, s: int, seed: int) -> dict:
+    import numpy as np
+
+    from repro_torch.data.pipeline import lm_token_batch
+
+    return {k: torch.from_numpy(v) for k, v in
+            lm_token_batch(np.random.default_rng(seed), b, s, vocab).items()}
+
+
+def loss_and_grads(torch, model, params, batch):
+    """The loss and the gradient of every param leaf (leaf order)."""
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def check_mamba2_train_parity(torch) -> None:
+    """mamba2-130m at full width in float32: the loss, every gradient leaf and
+    the params after one ``make_train_step`` on the card against the CPU; on
+    the card, the loss and gradients with remat on against remat off.
+
+    Every gradient leaf is held to MAMBA_TOL times max(1, max|ref|) and, more
+    tightly where its entries are small, to MAMBA_TOL times its own max|ref|
+    (``leaf_err``).  A_log and dt_bias are held to DECAY_GRAD_TOL times their
+    own max|ref|: each of their entries is one sum, over every row of the
+    batch, of the cotangent of the decay dt A, whose terms cancel to a small
+    result; there two float32 summation orders differ most (the port against
+    JAX on the CPU shows its largest leaf gap there too).
+
+    Params after the step are held to PARITY_TOL where the CPU gradient is at
+    least 1e-6.  Below that AdamW's first step lr g / (|g| + eps) turns a
+    rounding difference of the gradient into a visible fraction of lr (the
+    drift tests/test_torch_mamba2_train.py documents), so those entries are
+    held to 2 lr + PARITY_TOL, the swing of a sign flip."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), dtype="float32")
+    params_cpu = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    opt = AdamW(TRAIN_LR)
+    failures = []
+    for s in PARITY_PROMPTS:
+        t0 = time.perf_counter()
+        batch = lm_batch(torch, cfg.vocab_size, 2, s, seed=s)
+        batch_card = {k: v.cuda() for k, v in batch.items()}
+        model = Model(cfg, remat=False)
+        on_card = lambda: tree_map(lambda t: t.to("cuda"), params_cpu)
+        loss_cpu, g_cpu = loss_and_grads(torch, model, params_cpu, batch)
+        loss_card, g_card = loss_and_grads(torch, model, on_card(), batch_card)
+        loss_remat, g_remat = loss_and_grads(torch, Model(cfg, remat=True), on_card(),
+                                             batch_card)
+        cpu_params = tree_map(torch.clone, params_cpu)  # the step updates params in place
+        cpu_params, _, _ = make_train_step(model, opt)(cpu_params, opt.init(cpu_params), batch)
+        card_params = on_card()
+        card_params, _, _ = make_train_step(model, opt)(card_params, opt.init(card_params),
+                                                        batch_card)
+        torch.cuda.synchronize()
+        grad_err = max(scaled_err(g.cpu(), r) for g, r in zip(g_card, g_cpu))
+        by_leaf = sorted(((leaf_err(g.cpu(), r), q) for q, g, r in
+                          zip(leaf_paths(params_cpu), g_card, g_cpu)), reverse=True)
+        decay = [(e, q) for e, q in by_leaf if q.endswith(DECAY_LEAVES)]
+        other = [(e, q) for e, q in by_leaf if not q.endswith(DECAY_LEAVES)]
+        remat_err = max(leaf_err(g, r) for g, r in zip(g_remat, g_card))
+        small = sum(int((g.abs() < 1e-6).sum()) for g in g_cpu)
+        total = sum(g.numel() for g in g_cpu)
+        settled, unsettled, apart = 0.0, 0.0, 0
+        for a, r, g in zip(tree_leaves(card_params), tree_leaves(cpu_params), g_cpu):
+            gap = (a.cpu() - r).abs()
+            big = g.abs() >= 1e-6
+            if bool(big.any()):
+                settled = max(settled, float(gap[big].max()))
+            if not bool(big.all()):
+                unsettled = max(unsettled, float(gap[~big].max()))
+                apart += int((gap[~big] > PARITY_TOL).sum())
+        loss_err = scaled_err(loss_card.cpu(), loss_cpu)
+        remat_loss_err = scaled_err(loss_remat, loss_card)
+        finite = all(bool(torch.isfinite(t).all()) for t in (*g_card, loss_card))
+        emit(phase="mamba2_train_parity", B=2, S=s, dtype="float32", loss_cpu=float(loss_cpu),
+             loss_card=float(loss_card), loss_scaled_err=loss_err, grad_scaled_err=grad_err,
+             grad_leaf_err_worst=other[:4], grad_leaf_err_decay=decay,
+             grad_entries=total, grad_entries_below_1e6=small, grad_share_below_1e6=small / total,
+             params_max_abs_settled=settled, params_max_abs_below_1e6=unsettled,
+             params_below_1e6_apart_over_tol=apart,
+             remat_loss_scaled_err=remat_loss_err, remat_grad_leaf_err=remat_err,
+             seconds=time.perf_counter() - t0)
+        if not finite:
+            failures.append(f"S={s}: non-finite loss or gradients")
+        if max(loss_err, grad_err, other[0][0]) > MAMBA_TOL or decay[0][0] > DECAY_GRAD_TOL:
+            failures.append(f"S={s}: card against CPU loss {loss_err}, grads {grad_err}, "
+                            f"by leaf {other[0]}, {decay[0]}")
+        if settled > PARITY_TOL or unsettled > 2 * TRAIN_LR + PARITY_TOL:
+            failures.append(f"S={s}: params after the step {settled}, {unsettled}")
+        if max(remat_loss_err, remat_err) > MAMBA_TOL:
+            failures.append(f"S={s}: remat on against off {remat_loss_err}, {remat_err}")
+    require(not failures, "; ".join(failures))
+
+
+def run_train_slice(torch, SK):
+    """The published mamba2-130m (bfloat16, random weights from seed 0)
+    trained with AdamW(1e-3) at B=8 x 2,048 tokens on one fixed batch:
+    TRAIN_WARMUP steps, then TRAIN_STEPS timed ones, each with exactly one
+    forward (with entry states) and one backward SSD launch a layer; the
+    counts are set to 0 just before the timed steps and read just after.
+    Then one more step with remat on: two forward launches a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = get_config("mamba2-130m")
+    layers = cfg.num_layers
+    model = Model(cfg, remat=False)
+    opt = AdamW(TRAIN_LR)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    opt_state = opt.init(params)
+    batch = {k: v.cuda() for k, v in
+             lm_batch(torch, cfg.vocab_size, TRAIN_B, TRAIN_SEQ, seed=0).items()}
+    step = make_train_step(model, opt)
+    for _ in range(TRAIN_WARMUP):
+        params, opt_state, _ = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    SK.ssd_chunk_scan.launches = 0
+    SK.ssd_chunk_scan_bwd.launches = 0
+    step_s, losses, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        per_step.append((SK.ssd_chunk_scan.launches - before[0],
+                         SK.ssd_chunk_scan_bwd.launches - before[1]))
+    counts = {"ssd_chunk_scan": SK.ssd_chunk_scan.launches,
+              "ssd_chunk_scan_bwd": SK.ssd_chunk_scan_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    remat_step = make_train_step(Model(cfg, remat=True), opt)
+    before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, metrics = remat_step(params, opt_state, batch)
+    remat_loss = float(metrics["loss"])
+    remat_s = time.perf_counter() - t0
+    remat_counts = (SK.ssd_chunk_scan.launches - before[0],
+                    SK.ssd_chunk_scan_bwd.launches - before[1])
+    tokens = TRAIN_B * TRAIN_SEQ
+    mean_s = sum(step_s) / len(step_s)
+    emit(phase="train_slice", arch=cfg.name, dtype=cfg.dtype, B=TRAIN_B, seq=TRAIN_SEQ,
+         lr=TRAIN_LR, step_s=step_s, step_ms=mean_s * 1e3, tokens_per_s=tokens / mean_s,
+         losses=losses, peak_mem_gb=peak / 1e9, ssd_launches_per_step=per_step,
+         remat_step_s=remat_s, remat_loss=remat_loss, remat_ssd_launches=remat_counts,
+         remat_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(all(math.isfinite(v) for v in (*losses, remat_loss)), f"train losses {losses}")
+    require(losses[-1] < losses[0], f"the train loss does not fall: {losses}")
+    require(all(c == (layers, layers) for c in per_step),
+            f"SSD launches a step {per_step}, expected {(layers, layers)}")
+    require(remat_counts == (2 * layers, layers),
+            f"SSD launches of a remat step {remat_counts}, expected {(2 * layers, layers)}")
+    return counts, lambda: step(params, opt_state, batch)
+
+
+def profile_training(torch, train_step) -> None:
+    """One train step of the train slice under torch.profiler: wall time,
+    device busy time and idle share, kernels, and the SSD kernels' shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    train_step()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    by_name, count = device_times(prof)
+    device_s = sum(by_name.values()) / 1e6
+    fwd_us = sum(us for name, us in by_name.items() if "ssd_chunk_scan_kernel" in name)
+    bwd_us = sum(us for name, us in by_name.items()
+                 if "ssd_chunk_scan_bwd_kernel" in name or "ssd_bwd_reduce_kernel" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    share = (lambda us: us / 1e6 / device_s) if device_s > 0 else (lambda us: None)
+    emit(phase="train_profile", B=TRAIN_B, seq=TRAIN_SEQ, wall_s=wall_s,
+         device_busy_s=device_s if device_s > 0 else None,
+         device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
+         ssd_fwd_share_of_device=share(fwd_us), ssd_bwd_share_of_device=share(bwd_us),
+         ssd_fwd_us=fwd_us, ssd_bwd_us=bwd_us,
+         kernels_launched=count, top_device_us={name[:80]: us for name, us in top})
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Batching / client-dataset plumbing shared by central and federated training.
 
 A copy of the JAX package's ``data/pipeline.py`` (the parts the sequential
-engine uses): ``padded_batches`` consumes the numpy generator exactly as the
-reference does, so batch order matches it by construction.
+engine and the LM trainer use): ``padded_batches`` and ``lm_token_batch``
+consume the numpy generator exactly as the reference does, so batch order
+and tokens match it by construction.
 """
 
 from __future__ import annotations
@@ -105,3 +106,11 @@ def build_client_datasets(cohort: Cohort, min_train: int = 2) -> list[ClientData
 def global_dataset(cohort: Cohort, split: int) -> ArrayDataset:
     m = cohort.mask(split)
     return ArrayDataset(cohort.fused_features()[m], cohort.y[m])
+
+
+def lm_token_batch(
+    rng: np.random.Generator, batch: int, seq_len: int, vocab_size: int
+) -> dict[str, np.ndarray]:
+    """Synthetic LM batch for the assigned language-model architectures."""
+    tokens = rng.integers(0, vocab_size, size=(batch, seq_len + 1), dtype=np.int32)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

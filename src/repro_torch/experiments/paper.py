@@ -177,3 +177,33 @@ def _predict(params, model_cfg: GRUConfig, dataset: ArrayDataset, batch: int = 2
         x = torch.from_numpy(np.ascontiguousarray(dataset.x[start : start + batch])).to(dev)
         outs.append(gru_apply(params, model_cfg, x).cpu().numpy())
     return np.concatenate(outs)
+
+
+def run_seeds(
+    setting: str, exp: ExperimentConfig, seeds: list[int], verbose: bool = True
+) -> dict[str, Any]:
+    """Multi-seed runs -> mean/std per metric (paper reports mean +/- std)."""
+    runs = []
+    for seed in seeds:
+        cohort = build_cohort(exp, seed=seed)
+        out = run_setting(setting, exp, cohort, seed=seed)
+        if verbose:
+            m = out["metrics"]
+            print(
+                f"  [{setting} seed={seed}] mae={m['mae']:.3f} mape={m['mape']:.3f} "
+                f"mse={m['mse']:.2f} msle={m['msle']:.3f} tau={out['tau_s']:.1f}s",
+                flush=True,
+            )
+        runs.append(out)
+    agg: dict[str, Any] = {"setting": setting, "seeds": seeds, "runs": runs}
+    for key in ("mae", "mape", "mse", "msle"):
+        vals = np.array([r["metrics"][key] for r in runs])
+        agg[key] = {"mean": float(vals.mean()), "std": float(vals.std(ddof=1) if len(vals) > 1 else 0.0),
+                    "values": vals.tolist()}
+    taus = np.array([r["tau_s"] for r in runs])
+    agg["tau_s"] = {"mean": float(taus.mean()), "std": float(taus.std(ddof=1) if len(taus) > 1 else 0.0),
+                    "values": taus.tolist()}
+    agg["local_steps"] = int(np.mean([r["local_steps"] for r in runs]))
+    agg["federation_size"] = runs[0]["federation_size"]
+    agg["recruited"] = runs[0]["recruited"]
+    return agg

@@ -1,17 +1,20 @@
-"""Wrapper of the Hopper SSD chunked-scan kernel (``csrc/ssd.cu``).
+"""Wrappers of the Hopper SSD chunked-scan kernels (``csrc/ssd.cu``).
 
 ``ssd_chunk_scan`` replaces the JAX package's Pallas ``ssd_chunk_scan``:
 chunked inputs ``x (B, NC, L, H, P)``, ``dt`` and ``cum (B, NC, L, H)``,
 ``b_mat`` and ``c_mat (B, NC, L, N)`` shared across heads, to
 ``y (B, NC, L, H, P)``; with ``return_states`` also the float32 chunk-entry
-states ``(B, NC, H, P, N)``.
+states ``(B, NC, H, P, N)``.  ``ssd_chunk_scan_bwd`` replaces the Pallas
+``ssd_chunk_scan_bwd``: from those states and the cotangent ``dy`` to
+``(dx, ddt, dcum, db, dc)`` in the inputs' shapes.
 
-On CUDA tensors the wrapper checks dtype (float32), shape, the kernel's
+On CUDA tensors a wrapper checks dtype (float32), shape, the kernel's
 limits (L <= 256, P <= 64, N <= 128) and contiguity, allocates its outputs
-with ``torch.empty``, launches the kernel on PyTorch's current stream and
-adds one to ``ssd_chunk_scan.launches``.  On CPU tensors it returns the
-plain versions from ``ref.py`` and counts nothing.  Padding a ragged
-sequence to whole chunks is the caller's (``ops.ssd_full``).
+(and the backward's per-head scratch) with ``torch.empty``, launches the
+kernel on PyTorch's current stream and adds one to its ``launches`` count.
+On CPU tensors it returns the plain versions from ``ref.py`` and counts
+nothing.  Padding a ragged sequence to whole chunks is the caller's
+(``ops.ssd_full``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref, ssd_chunk_states_ref
+from repro_torch.kernels.ssd.ref import (
+    ssd_chunk_scan_bwd_ref,
+    ssd_chunk_scan_ref,
+    ssd_chunk_states_ref,
+)
 
 MAX_CHUNK = 256
 MAX_HEAD_DIM = 64
@@ -29,7 +36,10 @@ MAX_STATE = 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Pointers and the stream as c_void_p: a bare Python int would pass as 32 bits.
-_SIGNATURES = {"ssd_chunk_scan_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I)}
+_SIGNATURES = {
+    "ssd_chunk_scan_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "ssd_chunk_scan_bwd": ([_P] * 14 + [_I] * 6 + [_P], _I),
+}
 
 
 def _library() -> ctypes.CDLL:
@@ -53,14 +63,15 @@ def _check_shapes(xc, dtc, cum, bc, cc) -> tuple[int, ...]:
     return b, nc, l_len, h, p, n
 
 
-def _check_cuda_inputs(l_len: int, p: int, n: int, *tensors: torch.Tensor) -> None:
+def _check_cuda_inputs(l_len: int, p: int, n: int, *tensors: torch.Tensor,
+                       what: str = "ssd_chunk_scan") -> None:
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(f"the ssd_chunk_scan kernel takes float32 tensors, got {t.dtype}")
+            raise TypeError(f"the {what} kernel takes float32 tensors, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError("the ssd_chunk_scan kernel takes contiguous tensors")
+            raise ValueError(f"the {what} kernel takes contiguous tensors")
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("the ssd_chunk_scan kernel takes tensors on one device")
+        raise ValueError(f"the {what} kernel takes tensors on one device")
     if l_len > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
         raise ValueError(
             f"chunk {l_len}, head_dim {p}, d_state {n} above the kernel's limits "
@@ -104,3 +115,43 @@ def ssd_chunk_scan(
 
 
 ssd_chunk_scan.launches = 0
+
+
+def ssd_chunk_scan_bwd(
+    xc: torch.Tensor,      # (B, NC, L, H, P)
+    dtc: torch.Tensor,     # (B, NC, L, H)
+    cum: torch.Tensor,     # (B, NC, L, H)
+    bc: torch.Tensor,      # (B, NC, L, N)
+    cc: torch.Tensor,      # (B, NC, L, N)
+    states: torch.Tensor,  # (B, NC, H, P, N) float32 chunk-entry states
+    dy: torch.Tensor,      # (B, NC, L, H, P)
+) -> tuple[torch.Tensor, ...]:
+    """``(dx, ddt, dcum, db, dc)`` in the shapes of ``(xc, dtc, cum, bc, cc)``.
+
+    ``cum`` is treated as an independent input: its cotangent is returned,
+    not folded into ``ddt``."""
+    b, nc, l_len, h, p, n = _check_shapes(xc, dtc, cum, bc, cc)
+    for name, t, want in (("states", states, (b, nc, h, p, n)), ("dy", dy, tuple(xc.shape))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} is {tuple(t.shape)}, expected {want} for x {tuple(xc.shape)}")
+    tensors = (xc, dtc, cum, bc, cc, states, dy)
+    if backend.route(*tensors) == "cpu":
+        return ssd_chunk_scan_bwd_ref(*tensors)
+    _check_cuda_inputs(l_len, p, n, *tensors, what="ssd_chunk_scan_bwd")
+    grads = tuple(torch.empty_like(t) for t in (xc, dtc, cum, bc, cc))
+    if not xc.numel():
+        return tuple(g.zero_() for g in grads)
+    # Each (batch, head) block writes its head's share of dB and dC here; a
+    # second kernel sums the shares in head order.
+    share = torch.empty((2, b, nc, h, l_len, n), dtype=torch.float32, device=xc.device)
+    err = _library().ssd_chunk_scan_bwd(
+        *(t.data_ptr() for t in tensors), *(g.data_ptr() for g in grads),
+        share[0].data_ptr(), share[1].data_ptr(),
+        b, nc, l_len, h, p, n, backend.stream_handle(xc.device),
+    )
+    backend.check(err, "ssd_chunk_scan_bwd")
+    ssd_chunk_scan_bwd.launches += 1
+    return grads
+
+
+ssd_chunk_scan_bwd.launches = 0

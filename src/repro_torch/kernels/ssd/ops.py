@@ -5,11 +5,14 @@ produces; ``ssd_full`` takes an unchunked sequence and pads, chunks and
 forms the within-chunk cumulative decay first (the tests sweep shapes
 through it against ``ssd_ref``).
 
-Only the forward is ported: the backward kernel (the JAX package's
-``ssd_chunk_scan_bwd``) comes with the training slice.  CPU tensors run the
-plain version, which autograd differentiates as it is; CUDA tensors that
-require grad raise, because a gradient on the card would have to run the
-plain version there.
+Both go through ``SSDChunkScan``, the port of the JAX ``custom_vjp``: when
+an input needs a gradient its forward also returns the chunk-entry states
+and saves them, and its backward is the single reverse pass of
+``ssd_chunk_scan_bwd`` from those states, with no forward recompute.  On
+CUDA tensors both are the hand-written kernels; on CPU tensors both are the
+plain versions in ``ref.py``, as the JAX package runs its jnp backward off
+the TPU.  ``cum`` gets a cotangent of its own, which autograd carries
+through ``ssd_full``'s cumsum to ``dt`` and ``A``.
 """
 
 from __future__ import annotations
@@ -20,15 +23,23 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd import kernel
 
 
+class SSDChunkScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xc, dtc, cum, bc, cc):
+        if not any(ctx.needs_input_grad):
+            return kernel.ssd_chunk_scan(xc, dtc, cum, bc, cc)
+        y, states = kernel.ssd_chunk_scan(xc, dtc, cum, bc, cc, return_states=True)
+        ctx.save_for_backward(xc, dtc, cum, bc, cc, states)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return kernel.ssd_chunk_scan_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
 def ssd_chunk_scan(xc, dtc, cum, bc, cc) -> torch.Tensor:
     """Chunked inputs (B, NC, L, ...) -> y (B, NC, L, H, P)."""
-    tensors = (xc, dtc, cum, bc, cc)
-    if torch.is_grad_enabled() and any(t.is_cuda and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the SSD backward kernel is not ported yet (the training slice, ROADMAP "
-            "Queue 2 item 4): run the card's SSD path under torch.inference_mode()"
-        )
-    return kernel.ssd_chunk_scan(*tensors)
+    return SSDChunkScan.apply(xc, dtc, cum, bc, cc)
 
 
 def ssd_full(

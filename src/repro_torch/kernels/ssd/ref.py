@@ -6,8 +6,9 @@
 ``ssd_ref`` runs that recurrence step by step over the unchunked sequence —
 slow but unambiguous.  ``ssd_chunk_scan_ref`` computes what the CUDA kernel
 computes, in the chunked layout, chunk by chunk; ``ssd_chunk_states_ref``
-gives the chunk-entry states the kernel writes with ``return_states``.
-All compute in float32.
+gives the chunk-entry states the kernel writes with ``return_states``;
+``ssd_chunk_scan_bwd_ref`` is the backward kernel's plain version, one
+reverse pass over the chunks from those states.  All compute in float32.
 """
 
 from __future__ import annotations
@@ -96,3 +97,70 @@ def ssd_chunk_states_ref(
         entries.append(state)
         state = _state_update(state, x32[:, k], dt32[:, k], cum32[:, k], b32[:, k])
     return torch.stack(entries, dim=1)
+
+
+def ssd_chunk_scan_bwd_ref(
+    xc: torch.Tensor,      # (B, NC, L, H, P)
+    dtc: torch.Tensor,     # (B, NC, L, H)
+    cum: torch.Tensor,     # (B, NC, L, H)
+    bc: torch.Tensor,      # (B, NC, L, N)
+    cc: torch.Tensor,      # (B, NC, L, N)
+    states: torch.Tensor,  # (B, NC, H, P, N) chunk-entry states
+    dy: torch.Tensor,      # (B, NC, L, H, P) output cotangent
+) -> tuple[torch.Tensor, ...]:
+    """Residual backward: one reverse pass over the chunks, no forward recompute.
+
+    ``cum`` is an independent input: its own cotangent is returned, and the
+    caller's cumsum carries it on to dt and A.  Returns
+    ``(dxc, ddtc, dcum, dbc, dcc)`` in the inputs' dtypes.
+    """
+    b, nc, l_len, h, p = xc.shape
+    causal = _causal(l_len, xc.device)
+    x32, dt32, cum32, b32, c32, s32, dy32 = (
+        t.float() for t in (xc, dtc, cum, bc, cc, states, dy))
+    ds = x32.new_zeros((b, h, p, bc.shape[-1]))  # cotangent of the state after the chunk
+    outs = []
+    for k in reversed(range(nc)):
+        x_k, dt_k, cum_k, b_k, c_k = x32[:, k], dt32[:, k], cum32[:, k], b32[:, k], c32[:, k]
+        s_k, dy_k = s32[:, k], dy32[:, k]
+        cb = torch.einsum("bln,bmn->blm", c_k, b_k)
+        diff = cum_k[:, :, None, :] - cum_k[:, None, :, :]
+        decay = torch.exp(torch.where(causal[None, :, :, None], diff, -1e30))
+
+        # intra-chunk quadratic form, transposed
+        w = cb[:, :, :, None] * decay * dt_k[:, None, :, :]
+        dw = torch.einsum("blhp,bmhp->blmh", dy_k, x_k)
+        dx = torch.einsum("blmh,blhp->bmhp", w, dy_k)
+        dcb = torch.einsum("blmh,blmh->blm", dw, decay * dt_k[:, None, :, :])
+        ddt = torch.einsum("blmh->bmh", dw * cb[:, :, :, None] * decay)
+        term = dw * cb[:, :, :, None] * dt_k[:, None, :, :] * decay
+        dcum = term.sum(dim=2) - term.sum(dim=1)
+        dc = torch.einsum("blm,bmn->bln", dcb, b_k)
+        db = torch.einsum("blm,bln->bmn", dcb, c_k)
+
+        # the carried state's term y_inter = exp(cum_l) C_l . S_k
+        sd = torch.exp(cum_k)
+        d_cs = dy_k * sd[:, :, :, None]
+        dc = dc + torch.einsum("blhp,bhpn->bln", d_cs, s_k)
+        ds_from_y = torch.einsum("blhp,bln->bhpn", d_cs, c_k)
+        y_inter = torch.einsum("bln,bhpn->blhp", c_k, s_k) * sd[:, :, :, None]
+        dcum = dcum + torch.einsum("blhp,blhp->blh", dy_k, y_inter)
+
+        # the state update S_k+1 = S_k exp(cum_last) + sum_l B_l indec_l x_l, transposed
+        cd = torch.exp(cum_k[:, -1, :])
+        indec = torch.exp(cum_k[:, -1:, :] - cum_k) * dt_k
+        ds_in = ds * cd[:, :, None, None] + ds_from_y
+        g = torch.einsum("bhpn,bln,blhp->blh", ds, b_k, x_k)
+        db = db + torch.einsum("bhpn,blh,blhp->bln", ds, indec, x_k)
+        dx = dx + torch.einsum("bhpn,bln,blh->blhp", ds, b_k, indec)
+        ddt = ddt + g * torch.exp(cum_k[:, -1:, :] - cum_k)
+        dcum = dcum - g * indec
+        last = torch.einsum("bhpn,bhpn->bh", ds, s_k) * cd + (g * indec).sum(dim=1)
+        dcum[:, -1, :] += last
+        outs.append((dx, ddt, dcum, db, dc))
+        ds = ds_in
+    outs.reverse()
+    return tuple(
+        torch.stack([o[i] for o in outs], dim=1).to(like.dtype)
+        for i, like in enumerate((xc, dtc, cum, bc, cc))
+    )

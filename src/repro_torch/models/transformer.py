@@ -3,7 +3,9 @@
 Per-layer parameters are stacked on a leading layer dimension, as in the
 JAX package, so param trees carry across key for key.  JAX scans a layer
 body over that dimension; here ``run_stack`` and ``run_stack_decode`` are
-Python loops over the layer index.  The attention, MoE and encoder-decoder
+Python loops over the layer index.  ``run_stack(..., remat=True)`` is the
+port of ``jax.checkpoint(body)``: each layer keeps only its input for the
+backward and runs its forward again there.  The attention, MoE and encoder-decoder
 blocks come with their families (ROADMAP Queue 1 item 15).
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
@@ -48,10 +51,21 @@ def run_stack(
     stack_params: PyTree,
     x: torch.Tensor,
     body: Callable[[PyTree, torch.Tensor], torch.Tensor],
+    *,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """``x = body(layer_params, x)`` over the stacked layers, in order."""
+    """``x = body(layer_params, x)`` over the stacked layers, in order.
+
+    With ``remat`` each layer is recomputed in the backward
+    (``torch.utils.checkpoint``); only while grad is enabled, so a step
+    under ``inference_mode`` runs each layer once."""
+    remat = remat and torch.is_grad_enabled()
     for i in range(_depth(stack_params)):
-        x = body(layer(stack_params, i), x)
+        p = layer(stack_params, i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(body, p, x, use_reentrant=False)
+        else:
+            x = body(p, x)
     return x
 
 

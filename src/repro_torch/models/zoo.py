@@ -1,19 +1,23 @@
 """Model API of the port's LM zoo: the SSM family (Mamba2).
 
-``Model(cfg)`` exposes the functional surface the serving steps consume::
+``Model(cfg)`` exposes the functional surface the train and serving steps
+consume::
 
     params = model.init(generator, device)
+    loss, aux = model.loss(params, batch)                  # train
     h, aux = model.hidden(params, batch)                   # prefill
     logits = model.forward_logits(params, batch)
     cache  = model.init_cache(batch_size, max_len, device)
     logits, cache = model.decode_step(params, tok, cache, pos)   # serve
 
-Batches are dicts with ``tokens`` (B, S) int64 (or int32).  Params are
-nested dicts of tensors with the JAX zoo's keys and stacked layouts, so
-``params_from_jax`` carries a JAX param tree across key for key.  On one
-card the JAX package's sharding constraints are no-ops and are dropped.
-Training (``loss``) comes with the training slice; the other families
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 15).
+Batches are dicts with ``tokens`` and, for ``loss``, ``labels`` (B, S)
+int64 (or int32; a label of -1 is not scored).  Params are nested dicts of
+tensors with the JAX zoo's keys and stacked layouts, so ``params_from_jax``
+carries a JAX param tree across key for key.  On one card the JAX package's
+sharding constraints are no-ops and are dropped.  ``remat`` and
+``loss_chunk`` keep the JAX defaults: each layer, and each sequence chunk's
+logits, is recomputed in the backward.  The other families raise
+``NotImplementedError`` (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, ArchType
 from repro_torch.device import resolve_device
@@ -53,9 +58,18 @@ def _require_ported(cfg: ArchConfig) -> None:
         )
 
 
+def _chunk_nll(h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one sequence chunk; labels < 0 score 0."""
+    logp = torch.log_softmax((h @ head).float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return torch.where(labels >= 0, -ll, 0.0).sum()
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
+    remat: bool = True
+    loss_chunk: int = 512  # sequence chunk for the memory-bounded CE
 
     def __post_init__(self) -> None:
         _require_ported(self.cfg)
@@ -82,7 +96,8 @@ class Model:
         """Final-norm hidden states (B, S, D) and the aux loss (0 for SSM)."""
         cfg = self.cfg
         x = params["embed"][batch["tokens"].long()]
-        x = run_stack(params["blocks"], x, lambda p, h: mamba_block_apply(p, cfg, h))
+        x = run_stack(params["blocks"], x, lambda p, h: mamba_block_apply(p, cfg, h),
+                      remat=self.remat)
         x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -94,6 +109,39 @@ class Model:
     def forward_logits(self, params: PyTree, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         x, _ = self.hidden(params, batch)
         return (x @ self._head_matrix(params)).float()
+
+    # ------------------------------------------------------------------ loss
+    def _chunked_ce(self, h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Memory-bounded CE: sequence chunks of ``loss_chunk``, each chunk's
+        float32 logits recomputed in the backward."""
+        b, s, _ = h.shape
+        chunk = min(self.loss_chunk, s)
+        nc = -(-s // chunk)
+        pad = nc * chunk - s
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.int64, device=h.device)
+        for k in range(nc):
+            h_k, y_k = h[:, k * chunk:(k + 1) * chunk], labels[:, k * chunk:(k + 1) * chunk]
+            total = total + torch.utils.checkpoint.checkpoint(
+                _chunk_nll, h_k, y_k, head, use_reentrant=False)
+            count = count + (y_k >= 0).sum()
+        return total / torch.clamp(count, min=1).float()
+
+    def loss(self, params: PyTree, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Mean next-token CE over the labels >= 0: ``(total, {"ce",
+        "router_aux", "loss"})``."""
+        cfg = self.cfg
+        if cfg.moe is not None or cfg.mtp:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.arch_type.value} family's router and MTP losses are "
+                "not ported to PyTorch yet (ROADMAP Queue 1 item 15)"
+            )
+        h, aux = self.hidden(params, batch)
+        ce = self._chunked_ce(h, self._head_matrix(params), batch["labels"])
+        return ce, {"ce": ce, "router_aux": aux, "loss": ce}
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int, device: str | torch.device | None = None) -> PyTree:

@@ -1,5 +1,5 @@
-"""The CUDA kernels (gru_scan, ssd_chunk_scan) on the card against their
-plain PyTorch versions.
+"""The CUDA kernels (gru_scan, ssd_chunk_scan and its backward) on the card
+against their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 no JAX, so it also runs on a machine with a card and no JAX:
@@ -8,8 +8,9 @@ no JAX, so it also runs on a machine with a card and no JAX:
 
 Tolerances: gru_scan forward and dx_gates 1e-5; dW_hh / db_hh 1e-4 times
 max(1, max|ref|), as sums over B*T terms taken in another order;
-ssd_chunk_scan 1e-4 times max(1, max|ref|), as sums over up to L*N and
-L*P products taken in another order.
+ssd_chunk_scan and ssd_chunk_scan_bwd 1e-4 times max(1, max|ref|), as sums
+over up to L*N and L*P products (and, for dB and dC, over the heads) taken
+in another order.
 """
 
 import numpy as np
@@ -22,7 +23,11 @@ from repro_torch.kernels.gru_scan.ops import GRUScan  # noqa: E402
 from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref, ssd_chunk_states_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import (  # noqa: E402
+    ssd_chunk_scan_bwd_ref,
+    ssd_chunk_scan_ref,
+    ssd_chunk_states_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -143,8 +148,8 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             ssd_kernel.ssd_chunk_scan(*ssd_inputs(cuda, *shape))
     leaves = [a.requires_grad_(True) for a in args]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ssd_ops.ssd_chunk_scan(*leaves)
+    y = ssd_ops.ssd_chunk_scan(*leaves)  # the backward kernel is ported: no NotImplementedError
+    assert y.requires_grad and y.grad_fn is not None
 
 
 def test_mamba2_prefill_on_the_card_matches_the_cpu(cuda):
@@ -163,3 +168,116 @@ def test_mamba2_prefill_on_the_card_matches_the_cpu(cuda):
     got = step(on_card, {"tokens": toks.to(cuda)})
     assert ssd_kernel.ssd_chunk_scan.launches == before + model.cfg.num_layers
     assert scaled_err(got.cpu(), want) <= 1e-4
+
+
+def ssd_bwd_inputs(device, b, nc, l_len, h, p, n, seed=0):
+    args = ssd_inputs(device, b, nc, l_len, h, p, n, seed)
+    states = ssd_chunk_states_ref(*args)
+    dy = torch.tensor(np.random.default_rng(seed + 1).normal(size=tuple(args[0].shape)),
+                      dtype=torch.float32, device=device)
+    return [*args, states, dy]
+
+
+@pytest.mark.parametrize(
+    "b,nc,l_len,h,p,n",
+    [(1, 3, 256, 3, 64, 128), (1, 1, 256, 24, 64, 128), (2, 4, 16, 16, 32, 16),
+     (1, 3, 100, 3, 48, 33), (2, 2, 64, 5, 1, 1), (1, 3, 8, 3, 8, 16)],
+)
+def test_ssd_bwd_kernel_matches_plain_version(cuda, b, nc, l_len, h, p, n):
+    args = ssd_bwd_inputs(cuda, b, nc, l_len, h, p, n)
+    before = ssd_kernel.ssd_chunk_scan_bwd.launches
+    grads = ssd_kernel.ssd_chunk_scan_bwd(*args)
+    again = ssd_kernel.ssd_chunk_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_chunk_scan_bwd.launches == before + 2
+    for g, r, a in zip(grads, ssd_chunk_scan_bwd_ref(*args), again):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        assert scaled_err(g, r) <= 1e-4
+        assert torch.equal(g, a)
+
+
+def test_ssd_bwd_strong_decay_stays_finite(cuda):
+    """cum falls by 50 a step: an unmasked exp(cum_l - cum_m) would overflow."""
+    args = ssd_bwd_inputs(cuda, 1, 2, 64, 2, 8, 16)
+    args[2] = torch.cumsum(torch.full_like(args[1], -50.0), dim=2)
+    args[5] = ssd_chunk_states_ref(*args[:5])
+    grads = ssd_kernel.ssd_chunk_scan_bwd(*args)
+    for g, r in zip(grads, ssd_chunk_scan_bwd_ref(*args)):
+        assert bool(torch.isfinite(g).all())
+        assert scaled_err(g, r) <= 1e-4
+
+
+def test_ssd_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    args = ssd_bwd_inputs(cuda, 1, 2, 8, 2, 4, 4)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_chunk_scan_bwd(*(a.bfloat16() for a in args))
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_chunk_scan_bwd(*args[:6], args[6].transpose(3, 4).contiguous().transpose(3, 4))
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_chunk_scan_bwd(*args[:5], args[5][:, :1], args[6])
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_chunk_scan_bwd(*args[:6], args[6].cpu())
+    for shape in ((1, 1, 257, 1, 4, 4), (1, 1, 8, 1, 65, 4), (1, 1, 8, 1, 4, 129)):
+        with pytest.raises(ValueError):
+            ssd_kernel.ssd_chunk_scan_bwd(*ssd_bwd_inputs(cuda, *shape))
+
+
+def test_ssd_autograd_on_the_card_runs_both_kernels(cuda):
+    """ssd_full with a ragged S=300 at chunk 256: gradients of every input
+    against the same graph on the CPU (plain forward and backward)."""
+    rng = np.random.default_rng(7)
+    b, s, h, p, n = 2, 300, 3, 64, 128
+    arrays = (rng.normal(size=(b, s, h, p)), np.log1p(np.exp(rng.normal(size=(b, s, h)))),
+              -np.exp(rng.normal(size=(h,)) * 0.5) * 0.02, rng.normal(size=(b, s, n)),
+              rng.normal(size=(b, s, n)))
+    cot = torch.tensor(rng.normal(size=(b, s, h, p)), dtype=torch.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True)
+                  for a in arrays]
+        before = (ssd_kernel.ssd_chunk_scan.launches, ssd_kernel.ssd_chunk_scan_bwd.launches)
+        y = ssd_ops.ssd_full(*leaves, chunk=256)
+        grads[str(dev)] = torch.autograd.grad((y * cot.to(dev)).sum(), leaves)
+        after = (ssd_kernel.ssd_chunk_scan.launches, ssd_kernel.ssd_chunk_scan_bwd.launches)
+        assert after == (before if dev == "cpu" else (before[0] + 1, before[1] + 1))
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert scaled_err(g.cpu(), r) <= 1e-4
+
+
+def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = Model(get_config("mamba2-130m").reduced(), remat=False, loss_chunk=16)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(0).integers(0, 512, (2, 38))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    opt = AdamW(1e-3)
+    step = make_train_step(model, opt)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    before = (ssd_kernel.ssd_chunk_scan.launches, ssd_kernel.ssd_chunk_scan_bwd.launches)
+    new_card, _, m_card = step(on_card, opt.init(on_card), card_batch)
+    after = (ssd_kernel.ssd_chunk_scan.launches, ssd_kernel.ssd_chunk_scan_bwd.launches)
+    layers = model.cfg.num_layers
+    assert after == (before[0] + layers, before[1] + layers)
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    grads = torch.autograd.grad(model.loss(params, batch)[0], leaves)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    new_cpu, _, m_cpu = step(params, opt.init(params), batch)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-4 * max(1.0, float(m_cpu["loss"]))
+    # Where |g| < 1e-6, AdamW's first step lr g / (|g| + eps) follows the sign
+    # of rounding noise, so those entries are held to the swing of a sign flip.
+    for a, r, g in zip(tree_leaves(new_card), tree_leaves(new_cpu), grads):
+        gap = (a.cpu() - r).abs()
+        settled = g.abs() >= 1e-6
+        assert bool(torch.isfinite(gap).all())
+        if bool(settled.any()):
+            assert float(gap[settled].max()) <= 1e-4
+        assert float(gap.max()) <= 2 * opt.learning_rate + 1e-4

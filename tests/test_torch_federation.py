@@ -13,9 +13,14 @@ the backward) is a large relative change, and it moves the step by a
 visible fraction of lr; 31 local steps add those up.  On this federation
 every entry but one of the second layer's W_hh agrees to 3e-7; that one
 drifts to 2.9e-5 in round one and stays there.
+
+``run_seeds`` is held against JAX's on the same stand-in runs (its
+aggregation and what it prints), and ``launch/train.py --mode paper`` runs
+two seeds on the CPU at scale 0.005 and writes its results file.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -226,3 +231,44 @@ def test_fedavg_primitives_match_jax(init_params):
     assert not fedavg.tree_allclose(ported[0], ported[1])
     with pytest.raises(ValueError):
         fedavg.aggregate(ported, [0.0, 0.0, 0.0])
+
+
+def fake_run(setting, exp, cohort, seed, **_):
+    """A stand-in for ``run_setting`` whose numbers depend on the seed only."""
+    return {"setting": setting, "seed": seed, "tau_s": 1.5 + seed, "local_steps": 10 + 3 * seed,
+            "federation_size": 7, "recruited": 5,
+            "metrics": {"mae": 2.0 + 0.25 * seed, "mape": 0.5 / (1 + seed), "mse": 9.0 - seed,
+                        "msle": 0.3 + 0.01 * seed * seed}}
+
+
+@pytest.mark.parametrize("seeds", [[0], [0, 1, 2]])
+def test_run_seeds_aggregates_as_jax(monkeypatch, capsys, seeds):
+    for module in (paper, jax_paper):
+        monkeypatch.setattr(module, "run_setting", fake_run)
+        monkeypatch.setattr(module, "build_cohort", lambda exp, seed: None)
+    ref = jax_paper.run_seeds("federated-src", JEXP, seeds)
+    ref_out = capsys.readouterr().out
+    got = paper.run_seeds("federated-src", EXP, seeds)
+    assert capsys.readouterr().out == ref_out
+    assert got == ref
+
+
+def test_train_paper_mode_on_the_cpu_writes_its_results(monkeypatch, tmp_path, capsys):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(train, "RESULTS_DIR", tmp_path)
+    train.main(["--mode", "paper", "--device", "cpu", "--setting", "federated-src",
+                "--scale", "0.005", "--rounds", "1", "--seeds", "0", "1"])
+    out = tmp_path / "paper" / "federated-src_scale0.005.json"
+    assert f"saved -> {out}" in capsys.readouterr().out
+    agg = json.loads(out.read_text())
+    assert agg["setting"] == "federated-src" and agg["seeds"] == [0, 1]
+    assert [r["seed"] for r in agg["runs"]] == [0, 1]
+    for key in ("mae", "mape", "mse", "msle"):
+        vals = [r["metrics"][key] for r in agg["runs"]]
+        assert agg[key]["values"] == vals and all(np.isfinite(vals))
+        assert agg[key]["mean"] == pytest.approx(np.mean(vals), rel=1e-12)
+        assert agg[key]["std"] == pytest.approx(np.std(vals, ddof=1), rel=1e-12)
+    assert agg["tau_s"]["values"] == [r["tau_s"] for r in agg["runs"]]
+    assert agg["federation_size"] == agg["runs"][0]["federation_size"] > 0
+    assert agg["local_steps"] > 0

@@ -46,7 +46,8 @@ def no_cuda():
 def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     modules = port_modules()
     assert "repro_torch.experiments.paper" in modules
-    assert {"repro_torch.models.zoo", "repro_torch.launch.serve"} <= set(modules)
+    assert {"repro_torch.models.zoo", "repro_torch.launch.serve",
+            "repro_torch.launch.train"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -108,6 +109,15 @@ def test_lm_entry_points_raise_without_a_card(no_cuda):
         params_from_jax({"embed": np.zeros((2, 2), np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--batch", "1", "--prompt-len", "1", "--gen", "1"])
+
+
+def test_train_entry_point_raises_without_a_card(no_cuda):
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--mode", "lm", "--steps", "1", "--batch", "1", "--seq", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--mode", "paper", "--scale", "0.01", "--rounds", "1", "--seeds", "0"])
 
 
 def test_cpu_tensors_through_the_ssd_wrapper_count_no_launch():
