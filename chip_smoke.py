@@ -18,10 +18,14 @@ exit code and no result line:
              ``ssd_chunk_scan`` against its plain versions (with and
              without the entry states) at the serving slice's shape, one
              chunk, the reduced config, and a ragged sequence with H=3
-             through ``ssd_full``; runs compared bit for bit; then times.
-             ``ssd_chunk_scan_bwd`` against its plain version at the train
-             slice's shape, one chunk, the reduced config and NC=3 with H=3;
-             runs compared bit for bit; then times.
+             through ``ssd_full``; each of its four stage kernels against
+             its plain stage in ``ref.py``; runs compared bit for bit; then
+             times (the call, and each stage alone), and the float32 and the
+             3xTF32 tensor-core bounds.  ``ssd_chunk_scan_bwd`` against its
+             plain version at the train slice's shape, one chunk, the
+             reduced config and NC=3 with H=3, and each of its six stage
+             kernels against its plain stage; runs compared bit for bit;
+             then the same times.
 4. parity  — a small federation trained on the card against the same one
              trained on the CPU through the plain versions.
 5. slice   — the paper's path at full width: the full 189-hospital cohort,
@@ -72,6 +76,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+PEAK_3XTF32_FLOPS = 495e12 / 3   # H100 SXM dense TF32 on the tensor cores, three products per product
 FWD_TOL = 1e-5
 DX_TOL = 1e-5
 DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in another order
@@ -397,6 +402,7 @@ def check_ssd_kernel(torch, dev, SK) -> dict:
         require(max(e.values()) <= SSD_TOL, f"ssd {case}: error {e}")
         require(same, f"ssd {case}: two runs differ")
         worst = max(worst, max_err(y, y_ref), max_err(states, s_ref))
+        check_ssd_stages(torch, SK, case, forward_stages(SK, *args))
 
     # Ragged S with H=3 through ssd_full (padding in the wrapper), against the
     # step-by-step recurrence on the same card.
@@ -419,13 +425,25 @@ def check_ssd_kernel(torch, dev, SK) -> dict:
     ms_states = time_ms(torch, lambda: SK.ssd_chunk_scan(*args, return_states=True),
                         iters=20, warmup=3)
     plain = time_ms(torch, lambda: ssd_chunk_scan_ref(*args), iters=3, warmup=1)
-    nbytes, ops, ops_full = ssd_work(b, nc, l_len, h, p, n)
+    g = torch.empty((b, nc, l_len, l_len), device=dev)
+    local = torch.empty((b, nc, h, p, n), device=dev)
+    carry = torch.empty_like(local)
+    dims = (b, nc, l_len, h, p, n)
+    stages = stage_ms(torch, SK, {
+        "cb": ("ssd_stage_cb", (b, nc, l_len, n), (bm, cm), (g,)),
+        "local": ("ssd_stage_local", (*dims, 0), (x, dt, args[2], bm), (local,)),
+        "pass": ("ssd_stage_pass", (*dims, 0), (carry, args[2]), ()),
+        "y": ("ssd_stage_y", dims, (x, dt, args[2], cm, g, local), (torch.empty_like(x),)),
+    })
+    nbytes, ops, ops_full, mma = ssd_work(b, nc, l_len, h, p, n)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_tc = tensor_core_ms(ops, mma)
     emit(phase="ssd_timing", shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n},
          ssd_chunk_scan_ms=ms, with_states_ms=ms_states, plain_ms=plain, bytes=nbytes,
-         flops_causal=ops, flops_full_block=ops_full, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
-         achieved_tflops=ops / ms / 1e9,
+         flops_causal=ops, flops_full_block=ops_full, flops_tile_products=mma,
+         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bound_tc_ms=t_tc,
+         achieved_tflops=ops / ms / 1e9, stage_ms=stages,
          library_ms=None, library_note="no single PyTorch call computes the chunk scan")
     return {
         "name": "ssd_chunk_scan",
@@ -436,10 +454,66 @@ def check_ssd_kernel(torch, dev, SK) -> dict:
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": max(t_bytes, t_tc),
+        "bound_by": "bytes" if t_bytes >= t_tc else "operations",
         "library_ms": None,
     }
+
+
+def forward_stages(SK, xc, dtc, cum, bc, cc) -> list[tuple]:
+    """(name, stage kernel, plain stage, inputs, mask) for each stage of the
+    forward, each fed the plain versions of the stages before it."""
+    from repro_torch.kernels.ssd import ref
+
+    local = ref.chunk_local_ref(xc, dtc, cum, bc)
+    g, states = ref.chunk_cb_ref(bc, cc), ref.state_pass_ref(local, cum)
+    return [
+        ("cb", SK.stage_cb, ref.chunk_cb_ref, (bc, cc), "causal"),
+        ("local", SK.stage_local, ref.chunk_local_ref, (xc, dtc, cum, bc), None),
+        ("pass", SK.stage_pass, ref.state_pass_ref, (local, cum), None),
+        ("y", SK.stage_y, ref.chunk_y_ref, (xc, dtc, cum, cc, g, states), None),
+    ]
+
+
+def backward_stages(SK, xc, dtc, cum, bc, cc, states, dy) -> list[tuple]:
+    """The same for the backward's stages."""
+    from repro_torch.kernels.ssd import ref
+
+    carry = ref.chunk_carry_ref(dy, cum, cc)
+    ds = ref.state_pass_ref(carry, cum, reverse=True)
+    g, dg = ref.chunk_cb_ref(bc, cc), ref.bwd_dg_ref(xc, dtc, cum, dy)
+    return [
+        ("carry", SK.stage_carry, ref.chunk_carry_ref, (dy, cum, cc), None),
+        ("pass_reverse", lambda f, c: SK.stage_pass(f, c, reverse=True),
+         lambda f, c: ref.state_pass_ref(f, c, reverse=True), (carry, cum), None),
+        ("head", SK.stage_head, ref.bwd_head_ref, (xc, dtc, cum, bc, cc, states, ds, g, dy), None),
+        ("dg", SK.stage_dg, ref.bwd_dg_ref, (xc, dtc, cum, dy), None),
+        ("dbc", SK.stage_dbc, ref.bwd_dbc_ref, (xc, dtc, cum, bc, cc, states, ds, dg, dy), None),
+    ]
+
+
+def check_ssd_stages(torch, SK, case: str, stages: list[tuple]) -> None:
+    """Each stage kernel against its plain stage on the same inputs, within
+    SSD_TOL, and two runs of it bit for bit.  A "causal" stage forms only the
+    causal tiles of an L x L block, so only m <= l is compared."""
+    def tup(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    errs, same = {}, True
+    for name, kernel_fn, plain_fn, args, mask in stages:
+        got, again = tup(kernel_fn(*args)), tup(kernel_fn(*args))
+        torch.cuda.synchronize()
+        want = tup(plain_fn(*args))
+        for i, (g, a, r) in enumerate(zip(got, again, want)):
+            if mask == "causal":
+                g, a, r = torch.tril(g), torch.tril(a), torch.tril(r)
+            key = f"{name}.{i}" if len(want) > 1 else name
+            errs[key] = scaled_err(g, r) if bool(torch.isfinite(g).all()) else math.inf
+            same = same and torch.equal(g, a)
+        del got, again, want
+    emit(phase="ssd_stages", case=case, scaled_err=errs, bitwise_repeat=same)
+    require(max(errs.values()) <= SSD_TOL, f"ssd stages {case}: error {errs}")
+    require(same, f"ssd stages {case}: two runs differ")
 
 
 SSD_BWD_CASES = (
@@ -484,18 +558,36 @@ def check_ssd_bwd_kernel(torch, dev, SK) -> dict:
         require(max(e.values()) <= SSD_TOL, f"ssd bwd {case}: error {e}")
         require(same, f"ssd bwd {case}: two runs differ")
         worst = max(worst, *(max_err(g, r) for g, r in zip(got, ref)))
-        del args, got, again, ref
+        del got, again, ref
+        check_ssd_stages(torch, SK, case, backward_stages(SK, *args))
+        del args
 
     _, b, nc, l_len, h, p, n = SSD_BWD_CASES[0]
     args = bwd_inputs((b, nc, l_len, h, p, n), seed=240)
     ms = time_ms(torch, lambda: SK.ssd_chunk_scan_bwd(*args), iters=10, warmup=2)
     plain = time_ms(torch, lambda: ssd_chunk_scan_bwd_ref(*args), iters=2, warmup=1)
-    nbytes, ops = ssd_bwd_work(b, nc, l_len, h, p, n)
+    xc, dtc, cum, bc, cc, states, dy = args
+    g = torch.empty((b, nc, l_len, l_len), device=dev)
+    ds = torch.empty((b, nc, h, p, n), device=dev)
+    carry = torch.empty_like(ds)
+    grads = [torch.empty_like(t) for t in (xc, dtc, cum, bc, cc)]
+    dims = (b, nc, l_len, h, p, n)
+    stages = stage_ms(torch, SK, {
+        "cb": ("ssd_stage_cb", (b, nc, l_len, n), (bc, cc), (g,)),
+        "carry": ("ssd_stage_local", (*dims, 1), (dy, cum, cum, cc), (ds,)),
+        "pass_reverse": ("ssd_stage_pass", (*dims, 1), (carry, cum), ()),
+        "head": ("ssd_stage_head", dims, (xc, dtc, cum, bc, cc, states, ds, g, dy), grads[:3]),
+        "dg": ("ssd_stage_dg", (b, nc, l_len, h, p), (xc, dtc, cum, dy), (g,)),
+        "dbc": ("ssd_stage_dbc", dims, (xc, dtc, cum, bc, cc, states, ds, g, dy), grads[3:]),
+    })
+    nbytes, ops, mma = ssd_bwd_work(b, nc, l_len, h, p, n)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_tc = tensor_core_ms(ops, mma)
     emit(phase="ssd_bwd_timing", shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n},
          ssd_chunk_scan_bwd_ms=ms, plain_ms=plain, bytes=nbytes, flops=ops,
-         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, achieved_tflops=ops / ms / 1e9,
+         flops_tile_products=mma, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bound_tc_ms=t_tc,
+         achieved_tflops=ops / ms / 1e9, stage_ms=stages,
          library_ms=None, library_note="no single PyTorch call computes the chunk scan's backward")
     return {
         "name": "ssd_chunk_scan_bwd",
@@ -506,37 +598,70 @@ def check_ssd_bwd_kernel(torch, dev, SK) -> dict:
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": max(t_bytes, t_tc),
+        "bound_by": "bytes" if t_bytes >= t_tc else "operations",
         "library_ms": None,
     }
 
 
-def ssd_bwd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int]:
-    """Bytes the backward must move and its float ops, over the causal pairs.
+def tensor_core_ms(ops: int, mma: int) -> float:
+    """The least time for ``ops`` float ops of which ``mma`` are tile products
+    run on the tensor cores in 3xTF32: those at 495/3 TFLOP/s, the rest at
+    67 TFLOP/s on the CUDA cores."""
+    return (mma / PEAK_3XTF32_FLOPS + (ops - mma) / PEAK_F32_FLOPS) * 1e3
+
+
+def ssd_side(name: str) -> str | None:
+    """Which SSD call a device kernel belongs to: "fwd", "bwd" or None.  The
+    stages that both run are instantiated once per direction
+    (``<false>`` forward, ``<true>`` backward)."""
+    if "ssd_" not in name:
+        return None
+    if "ssd_bwd_" in name or "<true>" in name:
+        return "bwd"
+    return "fwd"
+
+
+def stage_ms(torch, SK, stages: dict[str, tuple]) -> dict[str, float]:
+    """Each stage's time alone: CUDA events over back-to-back launches of its
+    C entry point (``kernel._stage``: name, sizes, inputs, outputs), outputs
+    allocated once.  The local stage forms every chunk here; the composite
+    call skips the one chunk whose state the carry does not read."""
+    return {name: time_ms(torch, lambda: SK._stage(*spec), iters=20, warmup=2)
+            for name, spec in stages.items()}
+
+
+def ssd_bwd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int, int]:
+    """Bytes the backward must move, its float ops over the causal pairs, and
+    how many of those are tile products (the kernels' tensor-core work).
 
     Bytes: x, dy, dt, cum, B, C and the entry states read once; dx, ddt,
     dcum, dB and dC written once.  Scratch that one implementation keeps
-    (the kernel's per-head shares of dB and dC) is not the function's.
+    (the kernels' G, dG and dS) is not the function's.
     Per (batch, chunk) and causal pair, shared by the heads: C B^T
     recomputed, and dC = dG B, dB = dG^T C from the head-summed dG (2N
     each).  Per head and pair: dW = dy x^T and dx = W^T dy (2P each) and ~10
     for the decay, the weights and the dt and cum sums.  Per head and row,
     four products of 2NP each: U = (e dy) S (dC's carried term), V = B dS^T
     (dx's state term), Z = x dS (dB's) and the update of dS; the y_inter term
-    of dcum is C . U (2N) and g is x . V (2P); ~10 for the decays.
+    of dcum is C . U (2N) and g is x . V (2P); ~10 for the decays.  The
+    tile products are the 2N and 2P per pair and the 2NP per row.
     """
     rows = b * nc * l_len
     bytes_ = 4 * (3 * rows * h * p + 4 * rows * h + 4 * rows * n + b * nc * h * p * n)
     pairs = l_len * (l_len + 1) // 2
     per_head = pairs * (4 * p + 10) + l_len * (8 * n * p + 2 * n + 2 * p + 10)
-    return bytes_, b * nc * (3 * 2 * n * pairs + h * per_head)
+    mma_per_head = pairs * 4 * p + l_len * 8 * n * p
+    return (bytes_, b * nc * (3 * 2 * n * pairs + h * per_head),
+            b * nc * (3 * 2 * n * pairs + h * mma_per_head))
 
 
-def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int, int]:
-    """Bytes the call must move (float32 inputs read once, y written once) and
-    its float ops, counting the causal pairs l >= m of each L x L block that
-    the scan needs (and, beside it, the full L x L block).
+def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int, int, int]:
+    """Bytes the call must move (float32 inputs read once, y written once),
+    its float ops counting the causal pairs l >= m of each L x L block that
+    the scan needs (and, beside it, the full L x L block), and how many of the
+    causal count are tile products (C B^T, W x, C S and the state update:
+    the kernels' tensor-core work).
 
     Per (batch, chunk): C B^T once, 2N per pair (shared by the heads).  Per
     head: the weights exp(cum_l - cum_m) dt_m G (a subtraction, an exp and
@@ -545,11 +670,14 @@ def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, 
     """
     bytes_ = 4 * (2 * b * nc * l_len * h * p + 2 * b * nc * l_len * h + 2 * b * nc * l_len * n)
 
-    def ops_for(pairs: int) -> int:
-        per_head = pairs * (4 + 2 * p) + l_len * (4 * n * p + 4)
+    def ops_for(pairs: int, tile_products_only: bool = False) -> int:
+        per_head = pairs * 2 * p + l_len * 4 * n * p
+        if not tile_products_only:
+            per_head += pairs * 4 + l_len * 4
         return b * nc * (2 * n * pairs + h * per_head)
 
-    return bytes_, ops_for(l_len * (l_len + 1) // 2), ops_for(l_len * l_len)
+    causal = l_len * (l_len + 1) // 2
+    return bytes_, ops_for(causal), ops_for(l_len * l_len), ops_for(causal, True)
 
 
 
@@ -864,7 +992,7 @@ def profile_serving(torch, prefill, decode_step) -> None:
             wall_s = time.perf_counter() - t0
         by_name, count = device_times(prof)
         device_s = sum(by_name.values()) / 1e6
-        ssd_us = sum(us for name, us in by_name.items() if "ssd_chunk_scan" in name)
+        ssd_us = sum(us for name, us in by_name.items() if ssd_side(name))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         emit(phase="serve_profile", call=what, B=SERVE_B, prompt=SERVE_PROMPT,
              wall_s=wall_s, device_busy_s=device_s if device_s > 0 else None,
@@ -1067,9 +1195,8 @@ def profile_training(torch, train_step) -> None:
         wall_s = time.perf_counter() - t0
     by_name, count = device_times(prof)
     device_s = sum(by_name.values()) / 1e6
-    fwd_us = sum(us for name, us in by_name.items() if "ssd_chunk_scan_kernel" in name)
-    bwd_us = sum(us for name, us in by_name.items()
-                 if "ssd_chunk_scan_bwd_kernel" in name or "ssd_bwd_reduce_kernel" in name)
+    fwd_us = sum(us for name, us in by_name.items() if ssd_side(name) == "fwd")
+    bwd_us = sum(us for name, us in by_name.items() if ssd_side(name) == "bwd")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     share = (lambda us: us / 1e6 / device_s) if device_s > 0 else (lambda us: None)
     emit(phase="train_profile", B=TRAIN_B, seq=TRAIN_SEQ, wall_s=wall_s,

@@ -1,771 +1,1115 @@
-// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a).  Plain C interface,
-// loaded with ctypes by repro_torch/kernels/ssd/kernel.py.  All tensors are
-// float32 and contiguous:
+// Mamba2 SSD chunked scan, forward and backward, for Hopper (sm_90a).  Plain
+// C interface, loaded with ctypes by repro_torch/kernels/ssd/kernel.py.  All
+// tensors are float32 and contiguous:
 //
-//   x (B, NC, L, H, P)   dt, cum (B, NC, L, H)   Bm, Cm (B, NC, L, N)
-//   y (B, NC, L, H, P)   states (B, NC, H, P, N)  (optional: null skips it)
+//   x, dy (B, NC, L, H, P)   dt, cum (B, NC, L, H)   Bm, Cm (B, NC, L, N)
+//   states, dS (B, NC, H, P, N)   G, dG (B, NC, L, L)
 //
-// For each batch row b and head h, with S_0 = 0 and chunk k:
+// Replaces the Pallas kernels repro/kernels/ssd/kernel.py::ssd_chunk_scan
+// (bodies _ssd_kernel and _ssd_kernel_with_states) and ::ssd_chunk_scan_bwd
+// (body _ssd_bwd_kernel).
 //
-//   y[l]  = sum_{m <= l} (C_l . B_m) exp(cum_l - cum_m) dt_m x_m      (intra)
-//         + exp(cum_l) C_l . S_k                                    (carried)
-//   S_k+1 = S_k exp(cum_{L-1}) + sum_l B_l exp(cum_{L-1} - cum_l) dt_l x_l
+// For each batch row b, chunk k and head h, with S_0 = 0:
 //
-// and states[b, k, h] = S_k, the chunk-entry state.
+//   y[l]  = sum_{m <= l} G[l][m] exp(cum_l - cum_m) dt_m x_m + e_l C_l . S_k
+//   S_k+1 = S_k exp(cum_last) + sum_l indec_l x_l^T B_l
 //
-// Replaces the Pallas kernel repro/kernels/ssd/kernel.py::ssd_chunk_scan
-// (bodies _ssd_kernel and _ssd_kernel_with_states).
+// with G = C B^T (shared by the heads), e_l = exp(cum_l) and indec_l =
+// exp(cum_last - cum_l) dt_l.  The backward, with dS_k the cotangent of
+// S_k+1, W = G decay dt_m, dW = dy x^T, Q = dW G decay, V = B dS^T and
+// g_l = x_l . V_l:
 //
-// Bound on this card: at the serving slice's shape (B=8, NC=8, L=256, H=24,
-// P=64, N=128) the call moves ~221 MB (0.066 ms at 3.35 TB/s) and needs
-// ~20 GFLOP for the causal half of each L x L block (0.30 ms at 67 TFLOP/s
-// float32), so operations bound it.
+//   dx_m   = sum_l W[l][m] dy_l + indec_m V_m
+//   ddt_m  = sum_l Q[l][m] + g_m exp(cum_last - cum_m)
+//   dcum_l = sum_m Q[l][m] dt_m - dt_l sum_m Q[m][l] + e_l dy_l . (C S_k^T)_l
+//            - g_l indec_l  (+ <dS_k, S_k+1> on the last row)
+//   dC_l   = sum_h [sum_m dG_h[l][m] B_m + e_l dy_l S_k]
+//   dB_m   = sum_h [sum_l dG_h[l][m] C_l + indec_m x_m dS_k]
+//   dS_k-1 = dS_k exp(cum_last) + sum_l (e_l dy_l)^T C_l
 //
-// Design.  The TPU carries S in VMEM scratch across an ordered grid.  Here
-// one block of 256 threads owns one (batch, head) and loops over the chunks
-// itself, with S (P x N, at most 64 x 128 floats) resident in shared memory
-// for the whole sequence: no carry crosses blocks, so blocks run in any
-// order.  A chunk of L=256 cannot be staged whole (B or C alone is 128 KB),
-// so the intra-chunk form is tiled 64 x 64: for each query tile of rows l,
-// the key tiles m0 <= l0 are visited in order; tiles wholly above the
-// diagonal are skipped, and on the diagonal tile the entries m > l are set
-// to zero without evaluating exp (cum_l - cum_m is large and positive there
-// and would overflow).  Each thread holds a 4 x 4 register tile (rows
-// ty + 16 i, columns tx + 16 j) of G = C B^T, then of y; the state update
-// holds a 4 x 8 tile of S.  B and C are shared across heads; each head's
-// block recomputes C B^T for itself (twice the FLOPs of the W x product at
-// P=64, N=128) rather than sharing it across a head tile: a head tile would
-// need one S per head in shared memory, which does not fit at P=64, N=128.
+// where dG_h = dW decay dt_m.  The last row's dcum term is written
+// <dS_k, S_k+1>: it equals <dS_k, S_k> exp(cum_last) + sum_l g_l indec_l,
+// since S_k+1 = S_k exp(cum_last) + sum_l indec_l x_l^T B_l.
 //
-// Every output element is written once by one thread, with no atomics, so
-// two runs give the same bits.  Shared-memory rows of B, C and S have an odd
-// stride (N | 1) so the 16 lanes that read 16 different rows hit 16 banks.
+// Bound on this card (H100 SXM, 3.35 TB/s, 67 TFLOP/s float32 on the CUDA
+// cores, 495 TFLOP/s TF32 on the tensor cores).  At the slice's shape (B=8,
+// NC=8, L=256, H=24, P=64, N=128) the forward moves ~221 MB (0.066 ms) and
+// needs ~21 GFLOP (0.30 ms at 67 TFLOP/s); the backward moves ~0.39 GB
+// (0.12 ms) and needs ~41 GFLOP (0.61 ms).  Operations bound both.  Here
+// every tile product runs on the tensor cores in 3xTF32, three TF32 products
+// per product (at most 165 TFLOP/s), so the arithmetic these kernels run is
+// bound at ~0.13 ms forward and ~0.25 ms backward (chip_smoke.py prints both
+// bounds).
+//
+// Design.  The chunked algorithm (arXiv:2405.21060, section 6): per-chunk
+// work in parallel, only the P x N state carry in sequence.
+//
+//   forward   1. ssd_cb_kernel       G = C B^T, causal 64 x 64 tiles, once per
+//                                    (batch, chunk), into scratch (B, NC, L, L)
+//             2. ssd_local_kernel    sum_l indec_l x_l^T B_l for each (b, k, h)
+//                                    into `states`
+//             3. ssd_pass_kernel     S_k+1 = S_k exp(cum_last) + local_k, in
+//                                    place: `states` becomes the entry states
+//             4. ssd_y_kernel        y for each (b, k, h, 64-row query tile)
+//   backward  1. ssd_cb_kernel       G, as forward 1
+//             2. ssd_local_kernel    F_k = sum_l (e_l dy_l)^T C_l into scratch
+//             3. ssd_pass_kernel     the reverse carry: F becomes dS in place
+//             4. ssd_bwd_head_kernel dx, ddt, dcum for each (b, k, h, tile)
+//             5. ssd_bwd_dg_kernel   dG = sum_h dW_h decay_h dt_h per causal
+//                                    tile, over the heads in order, into G's
+//                                    scratch
+//             6. ssd_bwd_dbc_kernel  dC = dG B + [e dy]_(L x HP) [S]_(HP x N),
+//                                    dB = dG^T C + [indec x]_(L x HP) [dS]_(HP x N),
+//                                    the heads summed inside a block in order
+//
+// What this does about the earlier design's limits:
+//
+//   1. One block per (batch, head) walking the chunks gave 192 blocks.  Here
+//      the chunk-local work runs over (b, k, h, tile): 6,144 blocks for y and
+//      for the backward's per-head terms at the slice's shape; only the
+//      elementwise state passes walk the chunks.
+//   2. C B^T is formed once per (batch, chunk) and read by every head.
+//   3. No head shares of dB and dC: the backward sums the heads inside a
+//      block, recomputing dW_h = dy_h x_h^T in ssd_bwd_dg_kernel, and no
+//      output is ever read back and added to in device memory.  Scratch is
+//      G (B NC L^2 floats) and dS (B NC H P N floats): 67 MB at the slice's
+//      shape, against the 403 MB of head shares it replaces.
+//   4. Every tile product is mma.sync.m16n8k8 on TF32 operands in 3xTF32:
+//      each operand is split into hi = tf32(a) and lo = tf32(a - hi), and
+//      lo*hi + hi*lo + hi*hi is summed in float32, which keeps float32
+//      accuracy.  exp, masks, row and column sums and decays stay float32 on
+//      the CUDA cores.  Tiles are staged with cp.async (16-byte copies where
+//      rows allow, else 4-byte), double-buffered, in 64-column rows whose
+//      4-float groups are XOR-swizzled by the row, so that both fragment
+//      access patterns (lanes along rows, or along columns) hit 32 banks.
+//
+// Sums are taken in a fixed order and there are no atomics, so two runs give
+// the same bits.  Entries above the diagonal, and past L, are set to zero
+// before exp is evaluated (cum_l - cum_m is large and positive there).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 64;          // rows of a query or key tile
-constexpr int THREADS = 256;      // 16 x 16
+constexpr int TILE = 64;         // rows of a tile; columns of a shared tile
+constexpr int TILE_FLOATS = TILE * TILE;
+constexpr int THREADS = 256;     // 8 warps
 constexpr int MAX_L = 256;
-constexpr int MAX_P = 64;         // Xs and S are sized for P = 64, zero past P
+constexpr int MAX_P = 64;
 constexpr int MAX_N = 128;
-constexpr int WS = TILE + 1;      // row stride of Ws
 
-__host__ __device__ inline int row_stride(int N) { return N | 1; }
+// ---------------------------------------------------------------------------
+// Shared tiles: 64 rows of 64 floats.  Element (r, c) lives at
+// r * 64 + (c ^ swz(r)); swz permutes 4-float groups (bits 2-4 of c), so a
+// 16-byte copy stays whole.  A fragment read with lanes (g, t) = (lane / 4,
+// lane % 4) at (r0 + g, c0 + t) or at (r0 + t, c0 + g), r0 and c0 multiples
+// of 8, touches 32 different banks either way.
+// ---------------------------------------------------------------------------
 
-size_t smem_floats(int L, int N) {
-  const int ns = row_stride(N);
-  return (size_t)2 * TILE * ns      // Cs, Bs
-         + (size_t)MAX_P * ns       // S
-         + (size_t)TILE * MAX_P     // Xs
-         + (size_t)TILE * WS        // Ws
-         + 2 * (size_t)L;           // cum, dt of this head in this chunk
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+__device__ __forceinline__ int at(int r, int c) { return r * TILE + (c ^ swz(r)); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copies `rows` rows of N floats (row stride N in device memory) into shared
-// memory with row stride ns; rows in [rows, TILE) are zero.
-__device__ inline void load_rows(float* dst, const float* __restrict__ src, int rows, int N,
-                                 int ns) {
-  for (int e = threadIdx.x; e < TILE * N; e += THREADS) {
-    const int r = e / N;
-    const int k = e - r * N;
-    dst[r * ns + k] = (r < rows) ? src[(size_t)r * N + k] : 0.0f;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ cum, const float* __restrict__ bm,
-                      const float* __restrict__ cm, float* __restrict__ y,
-                      float* __restrict__ states, int NC, int L, int H, int P, int N) {
-  extern __shared__ float smem[];
-  const int ns = row_stride(N);
-  float* Cs = smem;                  // (TILE, ns)   C rows of the query tile
-  float* Bs = Cs + TILE * ns;        // (TILE, ns)   B rows of the key tile
-  float* S = Bs + TILE * ns;         // (MAX_P, ns)  carried state S[p][n]
-  float* Xs = S + MAX_P * ns;        // (TILE, MAX_P) x rows of the key tile
-  float* Ws = Xs + TILE * MAX_P;     // (TILE, WS)   masked weights W[l][m]
-  float* cum_s = Ws + TILE * WS;     // (L)
-  float* dt_s = cum_s + L;           // (L)
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int tiles = (L + TILE - 1) / TILE;
-
-  for (int e = tid; e < MAX_P * ns; e += THREADS) S[e] = 0.0f;
-
-  for (int c = 0; c < NC; ++c) {
-    const size_t row0 = ((size_t)b * NC + c) * L;  // row (b, c, l = 0) of dt/cum/B/C
-    __syncthreads();  // the last chunk's state update is in S; its reads are done
-    for (int l = tid; l < L; l += THREADS) {
-      cum_s[l] = cum[(row0 + l) * H + h];
-      dt_s[l] = dt[(row0 + l) * H + h];
+// Rows [0, rows) and columns [0, cols) of a row-major matrix (row stride `ld`
+// floats) into a shared tile, zero elsewhere.  16-byte copies when every row
+// start is 16-byte aligned and cols is a multiple of 4.
+__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ src, size_t ld,
+                                          int rows, int cols) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) & 15) == 0) && (ld % 4 == 0) &&
+                   (cols % 4 == 0);
+  if (vec) {
+    for (int e = threadIdx.x; e < TILE * TILE / 4; e += THREADS) {
+      const int r = e >> 4;
+      const int c = (e & 15) << 2;
+      float* dst = tile + at(r, c);
+      if (r < rows && c < cols) {
+        cp_async16(dst, src + r * ld + c);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
-    if (states != nullptr) {
-      float* st = states + (((size_t)b * NC + c) * H + h) * P * N;
-      for (int e = tid; e < P * N; e += THREADS) st[e] = S[(e / N) * ns + e % N];
-    }
-
-    // ---- y for each query tile: intra-chunk form, then the carried state ----
-    for (int lt = 0; lt < tiles; ++lt) {
-      const int l0 = lt * TILE;
-      load_rows(Cs, cm + (row0 + l0) * N, min(TILE, L - l0), N, ns);
-      float acc[4][4] = {};
-      for (int mt = 0; mt <= lt; ++mt) {  // key tiles above the diagonal are skipped
-        const int m0 = mt * TILE;
-        const int mrows = min(TILE, L - m0);
-        load_rows(Bs, bm + (row0 + m0) * N, mrows, N, ns);
-        for (int e = tid; e < TILE * MAX_P; e += THREADS) {
-          const int m = e / MAX_P;
-          const int p = e - m * MAX_P;
-          Xs[e] = (m < mrows && p < P) ? x[((row0 + m0 + m) * H + h) * P + p] : 0.0f;
-        }
-        __syncthreads();  // Cs, Bs, Xs, cum_s, dt_s are loaded
-
-        float g[4][4] = {};
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * ns + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * ns + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int l = l0 + ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int m = m0 + tx + 16 * j;
-            // Mask before exp: only m <= l (< L) is evaluated.
-            const float w =
-                (m <= l && l < L) ? g[i][j] * expf(cum_s[l] - cum_s[m]) * dt_s[m] : 0.0f;
-            Ws[(ty + 16 * i) * WS + tx + 16 * j] = w;
-          }
-        }
-        __syncthreads();  // Ws is complete
-
-#pragma unroll 4
-        for (int m = 0; m < TILE; ++m) {
-          float wv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) wv[i] = Ws[(ty + 16 * i) * WS + m];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[j] = Xs[m * MAX_P + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-        }
-        __syncthreads();  // the next key tile may overwrite Bs, Xs, Ws
-      }
-
-      // carried state: y[l][p] += exp(cum_l) * sum_n C[l][n] S[p][n]
-      float inter[4][4] = {};
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * ns + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = S[(tx + 16 * j) * ns + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) inter[i][j] = fmaf(cv[i], sv[j], inter[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = l0 + ty + 16 * i;
-        if (l >= L) continue;
-        const float sd = expf(cum_s[l]);
-        float* y_row = y + ((row0 + l) * H + h) * P;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          if (p < P) y_row[p] = acc[i][j] + inter[i][j] * sd;
-        }
-      }
-      __syncthreads();  // the next query tile may overwrite Cs
-    }
-
-    // ---- state update: S <- S exp(cum_last) + sum_l (indec_l x_l)^T B_l ----
-    const float cum_last = cum_s[L - 1];
-    float sacc[4][8] = {};  // S[p = ty + 16 i][n = tx + 16 j]
-    for (int lt = 0; lt < tiles; ++lt) {
-      const int l0 = lt * TILE;
-      const int rows = min(TILE, L - l0);
-      load_rows(Bs, bm + (row0 + l0) * N, rows, N, ns);
-      for (int e = tid; e < TILE * MAX_P; e += THREADS) {
-        const int m = e / MAX_P;
-        const int p = e - m * MAX_P;
-        float v = 0.0f;
-        if (m < rows && p < P) {
-          const int l = l0 + m;
-          v = x[((row0 + l) * H + h) * P + p] * (expf(cum_last - cum_s[l]) * dt_s[l]);
-        }
-        Xs[e] = v;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int m = 0; m < TILE; ++m) {
-        float xv[4], bv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = Xs[m * MAX_P + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = tx + 16 * j;
-          bv[j] = (n < N) ? Bs[m * ns + n] : 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) sacc[i][j] = fmaf(xv[i], bv[j], sacc[i][j]);
-      }
-      __syncthreads();
-    }
-    const float cd = expf(cum_last);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * i;
-      if (p >= P) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = tx + 16 * j;
-        if (n < N) S[p * ns + n] = S[p * ns + n] * cd + sacc[i][j];
+  } else {
+    for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
+      const int r = e >> 6;
+      const int c = e & 63;
+      float* dst = tile + at(r, c);
+      if (r < rows && c < cols) {
+        cp_async4(dst, src + r * ld + c);
+      } else {
+        *dst = 0.f;
       }
     }
   }
 }
 
+// `count` floats with stride `ld` into vec[0, 64), zero past count.
+__device__ __forceinline__ void load_vec(float* vec, const float* __restrict__ src, size_t ld,
+                                         int count) {
+  for (int e = threadIdx.x; e < TILE; e += THREADS) {
+    if (e < count) {
+      cp_async4(vec + e, src + e * ld);
+    } else {
+      vec[e] = 0.f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 on the tensor cores.  mma.m16n8k8 fragments, lane = 4 g + t:
+//   A (16 x 8):  a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
+//   B (8 x 8):   b0 (t, g)  b1 (t + 4, g)                   (k, n)
+//   D (16 x 8):  d0 (g, 2t) d1 (g, 2t + 1) d2 (g + 8, 2t) d3 (g + 8, 2t + 1)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float rest = v - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp: acc (16 rows x 8 NT columns) += A (16 x 64) B (64 x 8 NT), over k
+// in [0, 64) by steps of 8.  fa(r, k) gives A at row r in [0, 16); fb(k, n)
+// gives B at column n in [0, 8 NT).  Small products first: lo*hi, hi*lo, then
+// hi*hi, each over all NT tiles in turn, so that NT independent products lie
+// between two into one accumulator.
+template <int NT, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], FA fa, FB fb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < TILE; k0 += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32(fa(g, k0 + t), ah[0], al[0]);
+    split_tf32(fa(g + 8, k0 + t), ah[1], al[1]);
+    split_tf32(fa(g, k0 + t + 4), ah[2], al[2]);
+    split_tf32(fa(g + 8, k0 + t + 4), ah[3], al[3]);
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      split_tf32(fb(k0 + t, 8 * j + g), bh[j][0], bl[j][0]);
+      split_tf32(fb(k0 + t + 4, 8 * j + g), bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], al, bh[j]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bl[j]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, bh[j]);
+  }
+}
+
+// Row and column, within the warp's 16 x 8 NT output, of accumulator entry
+// acc[j][i].
+__device__ __forceinline__ int acc_row(int i) { return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1); }
+__device__ __forceinline__ int acc_col(int j, int i) {
+  return 8 * j + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+}
+
+// The causal tile pair (lt, mt), mt <= lt, of index p in row order.
+__device__ __forceinline__ void pair_of(int p, int& lt, int& mt) {
+  lt = 0;
+  while ((lt + 1) * (lt + 2) / 2 <= p) ++lt;
+  mt = p - lt * (lt + 1) / 2;
+}
+
+// Warp w of 8 owns rows 16 (w % 4) and columns 32 (w / 4) of a 64 x 64 output
+// (4 accumulator tiles of 8 columns), or columns 64 (w / 4) of a 64 x 128
+// output (8 tiles).
+__device__ __forceinline__ int warp_row0() { return 16 * ((threadIdx.x >> 5) & 3); }
+__device__ __forceinline__ int warp_col0(int width) {
+  return (width / 2) * (threadIdx.x >> 7);
+}
 
 // ===========================================================================
-// Backward
+// Forward 1 and backward 1: G = C B^T, one causal 64 x 64 tile (lt, mt) of one
+// (batch, chunk) per block.  grid (tiles (tiles + 1) / 2, B NC).  The depth N
+// is staged in two 64-column halves, the second in flight while the first is
+// used.  kBackward only names the launch (a profile tells the two apart).
 // ===========================================================================
-//
-// Replaces the Pallas kernel repro/kernels/ssd/kernel.py::ssd_chunk_scan_bwd
-// (body _ssd_bwd_kernel).  From the entry states S_k that the forward wrote
-// and the cotangent dy, one reverse pass over the chunks gives
-// (dx, ddt, dcum, dB, dC); cum is an input of its own, so dcum is returned
-// and the caller's cumsum carries it on to dt and A.  With
-//
-//   G[l][m] = C_l . B_m,   decay[l][m] = exp(cum_l - cum_m) (m <= l, else 0),
-//   W = G decay dt_m,   dW[l][m] = dy_l . x_m,   Q = dW G decay,
-//   indec_l = exp(cum_last - cum_l) dt_l,   and dS the cotangent of S_k+1,
-//
-// each head of chunk k contributes
-//
-//   dx_m   = sum_l W[l][m] dy_l                        + indec_m (dS B_m)
-//   ddt_m  = sum_l Q[l][m]                             + g_m exp(cum_last - cum_m)
-//   dcum_l = sum_m Q[l][m] dt_m - dt_l sum_m Q[m][l]   + e_l C_l . (dy_l S_k)
-//            - g_l indec_l  (+ the last row's term below)
-//   dC_l   = sum_m dW[l][m] decay dt_m B_m             + e_l (dy_l S_k)
-//   dB_m   = sum_l dW[l][m] decay dt_m C_l             + indec_m (x_m dS)
-//
-// with e_l = exp(cum_l) and g_l = x_l . (dS B_l).  The last row's dcum
-// gains (dS . S_k) exp(cum_last) + sum_l g_l indec_l, and the carry becomes
-// dS <- dS exp(cum_last) + sum_l (e_l dy_l)^T C_l.
-//
-// Design.  The TPU takes all heads of a chunk in one grid step, because dB
-// and dC are sums over heads and full-H blocks write each once.  Here all
-// heads' dS (24 x 64 x 128 floats) would not fit in a block's shared memory,
-// so one block of 256 threads owns one (batch, head), as in the forward,
-// and walks the chunks last to first with dS (P x N) and S_k resident in
-// shared memory.  It writes its head's share of dB and dC to scratch
-// (B, NC, H, L, N); a second kernel sums the shares over the heads in head
-// order.  No atomics anywhere, so two runs give the same bits.  Within a
-// chunk the intra-chunk form is tiled 64 x 64 like the forward: key tiles
-// outer, query tiles at or below the diagonal inner, dx and dB of the key
-// tile held in registers, dC of the query tile added to in device memory
-// (each element by one thread).  Entries above the diagonal are set to zero
-// before exp is evaluated.  Then one pass over 64-row tiles adds the
-// carried-state and state-update terms.  Row sums over p or n are taken
-// across the 16 lanes of a half-warp with shuffles.
-//
-// Bound on this card: at the training slice's shape (B=8, NC=8, L=256,
-// H=24, P=64, N=128) the function moves ~0.39 GB (inputs and outputs once:
-// 0.12 ms at 3.35 TB/s) and needs ~41 GFLOP for the causal pairs and the
-// four carried-state products of 2NP a row (U = (e dy) S, V = B dS^T,
-// Z = x dS and the dS update; C . U and x . V are 2N and 2P): 0.61 ms at
-// 67 TFLOP/s float32, so operations bound it.  The kernel executes
-// ~78 GFLOP, since each head recomputes C B^T and forms its own dB and dC
-// shares, and it moves another ~0.8 GB through the head-share scratch.
 
-constexpr int XS = MAX_P + 1;     // row stride of the x and dy tiles: m varies across lanes
-
-size_t bwd_smem_floats(int L, int N) {
-  const int ns = row_stride(N);
-  return (size_t)2 * TILE * ns      // Cs, Bs
-         + (size_t)2 * MAX_P * ns   // S, dS
-         + (size_t)2 * TILE * XS    // Xs, Ys
-         + (size_t)3 * TILE * WS    // Ws, Ds, Qs
-         + 5 * (size_t)L            // cum, dt, ddt, dcum, g indec
-         + THREADS;                 // one partial sum per thread
-}
-
-// Rows [0, rows) of head h, P floats each, starting at row `row` of a
-// (rows, H, P) array, into a (TILE, XS) tile, each row times exp(cum_s[r])
-// when `scale` is set; zero past `rows` and past P.
-__device__ inline void load_head_rows(float* dst, const float* __restrict__ src, size_t row,
-                                      int rows, int H, int h, int P, const float* scale) {
-  for (int e = threadIdx.x; e < TILE * MAX_P; e += THREADS) {
-    const int r = e / MAX_P;
-    const int p = e - r * MAX_P;
-    float v = 0.0f;
-    if (r < rows && p < P) {
-      v = src[((row + r) * H + h) * P + p];
-      if (scale != nullptr) v *= expf(scale[r]);
-    }
-    dst[r * XS + p] = v;
-  }
-}
-
+template <bool kBackward>
 __global__ void __launch_bounds__(THREADS)
-ssd_chunk_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                          const float* __restrict__ cum, const float* __restrict__ bm,
-                          const float* __restrict__ cm, const float* __restrict__ states,
-                          const float* __restrict__ dy, float* __restrict__ dx,
-                          float* __restrict__ ddt, float* __restrict__ dcum,
-                          float* __restrict__ db_part, float* __restrict__ dc_part, int NC,
-                          int L, int H, int P, int N) {
-  extern __shared__ float smem[];
-  const int ns = row_stride(N);
-  float* Cs = smem;                  // (TILE, ns)   C rows
-  float* Bs = Cs + TILE * ns;        // (TILE, ns)   B rows
-  float* S = Bs + TILE * ns;         // (MAX_P, ns)  entry state S_k
-  float* dS = S + MAX_P * ns;        // (MAX_P, ns)  cotangent of S_k+1, then of S_k
-  float* Xs = dS + MAX_P * ns;       // (TILE, XS)   x rows
-  float* Ys = Xs + TILE * XS;        // (TILE, XS)   dy rows (times e_l in the carried pass)
-  float* Ws = Ys + TILE * XS;        // (TILE, WS)   W[l][m]
-  float* Ds = Ws + TILE * WS;        // (TILE, WS)   dW decay dt_m: this head's dG
-  float* Qs = Ds + TILE * WS;        // (TILE, WS)   Q[l][m]
-  float* cum_s = Qs + TILE * WS;     // (L)
-  float* dt_s = cum_s + L;           // (L)
-  float* ddt_s = dt_s + L;           // (L)
-  float* dcum_s = ddt_s + L;         // (L)
-  float* gi_s = dcum_s + L;          // (L)  g_l indec_l
-  float* red = gi_s + L;             // (THREADS)
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int tiles = (L + TILE - 1) / TILE;
-
-  // Entries past P or N stay zero in S and dS for the whole run.
-  for (int e = tid; e < MAX_P * ns; e += THREADS) {
-    S[e] = 0.0f;
-    dS[e] = 0.0f;  // the last chunk's exit state has no cotangent
+ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm, float* __restrict__ G,
+              int L, int N) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // per half: C tile, B tile
+  int lt, mt;
+  pair_of(blockIdx.x, lt, mt);
+  const size_t bc = blockIdx.y;
+  const int l0 = lt * TILE, m0 = mt * TILE;
+  const int lrows = min(TILE, L - l0), mrows = min(TILE, L - m0);
+  const int halves = (N + TILE - 1) / TILE;
+  for (int hf = 0; hf < halves; ++hf) {
+    float* cs = smem + 2 * hf * TILE_FLOATS;
+    const int cols = min(TILE, N - hf * TILE);
+    load_tile(cs, cm + (bc * L + l0) * N + hf * TILE, N, lrows, cols);
+    load_tile(cs + TILE_FLOATS, bm + (bc * L + m0) * N + hf * TILE, N, mrows, cols);
+    cp_commit();
   }
-
-  for (int c = NC - 1; c >= 0; --c) {
-    const size_t row0 = ((size_t)b * NC + c) * L;   // row (b, c, l = 0) of dt/cum/B/C
-    const size_t head = ((size_t)b * NC + c) * H + h;  // (b, c, h) of states and shares
-    float* dbp = db_part + head * L * N;            // (L, N): this head's share of dB
-    float* dcp = dc_part + head * L * N;
-    __syncthreads();  // the last chunk is done with every shared array
-    for (int l = tid; l < L; l += THREADS) {
-      cum_s[l] = cum[(row0 + l) * H + h];
-      dt_s[l] = dt[(row0 + l) * H + h];
-      ddt_s[l] = 0.0f;
-      dcum_s[l] = 0.0f;
-    }
-    const float* st = states + head * P * N;
-    for (int e = tid; e < P * N; e += THREADS) S[(e / N) * ns + e % N] = st[e];
-
-    // ---- intra-chunk form, transposed: key tiles m outer, query tiles l >= m inner ----
-    for (int mt = 0; mt < tiles; ++mt) {
-      const int m0 = mt * TILE;
-      const int mrows = min(TILE, L - m0);
-      load_rows(Bs, bm + (row0 + m0) * N, mrows, N, ns);
-      load_head_rows(Xs, x, row0 + m0, mrows, H, h, P, nullptr);
-      float dxa[4][4] = {};  // dx[m = ty + 16 i][p = tx + 16 j] of this key tile
-      float dba[4][8] = {};  // dB[m = ty + 16 i][n = tx + 16 j] of this key tile
-      for (int lt = mt; lt < tiles; ++lt) {
-        const int l0 = lt * TILE;
-        const int lrows = min(TILE, L - l0);
-        load_rows(Cs, cm + (row0 + l0) * N, lrows, N, ns);
-        load_head_rows(Ys, dy, row0 + l0, lrows, H, h, P, nullptr);
-        __syncthreads();  // tiles, cum_s, dt_s and S are loaded
-
-        // G and dW at [l = ty + 16 i][m = tx + 16 j]
-        float g[4][4] = {};
-        float dw[4][4] = {};
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
+  const int rm = warp_row0(), cn = warp_col0(TILE);
+  float acc[4][4];
+  zero(acc);
+  for (int hf = 0; hf < halves; ++hf) {
+    if (halves - hf == 2) cp_wait<1>(); else cp_wait<0>();
+    __syncthreads();
+    const float* cs = smem + 2 * hf * TILE_FLOATS;
+    const float* bs = cs + TILE_FLOATS;
+    warp_mma<4>(acc, [&](int r, int k) { return cs[at(rm + r, k)]; },
+                [&](int k, int n) { return bs[at(cn + n, k)]; });
+  }
+  float* gt = G + bc * L * L;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * ns + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * ns + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
-        }
-#pragma unroll 4
-        for (int p = 0; p < P; ++p) {
-          float yv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) yv[i] = Ys[(ty + 16 * i) * XS + p];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[j] = Xs[(tx + 16 * j) * XS + p];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) dw[i][j] = fmaf(yv[i], xv[j], dw[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int l = l0 + ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int m = m0 + tx + 16 * j;
-            float wv = 0.0f, dv = 0.0f, qv = 0.0f;
-            if (m <= l && l < L) {  // mask before exp: only m <= l is evaluated
-              const float dec = expf(cum_s[l] - cum_s[m]);
-              wv = g[i][j] * dec * dt_s[m];
-              dv = dw[i][j] * dec * dt_s[m];
-              qv = dw[i][j] * g[i][j] * dec;
-            }
-            const int e = (ty + 16 * i) * WS + tx + 16 * j;
-            Ws[e] = wv;
-            Ds[e] = dv;
-            Qs[e] = qv;
-          }
-        }
-        __syncthreads();  // Ws, Ds, Qs are complete
-
-        // Row and column sums of Q: thread r owns row l0 + r and column m0 + r
-        // (the same index on the diagonal tile, so one writer each).
-        if (tid < TILE) {
-          float row = 0.0f, col = 0.0f;
-          for (int k = 0; k < TILE; ++k) {
-            if (m0 + k < L) row = fmaf(Qs[tid * WS + k], dt_s[m0 + k], row);
-            col += Qs[k * WS + tid];
-          }
-          if (l0 + tid < L) dcum_s[l0 + tid] += row;
-          if (m0 + tid < L) {
-            ddt_s[m0 + tid] += col;
-            dcum_s[m0 + tid] -= col * dt_s[m0 + tid];
-          }
-        }
-
-        // dx[m][p] += sum_l W[l][m] dy[l][p];  dB[m][n] += sum_l dG[l][m] C[l][n]
-        for (int r = 0; r < lrows; ++r) {
-          float wv[4], dv[4], yv[4], cv[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            wv[i] = Ws[r * WS + ty + 16 * i];
-            dv[i] = Ds[r * WS + ty + 16 * i];
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) yv[j] = Ys[r * XS + tx + 16 * j];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            cv[j] = (n < N) ? Cs[r * ns + n] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) dxa[i][j] = fmaf(wv[i], yv[j], dxa[i][j]);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) dba[i][j] = fmaf(dv[i], cv[j], dba[i][j]);
-          }
-        }
-
-        // dC[l][n] (+)= sum_m dG[l][m] B[m][n]: written at the first key tile
-        float dca[4][8] = {};
-        for (int m = 0; m < mrows; ++m) {
-          float dv[4], bv[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dv[i] = Ds[(ty + 16 * i) * WS + m];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            bv[j] = (n < N) ? Bs[m * ns + n] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) dca[i][j] = fmaf(dv[i], bv[j], dca[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int l = l0 + ty + 16 * i;
-          if (l >= L) continue;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            if (n >= N) continue;
-            float* out = dcp + (size_t)l * N + n;
-            *out = (mt == 0) ? dca[i][j] : *out + dca[i][j];
-          }
-        }
-        __syncthreads();  // the next query tile may overwrite Cs, Ys, Ws, Ds, Qs
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
-        if (m >= L) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          if (p < P) dx[((row0 + m) * H + h) * P + p] = dxa[i][j];
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = tx + 16 * j;
-          if (n < N) dbp[(size_t)m * N + n] = dba[i][j];
-        }
-      }
-    }
-
-    // ---- the carried state and the state update, transposed, 64 rows at a time ----
-    const float cum_last = cum_s[L - 1];
-    float fa[4][8] = {};  // sum_l (e_l dy_l)^T C_l at [p = ty + 16 i][n = tx + 16 j]
-    for (int t = 0; t < tiles; ++t) {
-      const int l0 = t * TILE;
-      const int rows = min(TILE, L - l0);
-      load_rows(Cs, cm + (row0 + l0) * N, rows, N, ns);
-      load_rows(Bs, bm + (row0 + l0) * N, rows, N, ns);
-      load_head_rows(Xs, x, row0 + l0, rows, H, h, P, nullptr);
-      load_head_rows(Ys, dy, row0 + l0, rows, H, h, P, cum_s + l0);
-      __syncthreads();
-
-      float cu[4] = {}, gx[4] = {};  // C_l . U_l and x_l . V_l, this thread's share
-      {  // U = (e dy) S: dC += U
-        float u[4][8] = {};
-#pragma unroll 4
-        for (int p = 0; p < P; ++p) {
-          float yv[4], sv[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) yv[i] = Ys[(ty + 16 * i) * XS + p];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            sv[j] = (n < N) ? S[p * ns + n] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) u[i][j] = fmaf(yv[i], sv[j], u[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            if (n >= N) continue;
-            cu[i] = fmaf(Cs[r * ns + n], u[i][j], cu[i]);
-            if (r < rows) dcp[(size_t)(l0 + r) * N + n] += u[i][j];
-          }
-        }
-      }
-      {  // V = B dS^T: dx += indec V
-        float v[4][4] = {};
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float bv[4], sv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) bv[i] = Bs[(ty + 16 * i) * ns + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sv[j] = dS[(tx + 16 * j) * ns + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[i][j] = fmaf(bv[i], sv[j], v[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty + 16 * i;
-          const float indec = (r < rows) ? expf(cum_last - cum_s[l0 + r]) * dt_s[l0 + r] : 0.0f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int p = tx + 16 * j;
-            gx[i] = fmaf(Xs[r * XS + p], v[i][j], gx[i]);
-            if (r < rows && p < P) dx[((row0 + l0 + r) * H + h) * P + p] += indec * v[i][j];
-          }
-        }
-      }
-      {  // Z = x dS: dB += indec Z
-        float z[4][8] = {};
-#pragma unroll 4
-        for (int p = 0; p < P; ++p) {
-          float xv[4], sv[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) xv[i] = Xs[(ty + 16 * i) * XS + p];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            sv[j] = (n < N) ? dS[p * ns + n] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) z[i][j] = fmaf(xv[i], sv[j], z[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty + 16 * i;
-          if (r >= rows) continue;
-          const float indec = expf(cum_last - cum_s[l0 + r]) * dt_s[l0 + r];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = tx + 16 * j;
-            if (n < N) dbp[(size_t)(l0 + r) * N + n] += indec * z[i][j];
-          }
-        }
-      }
-      // Sum cu and gx over the 16 lanes that share a row (one half-warp).
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {
-          cu[i] += __shfl_xor_sync(0xffffffffu, cu[i], off);
-          gx[i] += __shfl_xor_sync(0xffffffffu, gx[i], off);
-        }
-        const int r = ty + 16 * i;
-        if (tx == 0 && r < rows) {
-          const int l = l0 + r;
-          const float in_decay = expf(cum_last - cum_s[l]);
-          const float gi = gx[i] * in_decay * dt_s[l];
-          ddt_s[l] += gx[i] * in_decay;
-          dcum_s[l] += cu[i] - gi;
-          gi_s[l] = gi;
-        }
-      }
-      // sum_l (e_l dy_l)^T C_l over this tile's rows
-      for (int r = 0; r < rows; ++r) {
-        float yv[4], cv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) yv[i] = Ys[r * XS + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = tx + 16 * j;
-          cv[j] = (n < N) ? Cs[r * ns + n] : 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) fa[i][j] = fmaf(yv[i], cv[j], fa[i][j]);
-      }
-      __syncthreads();  // the next tile may overwrite Cs, Bs, Xs, Ys
-    }
-
-    // ---- the last row's dcum term; then dS <- dS exp(cum_last) + fa ----
-    float part = 0.0f;
-    for (int e = tid; e < MAX_P * ns; e += THREADS) part = fmaf(dS[e], S[e], part);
-    red[tid] = part;
-    __syncthreads();  // every partial is in red, every read of dS is done
-    const float cd = expf(cum_last);
-    if (tid == 0) {
-      float sdot = 0.0f, gsum = 0.0f;
-      for (int k = 0; k < THREADS; ++k) sdot += red[k];
-      for (int l = 0; l < L; ++l) gsum += gi_s[l];
-      dcum_s[L - 1] += sdot * cd + gsum;
-    }
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * i;
-      if (p >= P) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = tx + 16 * j;
-        if (n < N) dS[p * ns + n] = fmaf(dS[p * ns + n], cd, fa[i][j]);
-      }
+      const int l = rm + acc_row(i), m = cn + acc_col(j, i);
+      if (l < lrows && m < mrows) gt[(size_t)(l0 + l) * L + m0 + m] = acc[j][i];
     }
-    __syncthreads();  // ddt_s and dcum_s are complete
-    for (int l = tid; l < L; l += THREADS) {
-      ddt[(row0 + l) * H + h] = ddt_s[l];
-      dcum[(row0 + l) * H + h] = dcum_s[l];
+}
+
+// ===========================================================================
+// Forward 2 and backward 2: out[b, k, h] (P x N) = sum_l s_l X_l^T Y_l for the
+// chunks k in [c0, c0 + gridDim.y).  Forward: X = x, Y = B, s = indec (the
+// chunk-local state); backward: X = dy, Y = C, s = e (the carry F_k).
+// grid (H, chunks, B).  Over l by 64-row tiles, double-buffered.
+// ===========================================================================
+
+template <bool kBackward>
+__global__ void __launch_bounds__(THREADS)
+ssd_local_kernel(const float* __restrict__ xs_src, const float* __restrict__ dt,
+                 const float* __restrict__ cum, const float* __restrict__ ys_src,
+                 float* __restrict__ out, int NC, int L, int H, int P, int N, int c0) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x (X, Y half 0, Y half 1)
+  float* scale = smem + 6 * TILE_FLOATS;          // (MAX_L)
+  const int h = blockIdx.x;
+  const int c = c0 + blockIdx.y;
+  const size_t bc = (size_t)blockIdx.z * NC + c;
+  const int tiles = (L + TILE - 1) / TILE;
+  const int halves = (N + TILE - 1) / TILE;
+
+  auto issue = [&](int kt) {
+    float* st = smem + (kt & 1) * 3 * TILE_FLOATS;
+    const int rows = min(TILE, L - kt * TILE);
+    const size_t row = bc * L + kt * TILE;
+    load_tile(st, xs_src + (row * H + h) * P, (size_t)H * P, rows, P);
+    for (int hf = 0; hf < halves; ++hf)
+      load_tile(st + (1 + hf) * TILE_FLOATS, ys_src + row * N + hf * TILE, N, rows,
+                min(TILE, N - hf * TILE));
+    cp_commit();
+  };
+  issue(0);
+  const float cum_last = cum[(bc * L + L - 1) * H + h];
+  for (int l = threadIdx.x; l < MAX_L; l += THREADS) {
+    float s = 0.f;
+    if (l < L) {
+      const float cl = cum[(bc * L + l) * H + h];
+      s = kBackward ? expf(cl) : expf(cum_last - cl) * dt[(bc * L + l) * H + h];
+    }
+    scale[l] = s;
+  }
+
+  const int rm = warp_row0(), cn = warp_col0(2 * TILE);
+  float acc[8][4];
+  zero(acc);
+  for (int kt = 0; kt < tiles; ++kt) {
+    if (kt + 1 < tiles) {
+      issue(kt + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* xt = smem + (kt & 1) * 3 * TILE_FLOATS;
+    const float* yt = xt + (1 + cn / TILE) * TILE_FLOATS;
+    const float* sc = scale + kt * TILE;
+    if (cn < N)  // warp-uniform: the second half exists only for N > 64
+      warp_mma<8>(acc, [&](int r, int k) { return sc[k] * xt[at(k, rm + r)]; },
+                  [&](int k, int n) { return yt[at(k, n)]; });
+    __syncthreads();
+  }
+  float* o = out + (bc * H + h) * P * N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = rm + acc_row(i), n = cn + acc_col(j, i);
+      if (p < P && n < N) o[(size_t)p * N + n] = acc[j][i];
+    }
+}
+
+// ===========================================================================
+// Forward 3 and backward 3: the carry, elementwise over P N, in place.  For
+// each (b, h) and element, in chunk order (reversed for the backward):
+// v = buf[k]; buf[k] = s; s = s exp(cum_last of k) + v, from s = 0.  The
+// forward turns chunk-local states into entry states S_k; the backward turns
+// F_k into dS_k.  The last chunk visited is only written (its v is unused).
+// grid (ceil(P N / 256), H, B).
+// ===========================================================================
+
+template <bool kBackward>
+__global__ void __launch_bounds__(THREADS)
+ssd_pass_kernel(float* __restrict__ buf, const float* __restrict__ cum, int NC, int L, int H,
+                int PN) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= PN) return;
+  const int h = blockIdx.y;
+  const size_t b = blockIdx.z;
+  auto chunk = [&](int i) { return kBackward ? NC - 1 - i : i; };
+  float s = 0.f;
+  // Eight chunks' loads are issued before their stores, so they overlap.
+  for (int i0 = 0; i0 < NC; i0 += 8) {
+    float v[8], cd[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = i0 + k, c = chunk(i);
+      const bool more = i + 1 < NC;
+      v[k] = more ? buf[((b * NC + c) * H + h) * PN + e] : 0.f;
+      cd[k] = more ? expf(cum[((b * NC + c) * L + L - 1) * H + h]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = i0 + k;
+      if (i < NC) {
+        buf[((b * NC + chunk(i)) * H + h) * PN + e] = s;
+        s = fmaf(s, cd[k], v[k]);
+      }
     }
   }
 }
 
-// dB and dC (B, NC, L, N): the heads' shares (B, NC, H, L, N) summed in
-// head order, one thread per output element.
-__global__ void ssd_bwd_reduce_kernel(const float* __restrict__ db_part,
-                                      const float* __restrict__ dc_part,
-                                      float* __restrict__ db, float* __restrict__ dc, int H,
-                                      int LN, size_t total) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const size_t bc = idx / LN;
-  const size_t e = idx - bc * LN;
-  const float* pb = db_part + bc * H * LN + e;
-  const float* pc = dc_part + bc * H * LN + e;
-  float sb = 0.0f, sc = 0.0f;
+// ===========================================================================
+// Forward 4: y for one (batch, chunk, head, 64-row query tile t).
+// grid (tiles, H, B NC).  One pipeline of steps, each staged while the one
+// before is used: first the carried term C S_k^T, one step per half of N
+// (C and S_k), then scaled by e_l; then one step per key tile j <= t (G[t][j]
+// and x_j): y += (G decay dt_m) x_j, the weights formed in place of G
+// before the product.  Four tiles of shared memory, so three blocks share an
+// SM.
+// ===========================================================================
+
+__global__ void __launch_bounds__(THREADS)
+ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+             const float* __restrict__ cum, const float* __restrict__ cm,
+             const float* __restrict__ G, const float* __restrict__ states,
+             float* __restrict__ y, int L, int H, int P, int N) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x 2 tiles
+  float* cum_s = smem + 4 * TILE_FLOATS;           // (MAX_L)
+  float* dt_s = cum_s + MAX_L;                     // (MAX_L)
+  const int t = blockIdx.x;
+  const int h = blockIdx.y;
+  const size_t bc = blockIdx.z;
+  const int l0 = t * TILE;
+  const int lrows = min(TILE, L - l0);
+  const int halves = (N + TILE - 1) / TILE;
+  const int steps = halves + t + 1;
+
+  auto issue = [&](int st) {
+    float* buf = smem + 2 * (st & 1) * TILE_FLOATS;
+    if (st < halves) {
+      const int cols = min(TILE, N - st * TILE);
+      load_tile(buf, cm + (bc * L + l0) * N + st * TILE, N, lrows, cols);
+      load_tile(buf + TILE_FLOATS, states + (bc * H + h) * P * N + st * TILE, N, P, cols);
+    } else {
+      const int j = st - halves;
+      const int rows = min(TILE, L - j * TILE);
+      load_tile(buf, G + bc * L * L + (size_t)l0 * L + j * TILE, L, lrows, rows);
+      load_tile(buf + TILE_FLOATS, x + ((bc * L + j * TILE) * H + h) * P, (size_t)H * P, rows,
+                P);
+    }
+    cp_commit();
+  };
+  issue(0);
+  for (int l = threadIdx.x; l < MAX_L; l += THREADS) {
+    cum_s[l] = l < L ? cum[(bc * L + l) * H + h] : 0.f;
+    dt_s[l] = l < L ? dt[(bc * L + l) * H + h] : 0.f;
+  }
+
+  const int rm = warp_row0(), cn = warp_col0(TILE);
+  float acc[4][4];
+  zero(acc);
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      issue(st + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    float* buf = smem + 2 * (st & 1) * TILE_FLOATS;
+    const float* other = buf + TILE_FLOATS;
+    if (st < halves) {
+      warp_mma<4>(acc, [&](int r, int k) { return buf[at(rm + r, k)]; },
+                  [&](int k, int n) { return other[at(cn + n, k)]; });
+      if (st == halves - 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] *= expf(cum_s[l0 + rm + acc_row(i)]);
+      }
+    } else {
+      const int m0 = (st - halves) * TILE;
+      // W = G decay dt_m, in place of G, each entry once.
+      for (int e = threadIdx.x; e < TILE_FLOATS; e += THREADS) {
+        const int gl = l0 + (e >> 6), gm = m0 + (e & 63);
+        float* w = buf + at(e >> 6, e & 63);
+        // Mask before exp: only m <= l < L is evaluated.
+        *w = (gm <= gl && gl < L) ? *w * expf(cum_s[gl] - cum_s[gm]) * dt_s[gm] : 0.f;
+      }
+      __syncthreads();
+      warp_mma<4>(acc, [&](int r, int k) { return buf[at(rm + r, k)]; },
+                  [&](int k, int n) { return other[at(k, cn + n)]; });
+    }
+    __syncthreads();  // the next step may overwrite this stage
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int l = rm + acc_row(i), p = cn + acc_col(j, i);
+      if (l < lrows && p < P) y[((bc * L + l0 + l) * H + h) * P + p] = acc[j][i];
+    }
+}
+
+// Sum over the 4 lanes of a quad (the lanes that share an accumulator row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// ===========================================================================
+// Backward 4: dx, ddt and dcum of one (batch, chunk, head) on the 64 rows of
+// tile t.  grid (tiles, H, B NC).  One pipeline of steps, each step's tiles
+// staged while the step before is used:
+//
+// Phase 1, the carried state: V = B_t dS^T and Z = C_t S_k^T (64 x P, depth
+// N), one step per half of N for each.  dx starts at indec V; g_l = x_l . V_l
+// and z_l = dy_l . Z_l are row sums.  The block of the last tile also forms
+// <dS_k, S_k+1> for the last row's dcum.
+//
+// Phase 2, the intra-chunk form: for j = 0 .. tiles - 1 the tile pair (j, t)
+// if j >= t (tile t as keys: dx += W^T dy_j and the column sums of Q) and
+// (t, j) if j <= t (tile t as queries: the row sums of Q dt_m).  Each pair
+// forms dW = dy x^T on the tensor cores, then Q and W from G[l][m] in
+// registers, W written in place of G.  Every block does `tiles` dW
+// products, so the blocks of a chunk are balanced.  Six tiles of shared
+// memory (101 KB), so two blocks share an SM.
+// ===========================================================================
+
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ cum, const float* __restrict__ bm,
+                    const float* __restrict__ cm, const float* __restrict__ states,
+                    const float* __restrict__ ds, const float* __restrict__ G,
+                    const float* __restrict__ dy, float* __restrict__ dx,
+                    float* __restrict__ ddt, float* __restrict__ dcum, int NC, int L, int H,
+                    int P, int N) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x 2 tiles
+  float* xt = smem + 4 * TILE_FLOATS;     // x rows of tile t
+  float* yt = xt + TILE_FLOATS;           // dy rows of tile t
+  float* cum_s = yt + TILE_FLOATS;        // (MAX_L)
+  float* dt_s = cum_s + MAX_L;            // (MAX_L)
+  float* red_g = dt_s + MAX_L;            // (2, 64)  g_l halves
+  float* red_z = red_g + 2 * TILE;        // (2, 64)  z_l halves
+  float* red_r = red_z + 2 * TILE;        // (2, 64)  a pair's row sums, by column half
+  float* red_c = red_r + 2 * TILE;        // (4, 64)  a pair's column sums, by row quarter
+  float* row_q = red_c + 4 * TILE;        // (64)  sum_m Q[l][m] dt_m
+  float* col_q = row_q + TILE;            // (64)  sum_l Q[l][m]
+  float* wred = col_q + TILE;             // (8)
+
+  const int t = blockIdx.x;
+  const int h = blockIdx.y;
+  const size_t bc = blockIdx.z;
+  const int c = (int)(bc % NC);
+  const int tiles = (L + TILE - 1) / TILE;
+  const int halves = (N + TILE - 1) / TILE;
+  const int l0 = t * TILE;
+  const int lrows = min(TILE, L - l0);
+  const size_t head = bc * H + h;  // (b, k, h) of states and dS
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int carried = 2 * halves;  // phase-1 steps: (B, dS) per half, then (C, S) per half
+  const int steps = carried + tiles;
+
+  auto stage = [&](int st) { return smem + 2 * (st & 1) * TILE_FLOATS; };
+  auto issue = [&](int st) {
+    float* buf = stage(st);
+    if (st < carried) {
+      const bool zs = st >= halves;
+      const int hf = st % halves;
+      const int cols = min(TILE, N - hf * TILE);
+      load_tile(buf, (zs ? cm : bm) + (bc * L + l0) * N + hf * TILE, N, lrows, cols);
+      load_tile(buf + TILE_FLOATS, (zs ? states : ds) + head * P * N + hf * TILE, N, P, cols);
+    } else {
+      const int j = st - carried;
+      const int lt = j >= t ? j : t, mt = j >= t ? t : j;
+      load_tile(buf, G + bc * L * L + (size_t)lt * TILE * L + mt * TILE, L,
+                min(TILE, L - lt * TILE), min(TILE, L - mt * TILE));
+      if (j != t)  // keys after t need dy_j; queries before t need x_j
+        load_tile(buf + TILE_FLOATS, (j > t ? dy : x) + ((bc * L + j * TILE) * H + h) * P,
+                  (size_t)H * P, min(TILE, L - j * TILE), P);
+    }
+    cp_commit();
+  };
+  load_tile(xt, x + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
+  load_tile(yt, dy + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
+  issue(0);  // x and dy of tile t join the first step's group
+  for (int l = threadIdx.x; l < MAX_L; l += THREADS) {
+    cum_s[l] = l < L ? cum[(bc * L + l) * H + h] : 0.f;
+    dt_s[l] = l < L ? dt[(bc * L + l) * H + h] : 0.f;
+  }
+  if (threadIdx.x < TILE) {
+    row_q[threadIdx.x] = 0.f;
+    col_q[threadIdx.x] = 0.f;
+  }
+  // <dS_k, S_k+1>: the last row's dcum term (dS of the last chunk is zero).
+  const bool has_last = t == tiles - 1 && c + 1 < NC;
+  if (has_last) {
+    const float* a = ds + head * P * N;
+    const float* s_next = states + (head + H) * P * N;
+    float part = 0.f;
+    for (int e = threadIdx.x; e < P * N; e += THREADS) part = fmaf(a[e], s_next[e], part);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (lane == 0) wred[warp] = part;
+  }
+
+  const int rm = warp_row0(), cn = warp_col0(TILE);
+  float vacc[4][4], zacc[4][4], dxa[4][4];
+  zero(vacc);
+  zero(zacc);
+  float last_dot = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      issue(st + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    float* buf = stage(st);
+    const float* other = buf + TILE_FLOATS;
+    if (st < carried) {
+      // ---- phase 1 ----
+      auto fa = [&](int r, int k) { return buf[at(rm + r, k)]; };
+      auto fb = [&](int k, int n) { return other[at(cn + n, k)]; };
+      if (st < halves)
+        warp_mma<4>(vacc, fa, fb);
+      else
+        warp_mma<4>(zacc, fa, fb);
+      if (st == carried - 1) {
+        if (has_last)
+          for (int w = 0; w < THREADS / 32; ++w) last_dot += wred[w];
+        const float cum_last = cum_s[L - 1];
+        float gp[2] = {0.f, 0.f}, zp[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = rm + acc_row(i), p = cn + acc_col(j, i);
+            const int l = l0 + r;
+            gp[i >> 1] = fmaf(xt[at(r, p)], vacc[j][i], gp[i >> 1]);
+            zp[i >> 1] = fmaf(yt[at(r, p)], zacc[j][i], zp[i >> 1]);
+            dxa[j][i] = expf(cum_last - cum_s[l]) * dt_s[l] * vacc[j][i];  // dt_s is 0 past L
+          }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          gp[q] = quad_sum(gp[q]);
+          zp[q] = quad_sum(zp[q]);
+          if ((lane & 3) == 0) {
+            const int r = rm + (lane >> 2) + 8 * q;
+            red_g[(warp >> 2) * TILE + r] = gp[q];
+            red_z[(warp >> 2) * TILE + r] = zp[q];
+          }
+        }
+      }
+    } else {
+      // ---- phase 2: the pair (j, t) and/or (t, j) ----
+      const int j = st - carried;
+      const bool keys = j >= t;     // tile t as the key tile of pair (j, t)
+      const bool queries = j <= t;  // tile t as the query tile of pair (t, j)
+      const int lt = keys ? j : t, mt = keys ? t : j;
+      const float* dyq = j > t ? other : yt;  // dy rows of the query tile
+      const float* xk = j < t ? other : xt;   // x rows of the key tile
+      float dw[4][4];
+      zero(dw);
+      warp_mma<4>(dw, [&](int r, int k) { return dyq[at(rm + r, k)]; },
+                  [&](int k, int n) { return xk[at(cn + n, k)]; });
+      float rp[2] = {0.f, 0.f};
+      float cp[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        cp[jj][0] = 0.f;
+        cp[jj][1] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rm + acc_row(i), m = cn + acc_col(jj, i);
+          const int gl = lt * TILE + r, gm = mt * TILE + m;
+          float* gv = buf + at(r, m);  // G, then W: each entry read and written by one thread
+          // Mask before exp: only m <= l < L is evaluated.
+          const float dec = (gm <= gl && gl < L) ? expf(cum_s[gl] - cum_s[gm]) : 0.f;
+          const float q = dw[jj][i] * *gv * dec;
+          cp[jj][i & 1] += q;
+          rp[i >> 1] = fmaf(q, dt_s[gm], rp[i >> 1]);
+          if (keys) *gv = *gv * dec * dt_s[gm];
+        }
+      }
+      if (queries) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          rp[q] = quad_sum(rp[q]);
+          if ((lane & 3) == 0) red_r[(warp >> 2) * TILE + rm + (lane >> 2) + 8 * q] = rp[q];
+        }
+      }
+      if (keys) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int b2 = 0; b2 < 2; ++b2) {
+            float v = cp[jj][b2];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (lane < 4) red_c[(warp & 3) * TILE + cn + 8 * jj + 2 * lane + b2] = v;
+          }
+      }
+      __syncthreads();  // W and the partial sums are complete
+      if (threadIdx.x < TILE) {
+        const int r = threadIdx.x;
+        if (queries) row_q[r] += red_r[r] + red_r[TILE + r];
+        if (keys)
+          col_q[r] += ((red_c[r] + red_c[TILE + r]) + red_c[2 * TILE + r]) + red_c[3 * TILE + r];
+      }
+      if (keys)  // dx[m][p] += sum_l W[l][m] dy[l][p]
+        warp_mma<4>(dxa, [&](int r, int k) { return buf[at(k, rm + r)]; },
+                    [&](int k, int n) { return dyq[at(k, cn + n)]; });
+    }
+    __syncthreads();  // the next step may overwrite this stage and the partial sums
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rm + acc_row(i), p = cn + acc_col(j, i);
+      if (r < lrows && p < P) dx[((bc * L + l0 + r) * H + h) * P + p] = dxa[j][i];
+    }
+  if (threadIdx.x < lrows) {
+    const int r = threadIdx.x;
+    const int l = l0 + r;
+    const float g = red_g[r] + red_g[TILE + r];
+    const float z = red_z[r] + red_z[TILE + r];
+    const float in_decay = expf(cum_s[L - 1] - cum_s[l]);
+    float dc = row_q[r] - dt_s[l] * col_q[r] + expf(cum_s[l]) * z - g * in_decay * dt_s[l];
+    if (l == L - 1) dc += last_dot;
+    ddt[(bc * L + l) * H + h] = col_q[r] + g * in_decay;
+    dcum[(bc * L + l) * H + h] = dc;
+  }
+}
+
+// ===========================================================================
+// Backward 5: dG[l][m] = sum_h dW_h[l][m] decay_h[l][m] dt_h[m] on one causal
+// tile (lt, mt) of one (batch, chunk), the heads in order, over G's scratch.
+// grid (tiles (tiles + 1) / 2, B NC).  A stage holds one head's dy rows of
+// the query tile, x rows of the key tile and their cum and dt.
+// ===========================================================================
+
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_dg_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ cum, const float* __restrict__ dy,
+                  float* __restrict__ dG, int L, int H, int P) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x (dy, x tiles; cum_l, cum_m, dt_m)
+  constexpr int STAGE = 2 * TILE_FLOATS + 3 * TILE;
+  int lt, mt;
+  pair_of(blockIdx.x, lt, mt);
+  const size_t bc = blockIdx.y;
+  const int l0 = lt * TILE, m0 = mt * TILE;
+  const int lrows = min(TILE, L - l0), mrows = min(TILE, L - m0);
+
+  auto issue = [&](int h) {
+    float* st = smem + (h & 1) * STAGE;
+    load_tile(st, dy + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
+    load_tile(st + TILE_FLOATS, x + ((bc * L + m0) * H + h) * P, (size_t)H * P, mrows, P);
+    load_vec(st + 2 * TILE_FLOATS, cum + (bc * L + l0) * H + h, H, lrows);
+    load_vec(st + 2 * TILE_FLOATS + TILE, cum + (bc * L + m0) * H + h, H, mrows);
+    load_vec(st + 2 * TILE_FLOATS + 2 * TILE, dt + (bc * L + m0) * H + h, H, mrows);
+    cp_commit();
+  };
+  issue(0);
+  const int rm = warp_row0(), cn = warp_col0(TILE);
+  float acc[4][4];
+  zero(acc);
   for (int h = 0; h < H; ++h) {
-    sb += pb[(size_t)h * LN];
-    sc += pc[(size_t)h * LN];
+    if (h + 1 < H) {
+      issue(h + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* st = smem + (h & 1) * STAGE;
+    const float* dys = st;
+    const float* xs = st + TILE_FLOATS;
+    const float* cl = st + 2 * TILE_FLOATS;
+    const float* cmv = cl + TILE;
+    const float* dtm = cmv + TILE;
+    float dw[4][4];
+    zero(dw);
+    warp_mma<4>(dw, [&](int r, int k) { return dys[at(rm + r, k)]; },
+                [&](int k, int n) { return xs[at(cn + n, k)]; });
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rm + acc_row(i), m = cn + acc_col(j, i);
+        // Mask before exp: only m <= l < L is evaluated.
+        if (m0 + m <= l0 + r && r < lrows) acc[j][i] += dw[j][i] * expf(cl[r] - cmv[m]) * dtm[m];
+      }
+    __syncthreads();  // the next head may overwrite this stage
   }
-  db[idx] = sb;
-  dc[idx] = sc;
+  float* out = dG + bc * L * L;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rm + acc_row(i), m = cn + acc_col(j, i);
+      if (r < lrows && m < mrows) out[(size_t)(l0 + r) * L + m0 + m] = acc[j][i];
+    }
+}
+
+// ===========================================================================
+// Backward 6: dC or dB on the 64 rows of tile t and 64 columns (half nh) of
+// N, of one (batch, chunk).  grid (tiles x halves x 2, B NC).
+//
+//   dC_t = sum_{j <= t} dG[t][j] B_j + sum_h (e_h dy_h,t) S_h
+//   dB_t = sum_{j >= t} dG[j][t]^T C_j + sum_h (indec_h x_h,t) dS_h
+//
+// One step per tile j, then one per head in order, each staged while the
+// one before is used; the heads' row scales e or indec are formed when a
+// step's cum and dt arrive.
+// ===========================================================================
+
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ cum, const float* __restrict__ bm,
+                   const float* __restrict__ cm, const float* __restrict__ states,
+                   const float* __restrict__ ds, const float* __restrict__ dG,
+                   const float* __restrict__ dy, float* __restrict__ db, float* __restrict__ dc,
+                   int NC, int L, int H, int P, int N) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x (A, B tiles; cum, dt rows)
+  constexpr int STAGE = 2 * TILE_FLOATS + 2 * TILE;
+  const int halves = (N + TILE - 1) / TILE;
+  const int tiles = (L + TILE - 1) / TILE;
+  const bool want_db = blockIdx.x & 1;
+  const int nh = (blockIdx.x >> 1) % halves;
+  const int t = (blockIdx.x >> 1) / halves;
+  const size_t bc = blockIdx.y;
+  const int l0 = t * TILE;
+  const int lrows = min(TILE, L - l0);
+  const int ncols = min(TILE, N - nh * TILE);
+  const int j0 = want_db ? t : 0;              // intra steps: tiles j0 .. j0 + intra - 1
+  const int intra = want_db ? tiles - t : t + 1;
+  const int steps = intra + H;
+
+  auto issue = [&](int s) {
+    float* st = smem + (s & 1) * STAGE;
+    if (s < intra) {
+      const int j = j0 + s;
+      const int jrows = min(TILE, L - j * TILE);
+      if (want_db)  // dG[j][t]: rows l of tile j, columns m of tile t
+        load_tile(st, dG + bc * L * L + (size_t)j * TILE * L + l0, L, jrows, lrows);
+      else          // dG[t][j]: rows l of tile t, columns m of tile j
+        load_tile(st, dG + bc * L * L + (size_t)l0 * L + j * TILE, L, lrows, jrows);
+      load_tile(st + TILE_FLOATS, (want_db ? cm : bm) + (bc * L + j * TILE) * N + nh * TILE, N,
+                jrows, ncols);
+    } else {
+      const int h = s - intra;
+      load_tile(st, (want_db ? x : dy) + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
+      load_tile(st + TILE_FLOATS, (want_db ? ds : states) + (bc * H + h) * P * N + nh * TILE, N,
+                P, ncols);
+      load_vec(st + 2 * TILE_FLOATS, cum + (bc * L + l0) * H + h, H, lrows);
+      load_vec(st + 2 * TILE_FLOATS + TILE, dt + (bc * L + l0) * H + h, H, lrows);
+    }
+    cp_commit();
+  };
+  issue(0);
+  const int rm = warp_row0(), cn = warp_col0(TILE);
+  const int g = (threadIdx.x & 31) >> 2;
+  float acc[4][4];
+  zero(acc);
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      issue(s + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* as = smem + (s & 1) * STAGE;
+    const float* bs = as + TILE_FLOATS;
+    auto fb = [&](int k, int n) { return bs[at(k, cn + n)]; };
+    if (s < intra) {
+      if (want_db)
+        warp_mma<4>(acc, [&](int r, int k) { return as[at(k, rm + r)]; }, fb);
+      else
+        warp_mma<4>(acc, [&](int r, int k) { return as[at(rm + r, k)]; }, fb);
+    } else {
+      // This thread's A rows rm + g and rm + g + 8, scaled by e or indec.
+      const int h = s - intra;
+      const float* cv = as + 2 * TILE_FLOATS;
+      const float* dv = cv + TILE;
+      const float cum_last = cum[(bc * L + L - 1) * H + h];
+      float sc[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int r = rm + g + 8 * q;
+        sc[q] = want_db ? expf(cum_last - cv[r]) * dv[r] : expf(cv[r]);
+      }
+      warp_mma<4>(acc, [&](int r, int k) { return (r < 8 ? sc[0] : sc[1]) * as[at(rm + r, k)]; }, fb);
+    }
+    __syncthreads();  // the next step may overwrite this stage
+  }
+  float* out = want_db ? db : dc;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rm + acc_row(i), n = cn + acc_col(j, i);
+      if (r < lrows && n < ncols) out[(bc * L + l0 + r) * N + nh * TILE + n] = acc[j][i];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Launches.  Each returns the first CUDA error (0 on success).
+// ---------------------------------------------------------------------------
+
+constexpr size_t kCbSmem = 4 * TILE_FLOATS * sizeof(float);
+constexpr size_t kLocalSmem = (6 * TILE_FLOATS + MAX_L) * sizeof(float);
+constexpr size_t kYSmem = (4 * TILE_FLOATS + 2 * MAX_L) * sizeof(float);
+constexpr size_t kHeadSmem = (6 * TILE_FLOATS + 2 * MAX_L + 12 * TILE + 8) * sizeof(float);
+constexpr size_t kDgSmem = 2 * (2 * TILE_FLOATS + 3 * TILE) * sizeof(float);
+constexpr size_t kDbcSmem = 2 * (2 * TILE_FLOATS + 2 * TILE) * sizeof(float);
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+bool shapes_ok(int B, int NC, int L, int H, int P, int N) {
+  return L >= 1 && L <= MAX_L && P >= 1 && P <= MAX_P && N >= 1 && N <= MAX_N && B >= 1 &&
+         NC >= 1 && H >= 1 && B <= 65535 && H <= 65535 && (size_t)B * NC <= 65535;
+}
+
+int tiles_of(int L) { return (L + TILE - 1) / TILE; }
+
+cudaError_t launch_cb(const float* bm, const float* cm, float* G, int B, int NC, int L, int N,
+                      bool backward, cudaStream_t s) {
+  const auto kernel = backward ? ssd_cb_kernel<true> : ssd_cb_kernel<false>;
+  cudaError_t err = allow_smem(kernel, kCbSmem);
+  if (err != cudaSuccess) return err;
+  const int T = tiles_of(L);
+  kernel<<<dim3(T * (T + 1) / 2, B * NC), THREADS, kCbSmem, s>>>(bm, cm, G, L, N);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_local(const float* xs, const float* dt, const float* cum, const float* ys,
+                         float* out, int B, int NC, int L, int H, int P, int N, int c0,
+                         int chunks, bool backward, cudaStream_t s) {
+  if (chunks <= 0) return cudaSuccess;
+  const auto kernel = backward ? ssd_local_kernel<true> : ssd_local_kernel<false>;
+  cudaError_t err = allow_smem(kernel, kLocalSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, chunks, B), THREADS, kLocalSmem, s>>>(xs, dt, cum, ys, out, NC, L, H, P, N,
+                                                         c0);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pass(float* buf, const float* cum, int B, int NC, int L, int H, int PN,
+                        bool reverse, cudaStream_t s) {
+  const auto kernel = reverse ? ssd_pass_kernel<true> : ssd_pass_kernel<false>;
+  kernel<<<dim3((PN + THREADS - 1) / THREADS, H, B), THREADS, 0, s>>>(buf, cum, NC, L, H, PN);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_y(const float* x, const float* dt, const float* cum, const float* cm,
+                     const float* G, const float* states, float* y, int B, int NC, int L, int H,
+                     int P, int N, cudaStream_t s) {
+  cudaError_t err = allow_smem(ssd_y_kernel, kYSmem);
+  if (err != cudaSuccess) return err;
+  ssd_y_kernel<<<dim3(tiles_of(L), H, B * NC), THREADS, kYSmem, s>>>(x, dt, cum, cm, G, states,
+                                                                     y, L, H, P, N);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_head(const float* x, const float* dt, const float* cum, const float* bm,
+                        const float* cm, const float* states, const float* ds, const float* G,
+                        const float* dy, float* dx, float* ddt, float* dcum, int B, int NC,
+                        int L, int H, int P, int N, cudaStream_t s) {
+  cudaError_t err = allow_smem(ssd_bwd_head_kernel, kHeadSmem);
+  if (err != cudaSuccess) return err;
+  ssd_bwd_head_kernel<<<dim3(tiles_of(L), H, B * NC), THREADS, kHeadSmem, s>>>(
+      x, dt, cum, bm, cm, states, ds, G, dy, dx, ddt, dcum, NC, L, H, P, N);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dg(const float* x, const float* dt, const float* cum, const float* dy,
+                      float* dG, int B, int NC, int L, int H, int P, cudaStream_t s) {
+  cudaError_t err = allow_smem(ssd_bwd_dg_kernel, kDgSmem);
+  if (err != cudaSuccess) return err;
+  const int T = tiles_of(L);
+  ssd_bwd_dg_kernel<<<dim3(T * (T + 1) / 2, B * NC), THREADS, kDgSmem, s>>>(x, dt, cum, dy, dG,
+                                                                           L, H, P);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dbc(const float* x, const float* dt, const float* cum, const float* bm,
+                       const float* cm, const float* states, const float* ds, const float* dG,
+                       const float* dy, float* db, float* dc, int B, int NC, int L, int H, int P,
+                       int N, cudaStream_t s) {
+  cudaError_t err = allow_smem(ssd_bwd_dbc_kernel, kDbcSmem);
+  if (err != cudaSuccess) return err;
+  const int halves = (N + TILE - 1) / TILE;
+  ssd_bwd_dbc_kernel<<<dim3(tiles_of(L) * halves * 2, B * NC), THREADS, kDbcSmem, s>>>(
+      x, dt, cum, bm, cm, states, ds, dG, dy, db, dc, NC, L, H, P, N);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+#define SSD_TRY(call)                      \
+  do {                                     \
+    const cudaError_t e_ = (call);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
+#define SSD_CHECK_SHAPES(B, NC, L, H, P, N) \
+  if (!shapes_ok(B, NC, L, H, P, N)) return (int)cudaErrorInvalidValue
+
 extern "C" {
 
-// Returns the launch's cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes above the kernel's limits.  At N = 128 a
-// block needs 131 KB of shared memory, so the launch opts in above 48 KB.
+// The forward: y (B, NC, L, H, P) and the entry states (B, NC, H, P, N),
+// which the caller allocates even when it does not keep them; g is scratch of
+// B NC L L floats.  Four launches.
 int ssd_chunk_scan_fwd(const float* x, const float* dt, const float* cum, const float* bm,
-                       const float* cm, float* y, float* states, int B, int NC, int L, int H,
-                       int P, int N, void* stream) {
-  if (L < 1 || L > MAX_L || P < 1 || P > MAX_P || N < 1 || N > MAX_N || B < 1 || NC < 1 ||
-      H < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(L, N) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_scan_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(H, B);
-  ssd_chunk_scan_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(x, dt, cum, bm, cm, y,
-                                                                      states, NC, L, H, P, N);
-  return (int)cudaGetLastError();
+                       const float* cm, float* y, float* states, float* g, int B, int NC, int L,
+                       int H, int P, int N, void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, N);
+  cudaStream_t s = (cudaStream_t)stream;
+  SSD_TRY(launch_cb(bm, cm, g, B, NC, L, N, false, s));
+  SSD_TRY(launch_local(x, dt, cum, bm, states, B, NC, L, H, P, N, 0, NC - 1, false, s));
+  SSD_TRY(launch_pass(states, cum, B, NC, L, H, P * N, false, s));
+  SSD_TRY(launch_y(x, dt, cum, cm, g, states, y, B, NC, L, H, P, N, s));
+  return 0;
 }
 
-// The backward: dx, ddt, dcum (the shapes of x, dt, cum), db, dc (B, NC, L, N),
-// from states (B, NC, H, P, N) and dy (B, NC, L, H, P).  db_part and dc_part
-// are scratch of B * NC * H * L * N floats each.  Returns the first CUDA
-// error of the two launches (0 on success), or cudaErrorInvalidValue for
-// shapes above the kernel's limits.  At L = 256, N = 128 a block needs
-// 221 KB of shared memory, so the launch opts in above 48 KB.
+// The backward: dx, ddt, dcum (the shapes of x, dt, cum), db, dc (B, NC, L, N)
+// from the entry states and dy.  g is scratch of B NC L L floats (G, then dG)
+// and ds of B NC H P N floats (the carries F, then dS).  Six launches.
 int ssd_chunk_scan_bwd(const float* x, const float* dt, const float* cum, const float* bm,
                        const float* cm, const float* states, const float* dy, float* dx,
-                       float* ddt, float* dcum, float* db, float* dc, float* db_part,
-                       float* dc_part, int B, int NC, int L, int H, int P, int N,
-                       void* stream) {
-  if (L < 1 || L > MAX_L || P < 1 || P > MAX_P || N < 1 || N > MAX_N || B < 1 || NC < 1 ||
-      H < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_floats(L, N) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_scan_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+                       float* ddt, float* dcum, float* db, float* dc, float* g, float* ds, int B,
+                       int NC, int L, int H, int P, int N, void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, N);
   cudaStream_t s = (cudaStream_t)stream;
-  ssd_chunk_scan_bwd_kernel<<<dim3(H, B), THREADS, smem, s>>>(
-      x, dt, cum, bm, cm, states, dy, dx, ddt, dcum, db_part, dc_part, NC, L, H, P, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)B * NC * L * N;
-  const int block = 256;
-  ssd_bwd_reduce_kernel<<<(unsigned)((total + block - 1) / block), block, 0, s>>>(
-      db_part, dc_part, db, dc, H, L * N, total);
-  return (int)cudaGetLastError();
+  SSD_TRY(launch_cb(bm, cm, g, B, NC, L, N, true, s));
+  SSD_TRY(launch_local(dy, dt, cum, cm, ds, B, NC, L, H, P, N, 1, NC - 1, true, s));
+  SSD_TRY(launch_pass(ds, cum, B, NC, L, H, P * N, true, s));
+  SSD_TRY(launch_head(x, dt, cum, bm, cm, states, ds, g, dy, dx, ddt, dcum, B, NC, L, H, P, N,
+                      s));
+  SSD_TRY(launch_dg(x, dt, cum, dy, g, B, NC, L, H, P, s));
+  SSD_TRY(launch_dbc(x, dt, cum, bm, cm, states, ds, g, dy, db, dc, B, NC, L, H, P, N, s));
+  return 0;
+}
+
+// The stages one launch each, so that each can be held against its plain
+// version (kernel.py's stage wrappers).  Not on the main path.
+
+int ssd_stage_cb(const float* bm, const float* cm, float* g, int B, int NC, int L, int N,
+                 void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, 1, 1, N);
+  return (int)launch_cb(bm, cm, g, B, NC, L, N, false, (cudaStream_t)stream);
+}
+
+// Every chunk's sum_l s_l X_l^T Y_l: backward = 0 for (x, B, indec), 1 for
+// (dy, C, e).
+int ssd_stage_local(const float* xs, const float* dt, const float* cum, const float* ys,
+                    float* out, int B, int NC, int L, int H, int P, int N, int backward,
+                    void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, N);
+  return (int)launch_local(xs, dt, cum, ys, out, B, NC, L, H, P, N, 0, NC, backward != 0,
+                           (cudaStream_t)stream);
+}
+
+int ssd_stage_pass(float* buf, const float* cum, int B, int NC, int L, int H, int P, int N,
+                   int reverse, void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, N);
+  return (int)launch_pass(buf, cum, B, NC, L, H, P * N, reverse != 0, (cudaStream_t)stream);
+}
+
+int ssd_stage_y(const float* x, const float* dt, const float* cum, const float* cm,
+                const float* g, const float* states, float* y, int B, int NC, int L, int H,
+                int P, int N, void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, N);
+  return (int)launch_y(x, dt, cum, cm, g, states, y, B, NC, L, H, P, N, (cudaStream_t)stream);
+}
+
+int ssd_stage_head(const float* x, const float* dt, const float* cum, const float* bm,
+                   const float* cm, const float* states, const float* ds, const float* g,
+                   const float* dy, float* dx, float* ddt, float* dcum, int B, int NC, int L,
+                   int H, int P, int N, void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, N);
+  return (int)launch_head(x, dt, cum, bm, cm, states, ds, g, dy, dx, ddt, dcum, B, NC, L, H, P,
+                          N, (cudaStream_t)stream);
+}
+
+int ssd_stage_dg(const float* x, const float* dt, const float* cum, const float* dy, float* dg,
+                 int B, int NC, int L, int H, int P, void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, 1);
+  return (int)launch_dg(x, dt, cum, dy, dg, B, NC, L, H, P, (cudaStream_t)stream);
+}
+
+int ssd_stage_dbc(const float* x, const float* dt, const float* cum, const float* bm,
+                  const float* cm, const float* states, const float* ds, const float* dg,
+                  const float* dy, float* db, float* dc, int B, int NC, int L, int H, int P,
+                  int N, void* stream) {
+  SSD_CHECK_SHAPES(B, NC, L, H, P, N);
+  return (int)launch_dbc(x, dt, cum, bm, cm, states, ds, dg, dy, db, dc, B, NC, L, H, P, N,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

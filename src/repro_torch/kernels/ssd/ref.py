@@ -9,6 +9,14 @@ computes, in the chunked layout, chunk by chunk; ``ssd_chunk_states_ref``
 gives the chunk-entry states the kernel writes with ``return_states``;
 ``ssd_chunk_scan_bwd_ref`` is the backward kernel's plain version, one
 reverse pass over the chunks from those states.  All compute in float32.
+
+The CUDA kernels compute the same functions in stages (``csrc/ssd.cu``):
+per-chunk work in parallel, only the state carry in sequence.  Each stage
+has its plain version below (``chunk_cb_ref`` ... ``bwd_dbc_ref``), and
+``ssd_chunk_scan_stages_ref`` and ``ssd_chunk_scan_bwd_stages_ref`` compose
+them.  The tests hold the compositions against the JAX package, and the card
+holds each stage kernel against its plain stage.  Nothing on the main path
+calls them.
 """
 
 from __future__ import annotations
@@ -164,3 +172,118 @@ def ssd_chunk_scan_bwd_ref(
         torch.stack([o[i] for o in outs], dim=1).to(like.dtype)
         for i, like in enumerate((xc, dtc, cum, bc, cc))
     )
+
+
+# ---------------------------------------------------------------------------
+# The kernels' stages.  Layouts: G, dG (B, NC, L, L); states, local states,
+# the backward's carries F and dS (B, NC, H, P, N).
+# ---------------------------------------------------------------------------
+
+
+def _decay(cum: torch.Tensor) -> torch.Tensor:
+    """exp(cum_l - cum_m) for m <= l, else 0: (B, NC, L, L, H)."""
+    causal = _causal(cum.shape[2], cum.device)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    return torch.exp(torch.where(causal[None, None, :, :, None], diff, -1e30))
+
+
+def _indec(dtc: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """exp(cum_last - cum_l) dt_l: (B, NC, L, H)."""
+    return torch.exp(cum[:, :, -1:, :] - cum) * dtc
+
+
+def chunk_cb_ref(bc: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """G = C B^T of each (batch, chunk), shared by the heads: (B, NC, L, L)."""
+    return torch.einsum("bkln,bkmn->bklm", cc.float(), bc.float())
+
+
+def chunk_local_ref(xc, dtc, cum, bc) -> torch.Tensor:
+    """Each chunk's own contribution to the state, sum_l indec_l x_l^T B_l."""
+    return torch.einsum("bklh,bklhp,bkln->bkhpn", _indec(dtc.float(), cum.float()),
+                        xc.float(), bc.float())
+
+
+def chunk_carry_ref(dy, cum, cc) -> torch.Tensor:
+    """The backward's carry from each chunk's outputs, F_k = sum_l (e_l dy_l)^T C_l."""
+    return torch.einsum("bklh,bklhp,bkln->bkhpn", torch.exp(cum.float()), dy.float(),
+                        cc.float())
+
+
+def state_pass_ref(local: torch.Tensor, cum: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """The carry, in chunk order (reversed for the backward):
+    out[k] = s; s = s exp(cum_last of k) + local[k], from s = 0.
+
+    Forward: chunk-local states to entry states S_k.  Reverse: F to dS_k, the
+    cotangent of each chunk's exit state."""
+    nc = local.shape[1]
+    decay = torch.exp(cum.float()[:, :, -1, :])[..., None, None]     # (B, NC, H, 1, 1)
+    s = torch.zeros_like(local[:, 0], dtype=torch.float32)
+    out = [None] * nc
+    for k in (reversed(range(nc)) if reverse else range(nc)):
+        out[k] = s
+        s = s * decay[:, k] + local[:, k].float()
+    return torch.stack(out, dim=1)
+
+
+def chunk_y_ref(xc, dtc, cum, cc, g, states) -> torch.Tensor:
+    """y from G and the entry states: (G decay dt_m) x + e_l C_l . S_k."""
+    x32, dt32, cum32, c32 = (t.float() for t in (xc, dtc, cum, cc))
+    w = g.float()[..., None] * _decay(cum32) * dt32[:, :, None, :, :]
+    return (torch.einsum("bklmh,bkmhp->bklhp", w, x32)
+            + torch.einsum("bkln,bkhpn,bklh->bklhp", c32, states.float(), torch.exp(cum32)))
+
+
+def bwd_head_ref(xc, dtc, cum, bc, cc, states, ds, g, dy) -> tuple[torch.Tensor, ...]:
+    """(dx, ddt, dcum) from G, the entry states S_k and dS_k; the last row's
+    dcum term as <dS_k, S_k+1>."""
+    x32, dt32, cum32, b32, c32, s32, ds32, dy32 = (
+        t.float() for t in (xc, dtc, cum, bc, cc, states, ds, dy))
+    decay = _decay(cum32)
+    g5 = g.float()[..., None]
+    dw = torch.einsum("bklhp,bkmhp->bklmh", dy32, x32)
+    q = dw * g5 * decay
+    v = torch.einsum("bkln,bkhpn->bklhp", b32, ds32)
+    gl = (x32 * v).sum(-1)
+    z = (dy32 * torch.einsum("bkln,bkhpn->bklhp", c32, s32)).sum(-1)
+    in_decay = torch.exp(cum32[:, :, -1:, :] - cum32)
+    indec = in_decay * dt32
+    dx = (torch.einsum("bklmh,bklhp->bkmhp", g5 * decay * dt32[:, :, None], dy32)
+          + indec[..., None] * v)
+    col = q.sum(2)
+    ddt = col + gl * in_decay
+    dcum = ((q * dt32[:, :, None]).sum(3) - dt32 * col + torch.exp(cum32) * z - gl * indec)
+    dcum[:, :-1, -1, :] += torch.einsum("bkhpn,bkhpn->bkh", ds32[:, :-1], s32[:, 1:])
+    return dx, ddt, dcum
+
+
+def bwd_dg_ref(xc, dtc, cum, dy) -> torch.Tensor:
+    """dG = sum_h (dy_h x_h^T) decay_h dt_h[m]: (B, NC, L, L)."""
+    dw = torch.einsum("bklhp,bkmhp->bklmh", dy.float(), xc.float())
+    return torch.einsum("bklmh,bklmh,bkmh->bklm", dw, _decay(cum.float()), dtc.float())
+
+
+def bwd_dbc_ref(xc, dtc, cum, bc, cc, states, ds, dg, dy) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dB, dC): dG^T C + [indec x] [dS] and dG B + [e dy] [S], the heads summed."""
+    x32, dt32, cum32, dy32 = (t.float() for t in (xc, dtc, cum, dy))
+    dg32 = dg.float()
+    db = (torch.einsum("bklm,bkln->bkmn", dg32, cc.float())
+          + torch.einsum("bklh,bklhp,bkhpn->bkln", _indec(dt32, cum32), x32, ds.float()))
+    dc = (torch.einsum("bklm,bkmn->bkln", dg32, bc.float())
+          + torch.einsum("bklh,bklhp,bkhpn->bkln", torch.exp(cum32), dy32, states.float()))
+    return db, dc
+
+
+def ssd_chunk_scan_stages_ref(xc, dtc, cum, bc, cc) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, entry states) through the forward kernel's stages."""
+    g = chunk_cb_ref(bc, cc)
+    states = state_pass_ref(chunk_local_ref(xc, dtc, cum, bc), cum)
+    return chunk_y_ref(xc, dtc, cum, cc, g, states), states
+
+
+def ssd_chunk_scan_bwd_stages_ref(xc, dtc, cum, bc, cc, states, dy) -> tuple[torch.Tensor, ...]:
+    """(dx, ddt, dcum, db, dc) through the backward kernel's stages."""
+    g = chunk_cb_ref(bc, cc)
+    ds = state_pass_ref(chunk_carry_ref(dy, cum, cc), cum, reverse=True)
+    dx, ddt, dcum = bwd_head_ref(xc, dtc, cum, bc, cc, states, ds, g, dy)
+    db, dc = bwd_dbc_ref(xc, dtc, cum, bc, cc, states, ds, bwd_dg_ref(xc, dtc, cum, dy), dy)
+    return dx, ddt, dcum, db, dc

@@ -8,9 +8,10 @@ no JAX, so it also runs on a machine with a card and no JAX:
 
 Tolerances: gru_scan forward and dx_gates 1e-5; dW_hh / db_hh 1e-4 times
 max(1, max|ref|), as sums over B*T terms taken in another order;
-ssd_chunk_scan and ssd_chunk_scan_bwd 1e-4 times max(1, max|ref|), as sums
-over up to L*N and L*P products (and, for dB and dC, over the heads) taken
-in another order.
+ssd_chunk_scan and ssd_chunk_scan_bwd, and each of their stages against its
+plain stage in ref.py, 1e-4 times max(1, max|ref|), as sums over up to L*N
+and L*P products (and, for dB and dC, over the heads) taken in another
+order, on the tensor cores in 3xTF32.
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ from repro_torch.kernels.gru_scan.ops import GRUScan  # noqa: E402
 from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
     ssd_chunk_scan_bwd_ref,
     ssd_chunk_scan_ref,
@@ -134,6 +136,62 @@ def test_ssd_kernel_matches_plain_versions(cuda, b, nc, l_len, h, p, n):
     assert scaled_err(y, ssd_chunk_scan_ref(*args)) <= 1e-4
     assert scaled_err(states, ssd_chunk_states_ref(*args)) <= 1e-4
     assert torch.equal(y, again)
+
+
+def twice(fn, *args):
+    """fn(*args) twice, each result a tuple of tensors."""
+    def run():
+        out = fn(*args)
+        return out if isinstance(out, tuple) else (out,)
+    return run(), run()
+
+
+def hold(fn, plain, args, mask=None):
+    """A stage kernel against its plain stage, and two runs bit for bit."""
+    got, again = twice(fn, *args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, a, r in zip(got, again, want):
+        if mask is not None:
+            g, a, r = mask(g), mask(a), mask(r)
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        assert scaled_err(g, r) <= 1e-4
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize(
+    "b,nc,l_len,h,p,n",
+    [(2, 2, 256, 24, 64, 128), (1, 1, 256, 24, 64, 128), (2, 4, 16, 16, 32, 16),
+     (1, 3, 100, 3, 48, 33), (2, 2, 64, 5, 1, 1)],
+)
+def test_ssd_forward_stages_match_plain_stages(cuda, b, nc, l_len, h, p, n):
+    xc, dtc, cum, bc, cc = ssd_inputs(cuda, b, nc, l_len, h, p, n, seed=3)
+    hold(ssd_kernel.stage_cb, ssd_ref.chunk_cb_ref, (bc, cc), mask=torch.tril)
+    hold(ssd_kernel.stage_local, ssd_ref.chunk_local_ref, (xc, dtc, cum, bc))
+    local = ssd_ref.chunk_local_ref(xc, dtc, cum, bc)
+    hold(ssd_kernel.stage_pass, ssd_ref.state_pass_ref, (local, cum))
+    g, states = ssd_ref.chunk_cb_ref(bc, cc), ssd_chunk_states_ref(xc, dtc, cum, bc, cc)
+    hold(ssd_kernel.stage_y, ssd_ref.chunk_y_ref, (xc, dtc, cum, cc, g, states))
+
+
+@pytest.mark.parametrize(
+    "b,nc,l_len,h,p,n",
+    [(1, 3, 256, 3, 64, 128), (1, 1, 256, 24, 64, 128), (2, 4, 16, 16, 32, 16),
+     (1, 3, 100, 3, 48, 33), (2, 2, 64, 5, 1, 1), (1, 3, 8, 3, 8, 16)],
+)
+def test_ssd_backward_stages_match_plain_stages(cuda, b, nc, l_len, h, p, n):
+    xc, dtc, cum, bc, cc, states, dy = ssd_bwd_inputs(cuda, b, nc, l_len, h, p, n, seed=4)
+    hold(ssd_kernel.stage_carry, ssd_ref.chunk_carry_ref, (dy, cum, cc))
+    carry = ssd_ref.chunk_carry_ref(dy, cum, cc)
+    hold(lambda f, c: ssd_kernel.stage_pass(f, c, reverse=True),
+         lambda f, c: ssd_ref.state_pass_ref(f, c, reverse=True), (carry, cum))
+    ds = ssd_ref.state_pass_ref(carry, cum, reverse=True)
+    g = ssd_ref.chunk_cb_ref(bc, cc)
+    hold(ssd_kernel.stage_head, ssd_ref.bwd_head_ref, (xc, dtc, cum, bc, cc, states, ds, g, dy))
+    hold(ssd_kernel.stage_dg, ssd_ref.bwd_dg_ref, (xc, dtc, cum, dy))
+    dg = ssd_ref.bwd_dg_ref(xc, dtc, cum, dy)
+    hold(ssd_kernel.stage_dbc, ssd_ref.bwd_dbc_ref, (xc, dtc, cum, bc, cc, states, ds, dg, dy))
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
