@@ -12,9 +12,13 @@ exit code and no result line:
              (ptxas reports included).
 3. kernels — ``gru_scan`` and ``gru_scan_bwd`` on the card against their
              plain PyTorch versions at the main path's shapes and more
-             (ragged batch, client axis, N = 2, 8, 64), two backward runs
-             compared bit for bit, then times: kernel, plain version, the
-             roofline bound, and cuDNN's GRU layer as a yardstick.
+             (ragged batch, client axis, N = 2, 8, 64, and the SRC cohort's
+             35 clients), two backward runs compared bit for bit, and each
+             of the backward's two stage kernels against its plain twin;
+             then times at one client and at 35: per call, on the device
+             alone (a CUDA graph of 100 calls), each backward stage alone,
+             the plain version, the roofline bound, and cuDNN's GRU layer as
+             a yardstick.
              ``ssd_chunk_scan`` against its plain versions (with and
              without the entry states) at the serving slice's shape, one
              chunk, the reduced config, and a ragged sequence with H=3
@@ -34,7 +38,8 @@ exit code and no result line:
              epoch), with every kernel's launch count checked against what
              the run implies.
 6. profile — one client's local round under torch.profiler: step time,
-             device busy time and idle share, the kernels that take most of it.
+             device busy time and idle share, the GRU kernels' shares of it,
+             and the kernels that take most of it.
 7. mamba2 parity — mamba2-130m at full width in float32, B=2, prompts of
              512 and 300 tokens: prefill logits and hidden states on the card
              against the CPU, and the card's prefill logits against its
@@ -199,7 +204,9 @@ CASES = (
     ("n8", None, 128, 24, 8),
     ("n64", None, 128, 24, 64),
     ("n2", None, 37, 5, 2),
+    ("cohort", 35, 128, 24, 32),   # the SRC federation's 35 recruited clients in one launch
 )
+COHORT = 35
 
 
 def gru_inputs(torch, dev, c, b, t, n, seed):
@@ -242,34 +249,41 @@ def check_kernels(torch, dev, K) -> list[dict]:
         require(e["dw"] <= DW_TOL * max(1.0, float(dw_r.abs().max())), f"{case}: dW_hh error {e['dw']}")
         require(e["db"] <= DW_TOL * max(1.0, float(db_r.abs().max())), f"{case}: db_hh error {e['db']}")
         require(same_bits, f"{case}: two backward runs differ")
+        check_gru_stages(torch, K, case, xg, w, bias, h, dy)
         errs["gru_scan"] = max(errs["gru_scan"], e["fwd"])
         errs["gru_scan_bwd"] = max(errs["gru_scan_bwd"], e["dx"], e["dw"], e["db"])
 
-    # Times at the training step's shape (B=128, T=24, N=32), layer 2 (F = N).
+    # Times at the training step's shape (B=128, T=24, N=32), layer 2 (F = N),
+    # for one client and for the SRC cohort's 35 in one launch.
     b, t, n = 128, 24, 32
+    times = gru_times(torch, dev, K)
     xg, w, bias, dy = gru_inputs(torch, dev, None, b, t, n, seed=100)
     h = K.gru_scan(xg, w, bias)
-    fwd_ms = time_ms(torch, lambda: K.gru_scan(xg, w, bias), iters=500)
-    bwd_ms = time_ms(torch, lambda: K.gru_scan_bwd(xg, w, bias, h, dy), iters=500)
     fwd_plain = time_ms(torch, lambda: gru_scan_ref(xg, w, bias), iters=20)
     bwd_plain = time_ms(torch, lambda: gru_scan_bwd_ref(xg, w, bias, h, dy), iters=20)
     cudnn_fwd, cudnn_bwd = cudnn_gru_ms(torch, dev, b, t, n, n)
     # Predict batches run the forward at B=2048.
     xg_p, w_p, b_p, _ = gru_inputs(torch, dev, None, 2048, t, n, seed=101)
     fwd_ms_predict = time_ms(torch, lambda: K.gru_scan(xg_p, w_p, b_p), iters=200)
-    emit(phase="timing", shape={"B": b, "T": t, "N": n}, gru_scan_ms=fwd_ms,
-         gru_scan_bwd_ms=bwd_ms, gru_scan_plain_ms=fwd_plain, gru_scan_bwd_plain_ms=bwd_plain,
-         cudnn_gru_fwd_ms=cudnn_fwd, cudnn_gru_bwd_ms=cudnn_bwd,
-         gru_scan_ms_at_B2048=fwd_ms_predict)
-
     fwd_bytes, fwd_ops, bwd_bytes, bwd_ops = work(b, t, n)
+    bounds = {}
+    for c in (1, COHORT):
+        bounds[f"C{c}"] = {
+            "gru_scan": bound_ms(c * fwd_bytes, c * fwd_ops)[0],
+            "gru_scan_bwd": bound_ms(c * bwd_bytes, c * bwd_ops)[0],
+        }
+    stages = {f"C{c}": gru_stage_ms(torch, dev, K, c, b, t, n) for c in (1, COHORT)}
+    emit(phase="timing", shape={"B": b, "T": t, "N": n}, times=times, bound_ms=bounds,
+         gru_scan_bwd_stage_device_ms=stages, gru_scan_plain_ms=fwd_plain,
+         gru_scan_bwd_plain_ms=bwd_plain, cudnn_gru_fwd_ms=cudnn_fwd,
+         cudnn_gru_bwd_ms=cudnn_bwd, gru_scan_ms_at_B2048=fwd_ms_predict)
+
     rows = []
-    for name, ms, plain, lib, nbytes, ops, line in (
-        ("gru_scan", fwd_ms, fwd_plain, cudnn_fwd, fwd_bytes, fwd_ops, 51),
-        ("gru_scan_bwd", bwd_ms, bwd_plain, cudnn_bwd, bwd_bytes, bwd_ops, 140),
+    for name, plain, lib, nbytes, ops, line in (
+        ("gru_scan", fwd_plain, cudnn_fwd, fwd_bytes, fwd_ops, 51),
+        ("gru_scan_bwd", bwd_plain, cudnn_bwd, bwd_bytes, bwd_ops, 140),
     ):
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_FLOPS * 1e3
+        bound, bound_by = bound_ms(nbytes, ops)
         rows.append({
             "name": name,
             "route": "cuda",
@@ -277,13 +291,79 @@ def check_kernels(torch, dev, K) -> list[dict]:
             "replaces": f"src/repro/kernels/gru_scan/kernel.py:{line}",
             "launches": 0,
             "max_abs_err": errs[name],
-            "ms": ms,
+            "ms": times["C1"][name]["call_ms"],
             "plain_ms": plain,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound,
+            "bound_by": bound_by,
             "library_ms": lib,
         })
     return rows
+
+
+def check_gru_stages(torch, K, case, xg, w, bias, h, dy) -> None:
+    """Each stage kernel of the backward against its plain twin on the same
+    inputs (the dW stage on the plain recurrence's outputs), and two runs of
+    it bit for bit."""
+    from repro_torch.kernels.gru_scan.ref import gru_bwd_dw_ref, gru_bwd_recur_ref
+
+    dx_r, dgn_r = gru_bwd_recur_ref(xg, w, bias, h, dy)
+    got = (*K.stage_recur(xg, w, bias, h, dy), *K.stage_dw(h, dx_r, dgn_r))
+    again = (*K.stage_recur(xg, w, bias, h, dy), *K.stage_dw(h, dx_r, dgn_r))
+    torch.cuda.synchronize()
+    want = (dx_r, dgn_r, *gru_bwd_dw_ref(h, dx_r, dgn_r))
+    names = ("recur.dx", "recur.dgn", "dw.dw", "dw.db")
+    e = {k: max_err(g, r) for k, g, r in zip(names, got, want)}
+    limit = {k: DX_TOL if k.startswith("recur") else DW_TOL * max(1.0, float(r.abs().max()))
+             for k, r in zip(names, want)}
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    emit(phase="gru_stages", case=case, max_abs_err=e, bitwise_repeat=same)
+    require(all(e[k] <= limit[k] for k in names), f"gru stages {case}: error {e}")
+    require(same, f"gru stages {case}: two runs differ")
+
+
+def gru_times(torch, dev, K) -> dict:
+    """Per-call and device time of ``gru_scan`` and ``gru_scan_bwd`` at B=128,
+    T=24, N=32 for one client (``C1``) and 35 in one launch (``C35``).
+
+    ``call_ms``: back-to-back wrapper calls under CUDA events, which the
+    host's work per call (shape checks, allocations, the ctypes call) can
+    pace; ``device_ms``: the same calls captured in a CUDA graph and replayed
+    (``graph_ms``), the device's time alone."""
+    b, t, n = 128, 24, 32
+    out = {}
+    for c, iters in ((1, 500), (COHORT, 100)):
+        xg, w, bias, dy = gru_inputs(torch, dev, None if c == 1 else c, b, t, n, seed=100 + c)
+        h = K.gru_scan(xg, w, bias)
+        calls = {"gru_scan": lambda: K.gru_scan(xg, w, bias),
+                 "gru_scan_bwd": lambda: K.gru_scan_bwd(xg, w, bias, h, dy)}
+        out[f"C{c}"] = {name: {"call_ms": time_ms(torch, fn, iters=iters),
+                               "device_ms": graph_ms(torch, fn)}
+                        for name, fn in calls.items()}
+    return out
+
+
+def gru_stage_ms(torch, dev, K, c, b, t, n) -> dict[str, float]:
+    """Device time of each launch of the backward alone (CUDA graph): the
+    recurrence, and the dW stage with its reduce."""
+    xg, w, bias, dy = gru_inputs(torch, dev, None if c == 1 else c, b, t, n, seed=300 + c)
+    h = K.gru_scan(xg, w, bias)
+    dxg = torch.empty_like(xg)
+    dw, db = torch.empty_like(w), torch.empty_like(bias)
+    dgn, partial = K._scratch(h, c, b, t, n)
+    return {
+        "recur": graph_ms(torch, lambda: K._stage(
+            "gru_bwd_recur", (c, b, t, n), (xg, w, bias, h, dy), (dxg, dgn))),
+        "dw_and_reduce": graph_ms(torch, lambda: K._stage(
+            "gru_bwd_dw", (c, b, t, n, K.slice_rows(n)), (h, dxg, dgn), (partial, dw, db))),
+    }
+
+
+def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time on this card: bytes over 3.35 TB/s or float32 ops over
+    67 TFLOP/s, whichever is larger, and which it was."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def work(b: int, t: int, n: int) -> tuple[int, int, int, int]:
@@ -315,6 +395,36 @@ def time_ms(torch, fn, iters: int, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls: int = 100, replays: int = 10) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph (the
+    kernels launch on PyTorch's current stream, which capture redirects),
+    replayed ``replays`` times under CUDA events, so no host work sits
+    between launches.  Warmed up on a side stream before capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms
 
 
 def cudnn_gru_ms(torch, dev, b, t, f, n) -> tuple[float, float]:
@@ -840,12 +950,27 @@ def profile_local_training(torch, cohort) -> None:
     device_s = sum(by_name.values()) / 1e6
     steps = trainer.steps_per_round(client)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    gru_us = {side: sum(us for name, us in by_name.items() if gru_side(name) == side)
+              for side in ("fwd", "bwd")}
     emit(phase="profile", client=client.client_id, n_train=client.n_train, local_steps=steps,
          wall_s=wall_s, step_ms=wall_s / steps * 1e3,
          device_busy_s=device_s if device_s > 0 else None,
          device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
          kernels_launched=count,
+         gru_scan_us=gru_us["fwd"], gru_scan_bwd_us=gru_us["bwd"],
+         gru_scan_share_of_device=gru_us["fwd"] / (device_s * 1e6) if device_s > 0 else None,
+         gru_scan_bwd_share_of_device=gru_us["bwd"] / (device_s * 1e6) if device_s > 0 else None,
          top_device_us={name[:80]: us for name, us in top})
+
+
+def gru_side(name: str) -> str | None:
+    """Which GRU call a device kernel belongs to: "fwd" (gru_scan), "bwd"
+    (gru_scan_bwd: its recurrence, dW and reduce kernels) or None."""
+    if "gru_scan_fwd_kernel" in name:
+        return "fwd"
+    if "gru_bwd_" in name or "gru_scan_bwd_" in name:
+        return "bwd"
+    return None
 
 
 # ---------------------------------------------------------------------------

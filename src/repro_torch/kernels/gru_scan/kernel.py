@@ -6,9 +6,16 @@ client, ``x_gates (B, T, 3N)`` with ``w_hh (N, 3N)``, or a client axis,
 ``x_gates (C, B, T, 3N)`` with per-client ``w_hh (C, N, 3N)``.
 
 On CUDA tensors a wrapper checks dtype (float32), shape and contiguity,
-allocates its outputs with ``torch.empty``, launches the kernel on
-PyTorch's current stream and adds one to its ``launches`` count.  On CPU
-tensors it returns the plain version from ``ref.py`` and counts nothing.
+allocates its outputs and scratch with ``torch.empty``, launches the
+kernel on PyTorch's current stream and adds one to its ``launches`` count.
+On CPU tensors it returns the plain version from ``ref.py`` and counts
+nothing.
+
+``gru_scan_bwd`` runs in two stages on the card: the reverse recurrence
+(``dx_gates`` and ``dgn``, the n-part of ``d_gh``), then ``dW_hh`` and
+``db_hh`` summed over slices of the B*T rows.  ``stage_recur`` and
+``stage_dw`` launch one stage each, so that the card's checks can hold each
+against its plain twin in ``ref.py``; they count nothing.
 """
 
 from __future__ import annotations
@@ -18,7 +25,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref
+from repro_torch.kernels.gru_scan.ref import (
+    gru_bwd_dw_ref,
+    gru_bwd_recur_ref,
+    gru_scan_bwd_ref,
+    gru_scan_ref,
+)
 
 MAX_HIDDEN = 64
 _P = ctypes.c_void_p
@@ -26,13 +38,20 @@ _I = ctypes.c_int
 # Pointers and the stream as c_void_p: a bare Python int would pass as 32 bits.
 _SIGNATURES = {
     "gru_scan_fwd": ([_P] * 4 + [_I] * 5 + [_P], _I),
-    "gru_scan_bwd": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "gru_scan_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "gru_bwd_recur": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "gru_bwd_dw": ([_P] * 6 + [_I] * 5 + [_P], _I),
 }
 
 
 def tile_rows(n: int) -> int:
     """Batch rows per block: one thread per (row, unit), about 256 threads."""
     return max(1, 256 // n)
+
+
+def slice_rows(n: int) -> int:
+    """Rows (b, t) per block of the backward's dW/db stage (34 KB of shared memory)."""
+    return 64 if n <= 32 else 32
 
 
 def _library() -> ctypes.CDLL:
@@ -63,6 +82,17 @@ def _check_shapes(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor)
         raise ValueError(
             f"inconsistent GRU shapes: x_gates {tuple(x_gates.shape)}, "
             f"w_hh {tuple(w_hh.shape)}, b_hh {tuple(b_hh.shape)}"
+        )
+    return c, b, t, n
+
+
+def _check_bwd_shapes(x_gates, w_hh, b_hh, h_seq, dy):
+    """-> (C, B, T, N), also requiring h_seq and dy of shape (..., B, T, N)."""
+    c, b, t, n = _check_shapes(x_gates, w_hh, b_hh)
+    want = (*x_gates.shape[:-1], n)
+    if tuple(h_seq.shape) != want or tuple(dy.shape) != want:
+        raise ValueError(
+            f"h_seq {tuple(h_seq.shape)} and dy {tuple(dy.shape)} must be {want}"
         )
     return c, b, t, n
 
@@ -105,32 +135,73 @@ def gru_scan_bwd(
     dy: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Residual backward: ``(dx_gates, dw_hh, db_hh)`` from the forward's ``h_seq``."""
-    c, b, t, n = _check_shapes(x_gates, w_hh, b_hh)
-    want = (*x_gates.shape[:-1], n)
-    if tuple(h_seq.shape) != want or tuple(dy.shape) != want:
-        raise ValueError(
-            f"h_seq {tuple(h_seq.shape)} and dy {tuple(dy.shape)} must be {want}"
-        )
+    c, b, t, n = _check_bwd_shapes(x_gates, w_hh, b_hh, h_seq, dy)
     if backend.route(x_gates, w_hh, b_hh, h_seq, dy) == "cpu":
         return gru_scan_bwd_ref(x_gates, w_hh, b_hh, h_seq, dy)
     _check_cuda_inputs(n, x_gates, w_hh, b_hh, h_seq, dy)
-    dev = x_gates.device
     dxg = torch.empty_like(x_gates)
     dw = torch.empty_like(w_hh)
     db = torch.empty_like(b_hh)
     if x_gates.numel() == 0:
         return dxg, dw.zero_(), db.zero_()
-    rows = tile_rows(n)
-    tiles = -(-b // rows)
-    partial = torch.empty((c, tiles, n + 1, 3 * n), dtype=torch.float32, device=dev)
-    err = _library().gru_scan_bwd(
-        x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h_seq.data_ptr(),
-        dy.data_ptr(), dxg.data_ptr(), partial.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        c, b, t, n, rows, backend.stream_handle(dev),
-    )
-    backend.check(err, "gru_scan_bwd")
+    dgn, partial = _scratch(h_seq, c, b, t, n)
+    _stage("gru_scan_bwd", (c, b, t, n, slice_rows(n)),
+           (x_gates, w_hh, b_hh, h_seq, dy), (dxg, dgn, partial, dw, db))
     gru_scan_bwd.launches += 1
     return dxg, dw, db
+
+
+# ---------------------------------------------------------------------------
+# The backward's stages, one launch each (not on the main path; no count).
+# ---------------------------------------------------------------------------
+
+
+def _stage(name: str, dims: tuple[int, ...], tensors, outs) -> None:
+    """Launch C entry point ``name`` on ``tensors`` (inputs, then outputs ``outs``)."""
+    err = getattr(_library(), name)(
+        *(x.data_ptr() for x in (*tensors, *outs)), *dims,
+        backend.stream_handle(tensors[0].device))
+    backend.check(err, name)
+
+
+def _scratch(h_seq: torch.Tensor, c: int, b: int, t: int, n: int):
+    """``dgn`` (h_seq's shape) and the dW/db stage's per-slice partials."""
+    slices = -(-(b * t) // slice_rows(n))
+    return (torch.empty_like(h_seq),
+            torch.empty((c, slices, n + 1, 3 * n), dtype=torch.float32, device=h_seq.device))
+
+
+def stage_recur(x_gates, w_hh, b_hh, h_seq, dy) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reverse recurrence alone: ``(dx_gates, dgn)``."""
+    c, b, t, n = _check_bwd_shapes(x_gates, w_hh, b_hh, h_seq, dy)
+    if backend.route(x_gates, w_hh, b_hh, h_seq, dy) == "cpu":
+        return gru_bwd_recur_ref(x_gates, w_hh, b_hh, h_seq, dy)
+    _check_cuda_inputs(n, x_gates, w_hh, b_hh, h_seq, dy)
+    dxg, dgn = torch.empty_like(x_gates), torch.empty_like(h_seq)
+    _stage("gru_bwd_recur", (c, b, t, n),
+           (x_gates, w_hh, b_hh, h_seq, dy), (dxg, dgn))
+    return dxg, dgn
+
+
+def stage_dw(h_seq, dx_gates, dgn) -> tuple[torch.Tensor, torch.Tensor]:
+    """dW/db over the recurrence's outputs alone: ``(dw_hh, db_hh)``."""
+    *lead, b, t, n = h_seq.shape
+    if len(lead) > 1 or tuple(dx_gates.shape) != (*h_seq.shape[:-1], 3 * n) \
+            or dgn.shape != h_seq.shape:
+        raise ValueError(
+            f"expected h_seq ([C,] B, T, N) with dx_gates (..., 3N) and dgn like h_seq; got "
+            f"{tuple(h_seq.shape)}, {tuple(dx_gates.shape)}, {tuple(dgn.shape)}"
+        )
+    if backend.route(h_seq, dx_gates, dgn) == "cpu":
+        return gru_bwd_dw_ref(h_seq, dx_gates, dgn)
+    c = lead[0] if lead else 1
+    _check_cuda_inputs(n, h_seq, dx_gates, dgn)
+    dw = torch.empty((*lead, n, 3 * n), dtype=torch.float32, device=h_seq.device)
+    db = torch.empty((*lead, 3 * n), dtype=torch.float32, device=h_seq.device)
+    _, partial = _scratch(h_seq, c, b, t, n)
+    _stage("gru_bwd_dw", (c, b, t, n, slice_rows(n)), (h_seq, dx_gates, dgn),
+           (partial, dw, db))
+    return dw, db
 
 
 gru_scan.launches = 0

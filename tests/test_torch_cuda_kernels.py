@@ -7,7 +7,8 @@ no JAX, so it also runs on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: gru_scan forward and dx_gates 1e-5; dW_hh / db_hh 1e-4 times
-max(1, max|ref|), as sums over B*T terms taken in another order;
+max(1, max|ref|), as sums over B*T terms taken in another order; the
+backward's two stage kernels against their plain twins the same;
 ssd_chunk_scan and ssd_chunk_scan_bwd, and each of their stages against its
 plain stage in ref.py, 1e-4 times max(1, max|ref|), as sums over up to L*N
 and L*P products (and, for dB and dC, over the heads) taken in another
@@ -21,7 +22,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.gru_scan import kernel  # noqa: E402
 from repro_torch.kernels.gru_scan.ops import GRUScan  # noqa: E402
-from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref  # noqa: E402
+from repro_torch.kernels.gru_scan.ref import (  # noqa: E402
+    gru_bwd_dw_ref,
+    gru_bwd_recur_ref,
+    gru_scan_bwd_ref,
+    gru_scan_ref,
+)
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
@@ -61,7 +67,7 @@ def max_err(a, b):
 @pytest.mark.parametrize(
     "lead,b,t,n",
     [((), 128, 24, 32), ((), 100, 24, 32), ((3,), 50, 24, 32), ((), 64, 24, 8),
-     ((), 64, 24, 64), ((), 37, 5, 2)],
+     ((), 64, 24, 64), ((), 37, 5, 2), ((35,), 128, 24, 32)],
 )
 def test_kernels_match_plain_versions(cuda, lead, b, t, n):
     xg, w, bias, dy = inputs(cuda, b, t, n, lead=lead)
@@ -77,6 +83,32 @@ def test_kernels_match_plain_versions(cuda, lead, b, t, n):
     for g, r in zip(grads[1:], ref[1:]):
         assert max_err(g, r) <= 1e-4 * max(1.0, float(r.abs().max()))
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+@pytest.mark.parametrize(
+    "lead,b,t,n",
+    [((), 128, 24, 32), ((35,), 128, 24, 32), ((3,), 50, 24, 32), ((), 64, 24, 8),
+     ((), 64, 24, 64), ((), 37, 5, 2), ((), 5, 1, 4)],
+)
+def test_backward_stages_match_plain_twins(cuda, lead, b, t, n):
+    xg, w, bias, dy = inputs(cuda, b, t, n, seed=2, lead=lead)
+    h = gru_scan_ref(xg, w, bias)
+    before = kernel.gru_scan_bwd.launches
+    dx, dgn = kernel.stage_recur(xg, w, bias, h, dy)
+    again = kernel.stage_recur(xg, w, bias, h, dy)
+    torch.cuda.synchronize()
+    dx_r, dgn_r = gru_bwd_recur_ref(xg, w, bias, h, dy)
+    assert max_err(dx, dx_r) <= 1e-5 and max_err(dgn, dgn_r) <= 1e-5
+    assert torch.equal(dx, again[0]) and torch.equal(dgn, again[1])
+    # The dW/db stage on the plain recurrence's outputs.
+    dw, db = kernel.stage_dw(h, dx_r, dgn_r)
+    dw2, db2 = kernel.stage_dw(h, dx_r, dgn_r)
+    torch.cuda.synchronize()
+    for g, r in zip((dw, db), gru_bwd_dw_ref(h, dx_r, dgn_r)):
+        assert g.shape == r.shape
+        assert max_err(g, r) <= 1e-4 * max(1.0, float(r.abs().max()))
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert kernel.gru_scan_bwd.launches == before
 
 
 def test_autograd_runs_both_kernels(cuda):
