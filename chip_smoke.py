@@ -12,13 +12,13 @@ exit code and no result line:
              (ptxas reports included).
 3. kernels — ``gru_scan`` and ``gru_scan_bwd`` on the card against their
              plain PyTorch versions at the main path's shapes and more
-             (ragged batch, client axis, N = 2, 8, 64, and the SRC cohort's
-             35 clients), two backward runs compared bit for bit, and each
-             of the backward's two stage kernels against its plain twin;
-             then times at one client and at 35: per call, on the device
-             alone (a CUDA graph of 100 calls), each backward stage alone,
-             the plain version, the roofline bound, and cuDNN's GRU layer as
-             a yardstick.
+             (ragged batch, client axis, N = 2, 8, 33, 64, and the SRC
+             cohort's 35 clients), two forward and two backward runs
+             compared bit for bit, and each of the backward's two stage
+             kernels against its plain twin; then times at one client and
+             at 35: per call, on the device alone (a CUDA graph of 100
+             calls), each backward stage alone, the plain version, the
+             roofline bound, and cuDNN's GRU layer as a yardstick.
              ``ssd_chunk_scan`` against its plain versions (with and
              without the entry states) at the serving slice's shape, one
              chunk, the reduced config, and a ragged sequence with H=3
@@ -204,6 +204,7 @@ CASES = (
     ("n8", None, 128, 24, 8),
     ("n64", None, 128, 24, 64),
     ("n2", None, 37, 5, 2),
+    ("n33", None, 37, 5, 33),      # two units a lane, N not a multiple of 4
     ("cohort", 35, 128, 24, 32),   # the SRC federation's 35 recruited clients in one launch
 )
 COHORT = 35
@@ -231,6 +232,7 @@ def check_kernels(torch, dev, K) -> list[dict]:
     for i, (case, c, b, t, n) in enumerate(CASES):
         xg, w, bias, dy = gru_inputs(torch, dev, c, b, t, n, seed=i)
         h = K.gru_scan(xg, w, bias)
+        h2 = K.gru_scan(xg, w, bias)
         h_ref = gru_scan_ref(xg, w, bias)
         dx, dw, db = K.gru_scan_bwd(xg, w, bias, h, dy)
         dx2, dw2, db2 = K.gru_scan_bwd(xg, w, bias, h, dy)
@@ -242,13 +244,13 @@ def check_kernels(torch, dev, K) -> list[dict]:
             "dw": max_err(dw, dw_r),
             "db": max_err(db, db_r),
         }
-        same_bits = all(torch.equal(x, y) for x, y in ((dx, dx2), (dw, dw2), (db, db2)))
+        same_bits = all(torch.equal(x, y) for x, y in ((h, h2), (dx, dx2), (dw, dw2), (db, db2)))
         emit(phase="kernels", case=case, C=c, B=b, T=t, N=n, **e, bitwise_repeat=same_bits)
         require(e["fwd"] <= FWD_TOL, f"{case}: gru_scan forward error {e['fwd']}")
         require(e["dx"] <= DX_TOL, f"{case}: dx_gates error {e['dx']}")
         require(e["dw"] <= DW_TOL * max(1.0, float(dw_r.abs().max())), f"{case}: dW_hh error {e['dw']}")
         require(e["db"] <= DW_TOL * max(1.0, float(db_r.abs().max())), f"{case}: db_hh error {e['db']}")
-        require(same_bits, f"{case}: two backward runs differ")
+        require(same_bits, f"{case}: two forward or backward runs differ")
         check_gru_stages(torch, K, case, xg, w, bias, h, dy)
         errs["gru_scan"] = max(errs["gru_scan"], e["fwd"])
         errs["gru_scan_bwd"] = max(errs["gru_scan_bwd"], e["dx"], e["dw"], e["db"])

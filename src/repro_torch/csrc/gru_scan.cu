@@ -9,93 +9,20 @@
 // with gate order (r, z, n):  gh = h W_hh + b_hh,  r = sigmoid(xr + hr),
 // z = sigmoid(xz + hz),  n = tanh(xn + r * hn),  h' = (1 - z) n + z h,  h0 = 0.
 //
-// The forward's grid is (batch tiles, C): a block holds `rows` batch rows
-// and one thread per (row, hidden unit), so blockDim.x = rows * N, and keeps
-// W_hh in shared memory with rows padded to 3N + 1 floats.  The backward runs
-// in two stages: the reverse recurrence, one warp per (client, batch row),
-// writes dx_gates and the n-part of d_gh; then dW_hh and db_hh are summed
-// over slices of the B*T rows and the slices' partials summed in order.
-// Rows >= B are masked: they load nothing, store nothing and contribute
-// zero to the weight cotangents.
+// Both recurrences, the forward and the backward's reverse one, run one warp
+// per (client, batch row), RECUR_WARPS rows a block, on the grid (row
+// blocks, C): lane j owns hidden unit j and, above N = 32, unit j + 32, and
+// the lanes exchange a step's vector through a per-warp strip of shared
+// memory behind one __syncwarp.  The backward then sums dW_hh and db_hh over
+// slices of the B*T rows and sums the slices' partials in order.  Rows >= B
+// are masked: they load nothing, store nothing and contribute zero to the
+// weight cotangents.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// Replaces the Pallas kernel repro/kernels/gru_scan/kernel.py::gru_scan
-// (body _gru_kernel).
-//
-// Bound on this card: the paper's shape (B=128, T=24, N=32) moves 1.59 MB
-// (0.47 us at 3.35 TB/s) and does ~20 MFLOP (0.30 us at 67 TFLOP/s fp32), so
-// the roofline says bytes; in practice the 24 dependent steps bound it: each
-// step is a (rows, N) x (N, 3N) product that cannot start before the last one
-// ends.
-//
-// What the design does about it: W_hh and b_hh are loaded into shared memory
-// once per block, h lives in shared memory double-buffered (step t reads
-// h_{t-1} from one buffer and writes h_t into the other), so each step costs
-// one __syncthreads and no round trip through device memory; x_gates is read
-// and h_seq written exactly once.  Small tiles (rows = 256 / N) put many
-// blocks in flight so the latency of one block's chain hides behind others.
-__global__ void gru_scan_fwd_kernel(const float* __restrict__ xg,
-                                    const float* __restrict__ w_hh,
-                                    const float* __restrict__ b_hh,
-                                    float* __restrict__ h_seq,
-                                    int B, int T, int N, int rows) {
-  extern __shared__ float smem[];
-  const int n3 = 3 * N;
-  const int ws = n3 + 1;                  // padded row stride of W in smem
-  float* w = smem;                        // (N, ws)
-  float* bias = w + N * ws;               // (3N)
-  float* hbuf = bias + n3;                // (2, rows, N)
-
-  const int c = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const float* wc = w_hh + (size_t)c * N * n3;
-  const float* bc = b_hh + (size_t)c * n3;
-  for (int e = tid; e < N * n3; e += nthreads) w[(e / n3) * ws + e % n3] = wc[e];
-  for (int e = tid; e < n3; e += nthreads) bias[e] = bc[e];
-
-  const int b = tid / N;                  // row within the tile
-  const int j = tid % N;                  // hidden unit
-  const int row = blockIdx.x * rows + b;  // batch row
-  const bool valid = row < B;
-  hbuf[b * N + j] = 0.0f;                 // h0 = 0 in buffer 0
-  __syncthreads();
-
-  const float* x_row = xg + ((size_t)c * B + row) * T * n3;
-  float* h_row = h_seq + ((size_t)c * B + row) * T * N;
-  int cur = 0;
-  for (int t = 0; t < T; ++t) {
-    const float* hp = hbuf + cur * rows * N + b * N;
-    float hr = bias[j], hz = bias[N + j], hn = bias[2 * N + j];
-    for (int k = 0; k < N; ++k) {
-      const float hk = hp[k];
-      const float* wk = w + k * ws;
-      hr = fmaf(hk, wk[j], hr);
-      hz = fmaf(hk, wk[N + j], hz);
-      hn = fmaf(hk, wk[2 * N + j], hn);
-    }
-    float xr = 0.0f, xz = 0.0f, xn = 0.0f;
-    if (valid) {
-      const float* x_t = x_row + (size_t)t * n3;
-      xr = x_t[j];
-      xz = x_t[N + j];
-      xn = x_t[2 * N + j];
-    }
-    const float r = sigmoidf(xr + hr);
-    const float z = sigmoidf(xz + hz);
-    const float cand = tanhf(xn + r * hn);
-    const float h_new = (1.0f - z) * cand + z * hp[j];
-    hbuf[(cur ^ 1) * rows * N + b * N + j] = h_new;
-    if (valid) h_row[(size_t)t * N + j] = h_new;
-    cur ^= 1;
-    __syncthreads();
-  }
-}
 
 // Copies `total` floats into shared memory, dst[e] = value(e), with BATCH
 // independent loads in flight a thread before their stores: the block waits
@@ -117,7 +44,245 @@ __device__ __forceinline__ void fill_shared(V* dst, int total, F value) {
   }
 }
 
-constexpr int RECUR_WARPS = 4;  // batch rows (one warp each) a block of the recurrence
+constexpr int RECUR_WARPS = 4;  // batch rows (one warp each) a block of the recurrences
+
+// Stages client c's W_hh (N, 3N) and b_hh (3N) in shared memory, padded to
+// NP = 32 U units a gate with zeros: w[k*WS + g*NP + i] = W_hh[k][g*N + i]
+// (WS = 3 NP + 1, an odd row stride, so lanes reading rows j hit 32 banks)
+// and bias[g*NP + i] = b_hh[g*N + i].  The caller's __syncthreads publishes
+// them.
+template <int U>
+__device__ __forceinline__ void stage_weights(float* w, float* bias, const float* wc,
+                                              const float* bc, int N) {
+  constexpr int NP = 32 * U;
+  constexpr int MP = 3 * NP;
+  constexpr int WS = MP + 1;
+  const int n3 = 3 * N;
+  if (N % 4 == 0 && ((size_t)wc & 15) == 0) {
+    // Zero the padding, then scatter W_hh read as float4 (a float4 never
+    // straddles a row or a gate when 4 | N); the two write disjoint words.
+    for (int e = threadIdx.x; e < NP * WS; e += blockDim.x) {
+      const int k = e / WS, m = e % WS;
+      if (k >= N || m >= MP || m % NP >= N) w[e] = 0.0f;
+    }
+    const float4* wc4 = reinterpret_cast<const float4*>(wc);
+    const int nvec = N * n3 / 4;
+    for (int base = threadIdx.x; base < nvec; base += 8 * blockDim.x) {
+      float4 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int e = base + q * blockDim.x;
+        v[q] = e < nvec ? wc4[e] : float4{};
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int e = base + q * blockDim.x;
+        if (e < nvec) {
+          const int k = 4 * e / n3, m = 4 * e % n3;
+          float* d = w + k * WS + (m / N) * NP + m % N;
+          d[0] = v[q].x; d[1] = v[q].y; d[2] = v[q].z; d[3] = v[q].w;
+        }
+      }
+    }
+  } else {
+    fill_shared<8>(w, NP * WS, [=](int e) {
+      const int k = e / WS, m = e % WS, g = m / NP, i = m % NP;
+      return (k < N && m < MP && i < N) ? wc[k * n3 + g * N + i] : 0.0f;
+    });
+  }
+  fill_shared<4>(bias, MP, [=](int m) {
+    const int g = m / NP, i = m % NP;
+    return i < N ? bc[g * N + i] : 0.0f;
+  });
+}
+
+// The sum of P partial sums, pairwise.
+template <int P>
+__device__ __forceinline__ float sum_parts(const float (&a)[P]) {
+  float s[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) s[p] = a[p];
+#pragma unroll
+  for (int half = P / 2; half > 0; half /= 2)
+#pragma unroll
+    for (int p = 0; p < half; ++p) s[p] += s[p + half];
+  return s[0];
+}
+
+constexpr int FWD_PARTS = 4;  // partial sums a gate: the dependent FMA chain is NP / FWD_PARTS long
+constexpr int FWD_AHEAD = 3;  // steps whose x_gates are in flight ahead of the one computed
+static_assert(FWD_PARTS >= 2 && (FWD_PARTS & (FWD_PARTS - 1)) == 0, "sum_parts sums pairwise");
+
+// Replaces the Pallas kernel repro/kernels/gru_scan/kernel.py::gru_scan
+// (body _gru_kernel).
+//
+// Bound on this card: the paper's shape (B=128, T=24, N=32) moves 1.59 MB
+// (0.47 us at 3.35 TB/s) and does ~20 MFLOP (0.30 us at 67 TFLOP/s fp32), so
+// the roofline says bytes; in practice the 24 dependent steps of a row bound
+// it: each is a (1, N) x (N, 3N) product and three activations that cannot
+// start before the step before has ended.
+//
+// What the design does about it: one warp per (client, batch row), lane j
+// owning hidden unit j and, above N = 32, unit j + 32 (U units a lane), so a
+// step needs no block-wide barrier.  At U = 1 each lane holds its three
+// columns of W_hh (96 floats) and its three biases in registers, loaded
+// straight from device memory with every load issued before the first wait,
+// so the kernel has no __syncthreads at all; at U = 2, W_hh sits in shared
+// memory behind one __syncthreads before the loop.  h_t passes between lanes
+// through a per-warp strip of shared memory behind one __syncwarp a step (two
+// strips by step parity), read back as float4 broadcasts; each gate's sum
+// runs in FWD_PARTS partial sums, which shortens the dependent FMA chain, and
+// the r and z gates' x_gates start one of them, which takes an add off it.
+// The x_gates of step t + FWD_AHEAD are loaded at the end of step t into a
+// slot that nothing reads before then (the loop is unrolled over named
+// slots, so no register still waiting on its load is copied), through a
+// pointer that moves one step a load, and h_t goes straight to h_seq.
+// W_hh, b_hh and each lane's units are padded to NP = 32
+// U with zeros, so a padded unit carries exact zeros through every step.
+// The activations are the plain version's (expf, tanhf, IEEE division): the
+// backward rebuilds the gates from h_seq with the same functions.
+//
+// What bounds it as built: the latency of one step's chain, ~0.3 us at
+// C = 1 for the ~216 instructions one warp issues (96 FFMA of the product,
+// then the two expf, two IEEE divides and the tanhf in sequence), and ~2 us
+// fixed a launch; at C = 35, 159 registers leave 12 warps an SM, so the
+// 4,480 row warps run in ~2.8 waves, and every warp first reads its 12 KB of
+// W_hh columns from L2 (PERF.md has the times from
+// tools/time_gru_kernels.py --steps).
+template <int U>
+__global__ void __launch_bounds__(32 * RECUR_WARPS)
+gru_scan_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
+                    const float* __restrict__ b_hh, float* __restrict__ h_seq,
+                    int B, int T, int N) {
+  constexpr int NP = 32 * U;
+  constexpr int MP = 3 * NP;
+  constexpr int WS = MP + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* w = smem;             // U = 2: (NP, WS), then the bias (MP)
+  float* strips = smem + (U == 1 ? 0 : NP * WS + MP);  // (RECUR_WARPS, 2, NP): h by step parity
+
+  const int n3 = 3 * N;
+  const int c = blockIdx.y;
+  const float* wc = w_hh + (size_t)c * N * n3;
+  const float* bc = b_hh + (size_t)c * n3;
+  if constexpr (U > 1) {
+    stage_weights<U>(w, w + NP * WS, wc, bc, N);
+    __syncthreads();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * RECUR_WARPS + warp;
+  if (row >= B) return;        // masked rows: no barrier follows
+  float* strip = strips + warp * 2 * NP;
+  const size_t base = (size_t)c * B + row;
+  const float* x_row = xg + base * T * n3;
+  float* h_row = h_seq + base * T * N;
+
+  int unit[U];
+  bool valid[U];
+  float bz[3][U];
+  float wcol[U == 1 ? 3 : 1][U == 1 ? NP : 1];  // U = 1: W_hh[k][g*N + lane], padded
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    unit[u] = u * 32 + lane;
+    valid[u] = unit[u] < N;
+  }
+  if constexpr (U == 1) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) bz[g][0] = valid[0] ? bc[g * N + lane] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        wcol[g][k] = (valid[0] && k < N) ? wc[k * n3 + g * N + lane] : 0.0f;
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) bz[g][u] = w[NP * WS + g * NP + unit[u]];
+  }
+
+  struct Inputs { float x[3][U]; };   // x_gates of one step
+  const float* x_next[U];      // this lane's x_gates of the next step loaded
+  float* h_next[U];            // and its h_seq entry of the next step stored
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    x_next[u] = x_row + unit[u];
+    h_next[u] = h_row + unit[u];
+  }
+  auto load = [&](int t, Inputs& in) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool ok = valid[u] && t < T;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) in.x[g][u] = ok ? x_next[u][g * N] : 0.0f;
+      x_next[u] += n3;
+    }
+  };
+
+  // Step t on `in` (its x_gates), which then takes step t + FWD_AHEAD's.
+  float h[U];                  // h_{t-1} of this lane's units
+  auto step = [&](int t, Inputs& in) {
+    const float4* hp = reinterpret_cast<const float4*>(strip + (t & 1) * NP);  // h_{t-1}
+    float* hs = strip + ((t + 1) & 1) * NP;                                   // h_t
+    float a[3][U][FWD_PARTS] = {};  // partial sums of x + b + h W for r and z, b + h W for n
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) a[g][u][0] = bz[g][u];
+      a[0][u][1] = in.x[0][u];
+      a[1][u][1] = in.x[1][u];
+    }
+#pragma unroll
+    for (int k4 = 0; k4 < NP / 4; ++k4) {
+      const float4 v = hp[k4];
+      const float hk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 4 * k4 + q, p = k % FWD_PARTS;
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if constexpr (U == 1) {
+              a[g][u][p] = fmaf(hk[q], wcol[g][k], a[g][u][p]);
+            } else {
+              a[g][u][p] = fmaf(hk[q], w[k * WS + g * NP + unit[u]], a[g][u][p]);
+            }
+          }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float r = sigmoidf(sum_parts(a[0][u]));
+      const float z = sigmoidf(sum_parts(a[1][u]));
+      const float cand = tanhf(in.x[2][u] + r * sum_parts(a[2][u]));
+      h[u] = (1.0f - z) * cand + z * h[u];
+      hs[unit[u]] = h[u];
+      if (valid[u]) *h_next[u] = h[u];
+      h_next[u] += N;
+    }
+    __syncwarp();              // h_t of every lane is in the strip
+    load(t + FWD_AHEAD, in);
+  };
+
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    h[u] = 0.0f;
+    strip[unit[u]] = 0.0f;     // h_{-1} = 0, in the strip step 0 reads
+  }
+  __syncwarp();
+  Inputs slot[FWD_AHEAD];
+#pragma unroll
+  for (int s = 0; s < FWD_AHEAD; ++s) load(s, slot[s]);
+  for (int t0 = 0; t0 < T; t0 += FWD_AHEAD) {
+#pragma unroll
+    for (int s = 0; s < FWD_AHEAD; ++s) {
+      if (t0 + s >= T) break;
+      step(t0 + s, slot[s]);
+    }
+  }
+}
 
 // Replaces the Pallas kernel repro/kernels/gru_scan/kernel.py::gru_scan_bwd
 // (body _gru_bwd_kernel), in two stages: this reverse recurrence, then
@@ -169,44 +334,7 @@ gru_bwd_recur_kernel(const float* __restrict__ xg, const float* __restrict__ w_h
 
   const int n3 = 3 * N;
   const int c = blockIdx.y;
-  const float* wc = w_hh + (size_t)c * N * n3;
-  const float* bc = b_hh + (size_t)c * n3;
-  if (N % 4 == 0 && ((size_t)wc & 15) == 0) {
-    // Zero the padding, then scatter W_hh read as float4 (a float4 never
-    // straddles a row or a gate when 4 | N); the two write disjoint words.
-    for (int e = threadIdx.x; e < NP * WS; e += blockDim.x) {
-      const int k = e / WS, m = e % WS;
-      if (k >= N || m >= MP || m % NP >= N) w[e] = 0.0f;
-    }
-    const float4* wc4 = reinterpret_cast<const float4*>(wc);
-    const int nvec = N * n3 / 4;
-    for (int base = threadIdx.x; base < nvec; base += 8 * blockDim.x) {
-      float4 v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int e = base + q * blockDim.x;
-        v[q] = e < nvec ? wc4[e] : float4{};
-      }
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int e = base + q * blockDim.x;
-        if (e < nvec) {
-          const int k = 4 * e / n3, m = 4 * e % n3;
-          float* d = w + k * WS + (m / N) * NP + m % N;
-          d[0] = v[q].x; d[1] = v[q].y; d[2] = v[q].z; d[3] = v[q].w;
-        }
-      }
-    }
-  } else {
-    fill_shared<8>(w, NP * WS, [=](int e) {
-      const int k = e / WS, m = e % WS, g = m / NP, i = m % NP;
-      return (k < N && m < MP && i < N) ? wc[k * n3 + g * N + i] : 0.0f;
-    });
-  }
-  fill_shared<4>(bias, MP, [=](int m) {
-    const int g = m / NP, i = m % NP;
-    return i < N ? bc[g * N + i] : 0.0f;
-  });
+  stage_weights<U>(w, bias, w_hh + (size_t)c * N * n3, b_hh + (size_t)c * n3, N);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -473,8 +601,9 @@ __global__ void gru_scan_bwd_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-size_t fwd_smem_bytes(int N, int rows) {
-  return sizeof(float) * ((size_t)N * (3 * N + 1) + 3 * N + 2 * rows * N);
+size_t fwd_smem_bytes(int U) {
+  const size_t np = 32 * U, mp = 3 * np;
+  return sizeof(float) * ((U == 1 ? 0 : np * (mp + 1) + mp) + 2 * RECUR_WARPS * np);
 }
 
 size_t recur_smem_bytes(int U) {
@@ -493,25 +622,27 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Launches a warp-per-row kernel on the grid (row blocks, C), RECUR_WARPS
+// rows a block, on `stream`; 0 or the CUDA error.
+template <typename K, typename... A>
+int launch_rows(K kernel, size_t smem, int C, int B, cudaStream_t stream, A... args) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + RECUR_WARPS - 1) / RECUR_WARPS, C);
+  kernel<<<grid, 32 * RECUR_WARPS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // The backward's two stages, each on the stream given; 0 or the first CUDA error.
 int launch_recur(const float* xg, const float* w_hh, const float* b_hh, const float* h_seq,
                  const float* dy, float* dxg, float* dgn, int C, int B, int T, int N,
                  cudaStream_t stream) {
-  const dim3 grid((B + RECUR_WARPS - 1) / RECUR_WARPS, C);
   if (N <= 32) {
-    const size_t smem = recur_smem_bytes(1);
-    cudaError_t err = allow_smem(gru_bwd_recur_kernel<1>, smem);
-    if (err != cudaSuccess) return (int)err;
-    gru_bwd_recur_kernel<1><<<grid, 32 * RECUR_WARPS, smem, stream>>>(xg, w_hh, b_hh, h_seq, dy,
-                                                                     dxg, dgn, B, T, N);
-  } else {
-    const size_t smem = recur_smem_bytes(2);
-    cudaError_t err = allow_smem(gru_bwd_recur_kernel<2>, smem);
-    if (err != cudaSuccess) return (int)err;
-    gru_bwd_recur_kernel<2><<<grid, 32 * RECUR_WARPS, smem, stream>>>(xg, w_hh, b_hh, h_seq, dy,
-                                                                     dxg, dgn, B, T, N);
+    return launch_rows(gru_bwd_recur_kernel<1>, recur_smem_bytes(1), C, B, stream, xg, w_hh,
+                       b_hh, h_seq, dy, dxg, dgn, B, T, N);
   }
-  return (int)cudaGetLastError();
+  return launch_rows(gru_bwd_recur_kernel<2>, recur_smem_bytes(2), C, B, stream, xg, w_hh, b_hh,
+                     h_seq, dy, dxg, dgn, B, T, N);
 }
 
 int launch_dw(const float* h_seq, const float* dxg, const float* dgn, float* partial, float* dw,
@@ -537,14 +668,13 @@ extern "C" {
 
 // Every entry point returns its launches' first cudaGetLastError() (0 on success).
 int gru_scan_fwd(const float* xg, const float* w_hh, const float* b_hh, float* h_seq,
-                 int C, int B, int T, int N, int rows, void* stream) {
-  const size_t smem = fwd_smem_bytes(N, rows);
-  cudaError_t err = allow_smem(gru_scan_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + rows - 1) / rows, C);
-  gru_scan_fwd_kernel<<<grid, rows * N, smem, (cudaStream_t)stream>>>(xg, w_hh, b_hh, h_seq,
-                                                                       B, T, N, rows);
-  return (int)cudaGetLastError();
+                 int C, int B, int T, int N, void* stream) {
+  if (N <= 32) {
+    return launch_rows(gru_scan_fwd_kernel<1>, fwd_smem_bytes(1), C, B, (cudaStream_t)stream,
+                       xg, w_hh, b_hh, h_seq, B, T, N);
+  }
+  return launch_rows(gru_scan_fwd_kernel<2>, fwd_smem_bytes(2), C, B, (cudaStream_t)stream, xg,
+                     w_hh, b_hh, h_seq, B, T, N);
 }
 
 // The backward: the recurrence (RECUR_WARPS rows a block), then dW/db over

@@ -37,16 +37,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Pointers and the stream as c_void_p: a bare Python int would pass as 32 bits.
 _SIGNATURES = {
-    "gru_scan_fwd": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "gru_scan_fwd": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "gru_scan_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "gru_bwd_recur": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "gru_bwd_dw": ([_P] * 6 + [_I] * 5 + [_P], _I),
 }
-
-
-def tile_rows(n: int) -> int:
-    """Batch rows per block: one thread per (row, unit), about 256 threads."""
-    return max(1, 256 // n)
 
 
 def slice_rows(n: int) -> int:
@@ -120,7 +115,7 @@ def gru_scan(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> t
         return h_seq
     err = _library().gru_scan_fwd(
         x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h_seq.data_ptr(),
-        c, b, t, n, tile_rows(n), backend.stream_handle(x_gates.device),
+        c, b, t, n, backend.stream_handle(x_gates.device),
     )
     backend.check(err, "gru_scan")
     gru_scan.launches += 1

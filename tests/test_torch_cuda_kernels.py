@@ -67,17 +67,19 @@ def max_err(a, b):
 @pytest.mark.parametrize(
     "lead,b,t,n",
     [((), 128, 24, 32), ((), 100, 24, 32), ((3,), 50, 24, 32), ((), 64, 24, 8),
-     ((), 64, 24, 64), ((), 37, 5, 2), ((35,), 128, 24, 32)],
+     ((), 64, 24, 64), ((), 37, 5, 2), ((35,), 128, 24, 32), ((), 5, 1, 4), ((), 37, 5, 33)],
 )
 def test_kernels_match_plain_versions(cuda, lead, b, t, n):
     xg, w, bias, dy = inputs(cuda, b, t, n, lead=lead)
     before = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
     h = kernel.gru_scan(xg, w, bias)
+    h_again = kernel.gru_scan(xg, w, bias)
     grads = kernel.gru_scan_bwd(xg, w, bias, h, dy)
     again = kernel.gru_scan_bwd(xg, w, bias, h, dy)
     torch.cuda.synchronize()
-    assert (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches) == (before[0] + 2, before[1] + 2)
     assert max_err(h, gru_scan_ref(xg, w, bias)) <= 1e-5
+    assert torch.equal(h, h_again)
     ref = gru_scan_bwd_ref(xg, w, bias, h, dy)
     assert max_err(grads[0], ref[0]) <= 1e-5
     for g, r in zip(grads[1:], ref[1:]):

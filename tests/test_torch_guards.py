@@ -5,8 +5,10 @@
 * CPU tensors go through the plain versions and count no kernel launch;
   the router accepts nothing but CUDA and CPU tensors.
 * The arch ids and model families not ported yet raise ``NotImplementedError``.
+* Each kernel module's ctypes signatures match the C prototypes of its source.
 """
 
+import ctypes
 import pkgutil
 import re
 import subprocess
@@ -70,6 +72,32 @@ def test_sources_import_no_jax_and_no_repro(path):
     assert files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def c_prototypes(source: str) -> dict[str, tuple[str, str]]:
+    """``name -> (return type, "P"/"I" per argument)`` of every function
+    defined in the ``extern "C"`` block of a CUDA source."""
+    block = source.split('extern "C" {', 1)[1]
+    protos = {}
+    for ret, name, args in re.findall(r"^(\w+) (\w+)\(([^)]*)\)\s*\{", block, re.M):
+        kinds = ["P" if "*" in a else "I" if a.split()[0] == "int" else "?" for a in args.split(",")]
+        protos[name] = (ret, "".join(kinds))
+    return protos
+
+
+@pytest.mark.parametrize("name", ["gru_scan", "ssd"])
+def test_ctypes_signatures_match_the_c_prototypes(name):
+    import importlib
+
+    module = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+    protos = c_prototypes((PKG / "csrc" / f"{name}.cu").read_text())
+    code = {ctypes.c_void_p: "P", ctypes.c_int: "I"}
+    declared = {fn: ("int" if restype is ctypes.c_int else restype.__name__,
+                     "".join(code.get(a, "?") for a in argtypes))
+                for fn, (argtypes, restype) in module._SIGNATURES.items()}
+    assert declared == protos
+    if name == "gru_scan":
+        assert protos["gru_scan_fwd"] == ("int", "PPPPIIIIP")
 
 
 def test_kernel_sources_ship_with_the_package():
