@@ -12,13 +12,14 @@ exit code and no result line:
              (ptxas reports included).
 3. kernels — ``gru_scan`` and ``gru_scan_bwd`` on the card against their
              plain PyTorch versions at the main path's shapes and more
-             (ragged batch, client axis, N = 2, 8, 33, 64, and the SRC
-             cohort's 35 clients), two forward and two backward runs
-             compared bit for bit, and each of the backward's two stage
-             kernels against its plain twin; then times at one client and
-             at 35: per call, on the device alone (a CUDA graph of 100
-             calls), each backward stage alone, the plain version, the
-             roofline bound, and cuDNN's GRU layer as a yardstick.
+             (ragged batch, client axis, N = 2, 8, 33, 64, the ARC
+             cohort's 35 clients and all 189 clients in one launch), two
+             forward and two backward runs compared bit for bit, and each of
+             the backward's two stage kernels against its plain twin; then
+             times at one client, at 35 and at 189: per call, on the device
+             alone (a CUDA graph), each backward stage alone, the plain
+             version, the roofline bound, and cuDNN's GRU layer as a
+             yardstick.
              ``ssd_chunk_scan`` against its plain versions (with and
              without the entry states) at the serving slice's shape, one
              chunk, the reduced config, and a ragged sequence with H=3
@@ -30,13 +31,17 @@ exit code and no result line:
              reduced config and NC=3 with H=3, and each of its six stage
              kernels against its plain stage; runs compared bit for bit;
              then the same times.
-4. parity  — a small federation trained on the card against the same one
-             trained on the CPU through the plain versions.
+4. parity  — a small federation trained on the card (default, vectorized
+             engine, dropout 0) against the same one trained on the CPU
+             through the plain versions; on the card, with dropout 0.05, the
+             vectorized engine against the sequential one and a chunked
+             cohort against an unchunked one.
 5. slice   — the paper's path at full width: the full 189-hospital cohort,
              2-layer GRU N=32, batch 128, AdamW 5e-3/5e-3; ``run_setting``
-             for federated-src (3 rounds x 4 local epochs) and central (one
-             epoch), with every kernel's launch count checked against what
-             the run implies.
+             for federated-src (3 rounds x 4 local epochs) on both engines
+             and central (one epoch), with every kernel's launch count
+             checked against what the run implies (on the vectorized
+             engine: the batched steps its schedules give).
 6. profile — one client's local round under torch.profiler: step time,
              device busy time and idle share, the GRU kernels' shares of it,
              and the kernels that take most of it.
@@ -63,6 +68,19 @@ exit code and no result line:
 12. train profile — one train step under torch.profiler: wall time,
              device busy time and idle share, the kernels that take most of
              it, and the SSD kernels' shares of device time.
+13. cohort slice — federated-arc at full width on the full cohort (35
+             recruited clients, all participating, 4 local epochs, one
+             chunk), 2 rounds on each engine: round time, real client-steps
+             per second, batched steps, bytes staged, peak memory, exact
+             launch counts, both engines' test MSLE (within 1e-4 of each
+             other) and their largest param difference.
+14. paper scale — ``run_paper_scale(rounds=3, local_epochs=1, batch_size=4)``:
+             189 clients of ~23 stays, the five settings on both engines,
+             round times, speedups and the donation probe.
+15. cohort profile — one vectorized federated-arc round under
+             torch.profiler: device busy time (copies and kernels) and idle
+             share, kernels, and the GRU kernels' shares of device and of
+             kernel time.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -86,6 +104,9 @@ FWD_TOL = 1e-5
 DX_TOL = 1e-5
 DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in another order
 PARITY_TOL = 1e-4
+ENGINE_LOSS_TOL = 1e-5       # the engines' round losses (phase 4)
+CHUNK_TOL = 1e-6             # chunked against unchunked params (phase 4)
+ARC_MSLE_TOL = 1e-4          # the engines' test MSLE on federated-arc (phase 13)
 SSD_TOL = 1e-4               # times max(1, max|ref|): sums of up to L*N and L*P products in another order
 MAMBA_TOL = 1e-4             # 24 float32 layers, card against CPU: times max(1, max|ref|), a gradient leaf times its own max|ref|
 DECAY_GRAD_TOL = 1e-3        # times its own max|ref|: the A_log and dt_bias leaves (phase 10)
@@ -121,13 +142,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
-    emit(phase="device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
+    emit(phase="device", name=device_name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # -- 2. build -------------------------------------------------------------
@@ -180,6 +201,19 @@ def main() -> int:
 
     # -- 12. where a train step's time goes -----------------------------------
     profile_training(torch, train_step)
+    del train_step
+    torch.cuda.empty_cache()
+
+    # -- 13. the cohort slice: federated-arc at full width, both engines ------
+    for kernel, n in run_cohort_slice(torch, K, cohort).items():
+        launches[kernel] += n
+
+    # -- 14. paper scale: 189 small clients, five settings, both engines ------
+    for kernel, n in run_paper_scale_phase(torch, K).items():
+        launches[kernel] += n
+
+    # -- 15. where a vectorized round's time goes ------------------------------
+    profile_cohort_round(torch, cohort)
 
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
@@ -187,7 +221,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
@@ -205,9 +239,11 @@ CASES = (
     ("n64", None, 128, 24, 64),
     ("n2", None, 37, 5, 2),
     ("n33", None, 37, 5, 33),      # two units a lane, N not a multiple of 4
-    ("cohort", 35, 128, 24, 32),   # the SRC federation's 35 recruited clients in one launch
+    ("cohort", 35, 128, 24, 32),   # the ARC federation's 35 recruited clients in one launch
+    ("ac", 189, 128, 24, 32),      # all 189 clients (federated-ac) in one launch
 )
 COHORT = 35
+AC_COHORT = 189
 
 
 def gru_inputs(torch, dev, c, b, t, n, seed):
@@ -256,7 +292,7 @@ def check_kernels(torch, dev, K) -> list[dict]:
         errs["gru_scan_bwd"] = max(errs["gru_scan_bwd"], e["dx"], e["dw"], e["db"])
 
     # Times at the training step's shape (B=128, T=24, N=32), layer 2 (F = N),
-    # for one client and for the SRC cohort's 35 in one launch.
+    # for one client, the ARC cohort's 35 and all 189 in one launch.
     b, t, n = 128, 24, 32
     times = gru_times(torch, dev, K)
     xg, w, bias, dy = gru_inputs(torch, dev, None, b, t, n, seed=100)
@@ -269,12 +305,12 @@ def check_kernels(torch, dev, K) -> list[dict]:
     fwd_ms_predict = time_ms(torch, lambda: K.gru_scan(xg_p, w_p, b_p), iters=200)
     fwd_bytes, fwd_ops, bwd_bytes, bwd_ops = work(b, t, n)
     bounds = {}
-    for c in (1, COHORT):
+    for c in (1, COHORT, AC_COHORT):
         bounds[f"C{c}"] = {
             "gru_scan": bound_ms(c * fwd_bytes, c * fwd_ops)[0],
             "gru_scan_bwd": bound_ms(c * bwd_bytes, c * bwd_ops)[0],
         }
-    stages = {f"C{c}": gru_stage_ms(torch, dev, K, c, b, t, n) for c in (1, COHORT)}
+    stages = {f"C{c}": gru_stage_ms(torch, dev, K, c, b, t, n) for c in (1, COHORT, AC_COHORT)}
     emit(phase="timing", shape={"B": b, "T": t, "N": n}, times=times, bound_ms=bounds,
          gru_scan_bwd_stage_device_ms=stages, gru_scan_plain_ms=fwd_plain,
          gru_scan_bwd_plain_ms=bwd_plain, cudnn_gru_fwd_ms=cudnn_fwd,
@@ -325,7 +361,8 @@ def check_gru_stages(torch, K, case, xg, w, bias, h, dy) -> None:
 
 def gru_times(torch, dev, K) -> dict:
     """Per-call and device time of ``gru_scan`` and ``gru_scan_bwd`` at B=128,
-    T=24, N=32 for one client (``C1``) and 35 in one launch (``C35``).
+    T=24, N=32 for one client (``C1``), 35 and 189 in one launch (``C35``,
+    ``C189``; the graph holds 20 calls at 189).
 
     ``call_ms``: back-to-back wrapper calls under CUDA events, which the
     host's work per call (shape checks, allocations, the ctypes call) can
@@ -333,13 +370,13 @@ def gru_times(torch, dev, K) -> dict:
     (``graph_ms``), the device's time alone."""
     b, t, n = 128, 24, 32
     out = {}
-    for c, iters in ((1, 500), (COHORT, 100)):
+    for c, iters, graphed in ((1, 500, 100), (COHORT, 100, 100), (AC_COHORT, 50, 20)):
         xg, w, bias, dy = gru_inputs(torch, dev, None if c == 1 else c, b, t, n, seed=100 + c)
         h = K.gru_scan(xg, w, bias)
         calls = {"gru_scan": lambda: K.gru_scan(xg, w, bias),
                  "gru_scan_bwd": lambda: K.gru_scan_bwd(xg, w, bias, h, dy)}
         out[f"C{c}"] = {name: {"call_ms": time_ms(torch, fn, iters=iters),
-                               "device_ms": graph_ms(torch, fn)}
+                               "device_ms": graph_ms(torch, fn, calls=graphed)}
                         for name, fn in calls.items()}
     return out
 
@@ -352,11 +389,13 @@ def gru_stage_ms(torch, dev, K, c, b, t, n) -> dict[str, float]:
     dxg = torch.empty_like(xg)
     dw, db = torch.empty_like(w), torch.empty_like(bias)
     dgn, partial = K._scratch(h, c, b, t, n)
+    calls = 20 if c > COHORT else 100
     return {
         "recur": graph_ms(torch, lambda: K._stage(
-            "gru_bwd_recur", (c, b, t, n), (xg, w, bias, h, dy), (dxg, dgn))),
+            "gru_bwd_recur", (c, b, t, n), (xg, w, bias, h, dy), (dxg, dgn)), calls=calls),
         "dw_and_reduce": graph_ms(torch, lambda: K._stage(
-            "gru_bwd_dw", (c, b, t, n, K.slice_rows(n)), (h, dxg, dgn), (partial, dw, db))),
+            "gru_bwd_dw", (c, b, t, n, K.slice_rows(n)), (h, dxg, dgn), (partial, dw, db)),
+            calls=calls),
     }
 
 
@@ -799,31 +838,52 @@ def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, 
 
 
 def check_parity(torch) -> None:
-    """A 4-client federation, 2 rounds, dropout 0: card against CPU."""
+    """A 4-client federation, 2 rounds: on the default (vectorized) engine at
+    dropout 0, card against CPU; on the card at dropout 0.05, the vectorized
+    engine against the sequential one and two chunks against one."""
     from repro_torch.data.pipeline import build_client_datasets
     from repro_torch.data.synth_eicu import CohortConfig, generate_cohort
     from repro_torch.federated.api import Federation, FederationConfig
     from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
     from repro_torch.optim.adamw import AdamW
-    from repro_torch.tree import tree_leaves
 
     clients = build_client_datasets(generate_cohort(CohortConfig().scaled(0.02), seed=1))
-    cfg = GRUConfig(dropout=0.0)
-    params0 = init_gru(torch.Generator().manual_seed(1), cfg, "cpu")
-    fed_cfg = FederationConfig(rounds=2, local_epochs=1, recruitment="top-n-samples:4",
-                               selection="uniform", seed=1)
-    out = {}
-    for device in ("cuda", "cpu"):
-        fed = Federation(fed_cfg, clients, make_loss_fn(cfg), AdamW(), device=device)
-        out[device] = fed.run(params0)
-    diff = max(
-        max_err(a.cpu(), b) for a, b in zip(tree_leaves(out["cuda"].params),
-                                            tree_leaves(out["cpu"].params))
-    )
+    params0 = init_gru(torch.Generator().manual_seed(1), GRUConfig(), "cpu")
+    base = dict(rounds=2, local_epochs=1, recruitment="top-n-samples:4", selection="uniform",
+                seed=1)
+
+    def run(dropout, device, **kw):
+        fed = Federation(FederationConfig(**base, **kw), clients,
+                         make_loss_fn(GRUConfig(dropout=dropout)), AdamW(), device=device)
+        return fed.run(params0)
+
+    out = {device: run(0.0, device) for device in ("cuda", "cpu")}
+    diff = param_diff(out["cuda"].params, out["cpu"].params)
     losses = {d: [r.mean_local_loss for r in out[d].history] for d in out}
-    emit(phase="parity", max_param_diff=diff, losses=losses,
+    emit(phase="parity", engine=FederationConfig().engine, max_param_diff=diff, losses=losses,
          local_steps=out["cuda"].total_local_steps)
     require(diff <= PARITY_TOL, f"card and CPU federations differ by {diff}")
+
+    runs = {
+        "vectorized": run(0.05, "cuda"),
+        "sequential": run(0.05, "cuda", engine="sequential"),
+        "chunked": run(0.05, "cuda", cohort_chunk=2),
+    }
+    losses = {k: [r.mean_local_loss for r in v.history] for k, v in runs.items()}
+    loss_diff = max(abs(a - b) for a, b in zip(losses["vectorized"], losses["sequential"]))
+    engine_diff = param_diff(runs["vectorized"].params, runs["sequential"].params)
+    chunk_diff = param_diff(runs["vectorized"].params, runs["chunked"].params)
+    emit(phase="engine_parity", dropout=0.05, losses=losses, max_loss_diff=loss_diff,
+         max_param_diff=engine_diff, chunked_max_param_diff=chunk_diff)
+    require(loss_diff <= ENGINE_LOSS_TOL, f"engines' round losses differ by {loss_diff}")
+    require(engine_diff <= PARITY_TOL, f"engines' params differ by {engine_diff}")
+    require(chunk_diff <= CHUNK_TOL, f"chunked and unchunked params differ by {chunk_diff}")
+
+
+def param_diff(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return max(max_err(x.cpu(), y.cpu()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 # ---------------------------------------------------------------------------
@@ -831,7 +891,30 @@ def check_parity(torch) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_slice(torch, K) -> dict[str, int]:
+def reset_gru_counts(K) -> None:
+    K.gru_scan.launches = 0
+    K.gru_scan_bwd.launches = 0
+
+
+def gru_counts(K) -> dict[str, int]:
+    return {"gru_scan": K.gru_scan.launches, "gru_scan_bwd": K.gru_scan_bwd.launches}
+
+
+def schedule_steps(records, sizes: dict[int, int], batch: int, epochs: int) -> int:
+    """The batched steps a one-chunk vectorized run takes, from its rounds'
+    participants alone: a step runs where any client has a real batch, so a
+    round takes ``epochs × max ceil(n_c / B)`` over its participants."""
+    return sum(epochs * max(-(-sizes[c] // batch) for c in r.participant_ids) for r in records)
+
+
+def check_launches(what: str, got: dict[str, int], steps: int, predict_batches: int) -> None:
+    """Two GRU layers: two forward launches per step and per predict batch,
+    two backward launches per step."""
+    want = {"gru_scan": 2 * steps + 2 * predict_batches, "gru_scan_bwd": 2 * steps}
+    require(got == want, f"{what} launches {got}, expected {want}")
+
+
+def run_slice(torch, K) -> tuple[dict[str, int], object]:
     from repro_torch.data.pipeline import build_client_datasets, global_dataset
     from repro_torch.data.synth_eicu import Cohort
     from repro_torch.experiments.paper import (
@@ -850,57 +933,68 @@ def run_slice(torch, K) -> dict[str, int]:
     predict_batches = math.ceil(n_test / 2048)
     emit(phase="cohort", seconds=time.perf_counter() - t0, stays=int(cohort.y.size),
          hospitals=int(cohort.num_hospitals), test=n_test)
+    clients = build_client_datasets(cohort)
+    sizes = {c.client_id: c.n_train for c in clients}
 
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    outs = {}
+    for engine in ("vectorized", "sequential"):
+        fed_exp = ExperimentConfig(rounds=3, local_epochs=4, engine=engine)
+        records = []
+        reset_gru_counts(K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed = run_setting("federated-src", fed_exp, cohort, seed=0, progress=records.append)
+        fed_s = time.perf_counter() - t0
+        counts = gru_counts(K)
+        for r in records:
+            emit(phase="round", engine=engine, round=r.round_index,
+                 participants=len(r.participant_ids), mean_local_loss=r.mean_local_loss,
+                 local_steps=r.local_steps, round_time_s=r.round_time_s)
+        round_s = sum(r.round_time_s for r in records)
+        steps = fed["cohort_steps"] if engine == "vectorized" else fed["local_steps"]
+        emit(phase="federated-src", engine=engine, recruited=fed["recruited"],
+             federation_size=fed["federation_size"], local_steps=fed["local_steps"],
+             cohort_steps=fed["cohort_steps"], round_times_s=fed["round_times_s"],
+             local_steps_per_s=fed["local_steps"] / round_s, seconds=fed_s,
+             metrics=fed["metrics"], launches=counts)
+        require(all(math.isfinite(v) for v in fed["metrics"].values()),
+                f"federated-src ({engine}): metrics not finite: {fed['metrics']}")
+        require(all(math.isfinite(r.mean_local_loss) for r in records),
+                "a round loss is not finite")
+        if engine == "vectorized":
+            want = schedule_steps(records, sizes, fed_exp.batch_size, fed_exp.local_epochs)
+            require(fed["cohort_steps"] == want,
+                    f"batched steps {fed['cohort_steps']}, the schedules give {want}")
+        check_launches(f"federated-src ({engine})", counts, steps, predict_batches)
+        total = {k: total[k] + counts[k] for k in total}
+        outs[engine] = fed
+
+    require(outs["vectorized"]["local_steps"] == outs["sequential"]["local_steps"],
+            "the engines count different local steps")
     fed_exp = ExperimentConfig(rounds=3, local_epochs=4)
-    central_exp = ExperimentConfig(central_epochs=1)
-    records = []
+    federation = Federation(
+        FederationConfig(**policies_for("federated-src", fed_exp), seed=0),
+        clients, make_loss_fn(GRUConfig()), AdamW(), device="cuda",
+    )
+    ids, _ = federation.build_federation()
+    require(all(o["federation_ids"] == ids.tolist() for o in outs.values()),
+            "recruited set differs from build_federation")
 
-    K.gru_scan.launches = 0
-    K.gru_scan_bwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fed = run_setting("federated-src", fed_exp, cohort, seed=0, progress=records.append)
-    fed_s = time.perf_counter() - t0
-    fed_counts = (K.gru_scan.launches, K.gru_scan_bwd.launches)
+    central_exp = ExperimentConfig(central_epochs=1)
+    reset_gru_counts(K)
     t0 = time.perf_counter()
     central = run_setting("central", central_exp, cohort, seed=0)
     central_s = time.perf_counter() - t0
-    counts = {"gru_scan": K.gru_scan.launches, "gru_scan_bwd": K.gru_scan_bwd.launches}
-
-    for r in records:
-        emit(phase="round", round=r.round_index, participants=len(r.participant_ids),
-             mean_local_loss=r.mean_local_loss, local_steps=r.local_steps,
-             round_time_s=r.round_time_s)
-    round_s = sum(r.round_time_s for r in records)
-    emit(phase="federated-src", recruited=fed["recruited"],
-         federation_size=fed["federation_size"], local_steps=fed["local_steps"],
-         local_steps_per_s=fed["local_steps"] / round_s, seconds=fed_s,
-         metrics=fed["metrics"], launches=dict(zip(counts, fed_counts)))
+    counts = gru_counts(K)
     emit(phase="central", local_steps=central["local_steps"],
          local_steps_per_s=central["local_steps"] / central["tau_s"], seconds=central_s,
-         metrics=central["metrics"])
-
-    for out in (fed, central):
-        require(all(math.isfinite(v) for v in out["metrics"].values()),
-                f"{out['setting']}: metrics not finite: {out['metrics']}")
-    require(all(math.isfinite(r.mean_local_loss) for r in records), "a round loss is not finite")
-
-    federation = Federation(
-        FederationConfig(**policies_for("federated-src", fed_exp), seed=0),
-        build_client_datasets(cohort), make_loss_fn(GRUConfig()), AdamW(), device="cuda",
-    )
-    ids, _ = federation.build_federation()
-    require(fed["federation_ids"] == ids.tolist(), "recruited set differs from build_federation")
-
-    # Two GRU layers: two forward launches per local step and per predict
-    # batch, two backward launches per local step.
-    want_fed = (2 * fed["local_steps"] + 2 * predict_batches, 2 * fed["local_steps"])
-    want_central = (2 * central["local_steps"] + 2 * predict_batches, 2 * central["local_steps"])
-    require(fed_counts == want_fed, f"federated-src launches {fed_counts}, expected {want_fed}")
-    got_central = (counts["gru_scan"] - fed_counts[0], counts["gru_scan_bwd"] - fed_counts[1])
-    require(got_central == want_central,
-            f"central launches {got_central}, expected {want_central}")
-    return counts, cohort
+         metrics=central["metrics"], launches=counts)
+    require(all(math.isfinite(v) for v in central["metrics"].values()),
+            f"central: metrics not finite: {central['metrics']}")
+    check_launches("central", counts, central["local_steps"], predict_batches)
+    total = {k: total[k] + counts[k] for k in total}
+    return total, cohort
 
 
 # ---------------------------------------------------------------------------
@@ -1332,6 +1426,184 @@ def profile_training(torch, train_step) -> None:
          ssd_fwd_share_of_device=share(fwd_us), ssd_bwd_share_of_device=share(bwd_us),
          ssd_fwd_us=fwd_us, ssd_bwd_us=bwd_us,
          kernels_launched=count, top_device_us={name[:80]: us for name, us in top})
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15: the vectorized cohort engine at full width and at 189 clients
+# ---------------------------------------------------------------------------
+
+
+def run_cohort_slice(torch, K, cohort) -> dict[str, int]:
+    """federated-arc on the full cohort, 2 rounds x 4 local epochs, every
+    recruited client in every round, one chunk; each engine from the same
+    init, with its launches counted from 0 over its run and its predictions."""
+    from repro_torch.data.pipeline import build_client_datasets, global_dataset
+    from repro_torch.data.synth_eicu import Cohort
+    from repro_torch.experiments.paper import ExperimentConfig, _predict, policies_for
+    from repro_torch.federated.api import Federation, FederationConfig
+    from repro_torch.metrics.regression import evaluate_predictions
+    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    exp = ExperimentConfig(rounds=2, local_epochs=4)
+    clients = build_client_datasets(cohort)
+    sizes = {c.client_id: c.n_train for c in clients}
+    test = global_dataset(cohort, Cohort.TEST)
+    predict_batches = math.ceil(len(test) / 2048)
+    model_cfg = GRUConfig()
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    outs = {}
+    for engine in ("vectorized", "sequential"):
+        fed = Federation(
+            FederationConfig(rounds=exp.rounds, local_epochs=exp.local_epochs,
+                             batch_size=exp.batch_size, **policies_for("federated-arc", exp),
+                             seed=0, engine=engine),
+            clients, make_loss_fn(model_cfg), AdamW(exp.learning_rate,
+                                                    weight_decay=exp.weight_decay),
+            device="cuda",
+        )
+        stats = []
+
+        def on_round(record, fed=fed, engine=engine):
+            if engine == "vectorized":
+                stats.append(dict(fed.cohort_trainer.last_round_stats))
+
+        params0 = init_gru(torch.Generator().manual_seed(0), model_cfg, "cuda")
+        torch.cuda.synchronize()
+        reset_gru_counts(K)
+        result = fed.run(params0, progress=on_round)
+        metrics = evaluate_predictions(test.y, _predict(result.params, model_cfg, test))
+        counts = gru_counts(K)
+        rounds = result.history
+        round_s = sum(r.round_time_s for r in rounds)
+        steps = sum(st["cohort_steps"] for st in stats) if stats else result.total_local_steps
+        emit(phase="cohort_slice", setting="federated-arc", engine=engine,
+             federation_size=int(result.federation_ids.size),
+             participants=[len(r.participant_ids) for r in rounds],
+             round_times_s=[r.round_time_s for r in rounds],
+             local_steps=result.total_local_steps,
+             client_steps_per_s=result.total_local_steps / round_s,
+             cohort_steps=[st["cohort_steps"] for st in stats] or None,
+             bytes_staged=[st["bytes_staged"] for st in stats] or None,
+             stage_seconds=[st["stage_seconds"] for st in stats] or None,
+             peak_device_bytes=[st["peak_device_bytes"] for st in stats] or None,
+             mean_local_loss=[r.mean_local_loss for r in rounds], metrics=metrics,
+             launches=counts)
+        require(all(math.isfinite(v) for v in metrics.values()),
+                f"federated-arc ({engine}): metrics not finite: {metrics}")
+        require(all(len(r.participant_ids) == result.federation_ids.size for r in rounds),
+                "federated-arc: not every recruited client participated")
+        if engine == "vectorized":
+            want = schedule_steps(rounds, sizes, exp.batch_size, exp.local_epochs)
+            require(steps == want, f"federated-arc batched steps {steps}, the schedules give {want}")
+        check_launches(f"federated-arc ({engine})", counts, steps, predict_batches)
+        total = {k: total[k] + counts[k] for k in total}
+        outs[engine] = (result, metrics)
+        del fed, result
+        torch.cuda.empty_cache()
+
+    msle = {k: m["msle"] for k, (_, m) in outs.items()}
+    diff = param_diff(outs["vectorized"][0].params, outs["sequential"][0].params)
+    emit(phase="cohort_slice_parity", msle=msle, max_param_diff=diff,
+         local_steps={k: r.total_local_steps for k, (r, _) in outs.items()})
+    require(abs(msle["vectorized"] - msle["sequential"]) <= ARC_MSLE_TOL,
+            f"federated-arc: the engines' test MSLE differ: {msle}")
+    return total
+
+
+def run_paper_scale_phase(torch, K) -> dict[str, int]:
+    """``run_paper_scale`` on the card: 189 clients of ~23 stays, the five
+    settings on both engines, and the donation probe."""
+    from repro_torch.experiments.paper import run_paper_scale
+
+    reset_gru_counts(K)
+    t0 = time.perf_counter()
+    out = run_paper_scale(rounds=3, local_epochs=1, batch_size=4, verbose=False, device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = gru_counts(K)
+    rows = {}
+    for setting, row in out["settings"].items():
+        rows[setting] = {k: ({"round_time_s": v["round_time_s"], "time_unit": v["time_unit"],
+                              "tau_s": v["tau_s"], "msle": v["metrics"]["msle"],
+                              "local_steps": v["local_steps"]} if isinstance(v, dict) else v)
+                         for k, v in row.items()}
+        for v in row.values():
+            if isinstance(v, dict):
+                require(all(math.isfinite(m) for m in v["metrics"].values()),
+                        f"paper scale {setting}: metrics not finite: {v['metrics']}")
+    memory = {k: (v if not isinstance(v, dict) else
+                  {"chunks": v["chunks"], "peak_device_bytes": v["peak_device_bytes"],
+                   "bytes_staged": v["bytes_staged"]})
+              for k, v in out["memory"].items()}
+    emit(phase="paper_scale", num_clients=out["num_clients"], rounds=out["rounds"],
+         local_epochs=out["local_epochs"], batch_size=out["batch_size"], seconds=seconds,
+         settings=rows, memory=memory, launches=counts)
+    require(out["num_clients"] == 189, f"paper scale has {out['num_clients']} clients")
+    require(counts["gru_scan"] > 0 and counts["gru_scan_bwd"] > 0,
+            f"paper scale launched {counts}")
+    return counts
+
+
+def profile_cohort_round(torch, cohort) -> None:
+    """One vectorized federated-arc round (35 clients, 4 local epochs, one
+    chunk) under torch.profiler, after one unprofiled round: wall time,
+    device busy time and idle share, kernels, the GRU kernels' shares."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import build_client_datasets, cohort_steps_per_epoch
+    from repro_torch.experiments.paper import ExperimentConfig, policies_for
+    from repro_torch.federated.api import Federation, FederationConfig
+    from repro_torch.federated.cohort import client_generators
+    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = GRUConfig()
+    exp = ExperimentConfig()
+    clients = build_client_datasets(cohort)
+    fed = Federation(FederationConfig(**policies_for("federated-arc", exp), seed=0),
+                     clients, make_loss_fn(cfg), AdamW(), device="cuda")
+    ids, _ = fed.build_federation()
+    arc = [fed.all_clients[int(i)] for i in ids]
+    spe = cohort_steps_per_epoch([c.n_train for c in arc], exp.batch_size)
+    trainer = fed.cohort_trainer
+    params = init_gru(torch.Generator().manual_seed(0), cfg, "cuda")
+
+    def round_(seed):
+        gens = client_generators(np.random.default_rng([seed, 2]), len(arc), torch.device("cuda"))
+        return trainer.train_cohort(params, arc, np.random.default_rng(seed), gens,
+                                    steps_per_epoch=spe)
+
+    round_(0)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        round_(1)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    stats = trainer.last_round_stats
+    by_name, count = device_times(prof)
+    device_s = sum(by_name.values()) / 1e6
+    copy_s = sum(us for name, us in by_name.items() if name.startswith("Memcpy")) / 1e6
+    kernel_s = device_s - copy_s
+    gru_us = {side: sum(us for name, us in by_name.items() if gru_side(name) == side)
+              for side in ("fwd", "bwd")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    share = (lambda us: us / 1e6 / device_s) if device_s > 0 else (lambda us: None)
+    kernel_share = (lambda us: us / 1e6 / kernel_s) if kernel_s > 0 else (lambda us: None)
+    emit(phase="cohort_profile", setting="federated-arc", clients=len(arc),
+         device_copy_s=copy_s, device_kernel_s=kernel_s,
+         gru_scan_share_of_kernels=kernel_share(gru_us["fwd"]),
+         gru_scan_bwd_share_of_kernels=kernel_share(gru_us["bwd"]),
+         cohort_steps=stats["cohort_steps"], bytes_staged=stats["bytes_staged"],
+         stage_seconds=stats["stage_seconds"], wall_s=wall_s,
+         step_ms=wall_s / stats["cohort_steps"] * 1e3,
+         device_busy_s=device_s if device_s > 0 else None,
+         device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
+         kernels_launched=count, gru_scan_us=gru_us["fwd"], gru_scan_bwd_us=gru_us["bwd"],
+         gru_scan_share_of_device=share(gru_us["fwd"]),
+         gru_scan_bwd_share_of_device=share(gru_us["bwd"]),
+         top_device_us={name[:80]: us for name, us in top})
 
 
 if __name__ == "__main__":

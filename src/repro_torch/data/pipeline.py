@@ -1,15 +1,15 @@
 """Batching / client-dataset plumbing shared by central and federated training.
 
-A copy of the JAX package's ``data/pipeline.py`` (the parts the sequential
-engine and the LM trainer use): ``padded_batches`` and ``lm_token_batch``
-consume the numpy generator exactly as the reference does, so batch order
-and tokens match it by construction.
+A copy of the JAX package's ``data/pipeline.py`` (the parts both engines
+and the LM trainer use): ``padded_batches``, the cohort schedule of the
+vectorized engine and ``lm_token_batch`` consume the numpy generator exactly
+as the reference does, so batch order and tokens match it by construction.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -54,9 +54,143 @@ class ArrayDataset:
             yield xb, yb, mask
 
 
+@dataclasses.dataclass(frozen=True)
+class CohortSchedule:
+    """A fixed-shape batch plan for one federated round across a client cohort.
+
+    Every client's epoch is padded to ``steps_per_epoch`` with dummy batches
+    whose ``step_valid`` flag is False (and whose example mask is all-zero),
+    so the whole cohort shares one ``(clients, steps, batch, ...)`` shape.
+    """
+
+    x: np.ndarray           # (C, T, B, *feature_dims)
+    y: np.ndarray           # (C, T, B)
+    mask: np.ndarray        # (C, T, B) float32 per-example validity
+    step_valid: np.ndarray  # (C, T) bool — False on dummy padding steps
+    weights: np.ndarray     # (C,) float32 local sample counts n_c
+    steps_per_epoch: int
+    local_epochs: int
+
+    @property
+    def num_clients(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def total_steps(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def real_steps(self) -> int:
+        return int(self.step_valid.sum())
+
+
 def local_round_steps(n: int, batch_size: int, local_epochs: int) -> int:
-    """Real local steps one client runs per round: ceil(n / B) * epochs."""
+    """Real local steps one client runs per round: ceil(n / B) * epochs.
+
+    Both engines report their step totals through this, so their
+    ``total_local_steps`` always agree.
+    """
     return -(-int(n) // batch_size) * local_epochs
+
+
+def cohort_steps_per_epoch(sizes: Sequence[int], batch_size: int) -> int:
+    """Common per-epoch step count: the slowest client's ceil(n_c / B)."""
+    if not sizes:
+        raise ValueError("empty cohort")
+    return max(local_round_steps(n, batch_size, 1) for n in sizes)
+
+
+def build_cohort_schedule(
+    datasets: Sequence[ArrayDataset],
+    batch_size: int,
+    local_epochs: int,
+    rng: np.random.Generator,
+    steps_per_epoch: int | None = None,
+) -> CohortSchedule:
+    """Stack every client's shuffled, padded epoch batches into one array.
+
+    Consumes ``rng`` in exactly the order the sequential engine does
+    (client-major, one permutation per epoch), so a vectorized round is fed
+    bit for bit the same batches as the sequential one.
+    """
+    if not datasets:
+        raise ValueError("empty cohort")
+    spe = steps_per_epoch or cohort_steps_per_epoch([len(d) for d in datasets], batch_size)
+    total = spe * local_epochs
+    feat = datasets[0].x.shape[1:]
+    n_clients = len(datasets)
+    x = np.zeros((n_clients, total, batch_size, *feat), dtype=datasets[0].x.dtype)
+    y = np.zeros((n_clients, total, batch_size), dtype=datasets[0].y.dtype)
+    mask = np.zeros((n_clients, total, batch_size), dtype=np.float32)
+    step_valid = np.zeros((n_clients, total), dtype=bool)
+    fill_cohort_schedule(datasets, batch_size, local_epochs, rng, spe, x, y, mask, step_valid)
+    return CohortSchedule(
+        x=x,
+        y=y,
+        mask=mask,
+        step_valid=step_valid,
+        weights=np.asarray([len(d) for d in datasets], dtype=np.float32),
+        steps_per_epoch=spe,
+        local_epochs=local_epochs,
+    )
+
+
+def fill_cohort_schedule(
+    datasets: Sequence[ArrayDataset],
+    batch_size: int,
+    local_epochs: int,
+    rng: np.random.Generator,
+    steps_per_epoch: int,
+    x: np.ndarray,
+    y: np.ndarray,
+    mask: np.ndarray,
+    step_valid: np.ndarray,
+) -> None:
+    """Write the schedule of ``build_cohort_schedule`` into zeroed arrays of
+    shape ``(C, T, B, ...)`` (any strides: the cohort engine passes views of
+    its step-major staging buffer), consuming ``rng`` the same way."""
+    spe = steps_per_epoch
+    feat = x.shape[3:]
+    for c, dataset in enumerate(datasets):
+        if dataset.x.shape[1:] != feat:
+            raise ValueError("all cohort clients must share a feature shape")
+        for epoch in range(local_epochs):
+            t = epoch * spe
+            for xb, yb, mb in dataset.padded_batches(batch_size, rng):
+                if t >= (epoch + 1) * spe:
+                    raise ValueError(
+                        f"client {c} produced more than steps_per_epoch={spe} batches"
+                    )
+                x[c, t], y[c, t], mask[c, t] = xb, yb, mb
+                step_valid[c, t] = True
+                t += 1
+            # remaining slots of this epoch stay dummy (zeros, step_valid False)
+
+
+def pad_cohort_schedule(sched: CohortSchedule, multiple: int) -> CohortSchedule:
+    """Pad the client axis with weight-0 dummy clients to a multiple.
+
+    Dummy clients have every step masked invalid (exact no-ops) and zero
+    aggregation weight, so they change nothing but the array shape.
+    """
+    if multiple <= 1:
+        return sched
+    pad = -sched.num_clients % multiple
+    if pad == 0:
+        return sched
+
+    def pad_clients(a: np.ndarray) -> np.ndarray:
+        return np.concatenate([a, np.zeros((pad, *a.shape[1:]), dtype=a.dtype)])
+
+    return CohortSchedule(
+        x=pad_clients(sched.x),
+        y=pad_clients(sched.y),
+        mask=pad_clients(sched.mask),
+        step_valid=pad_clients(sched.step_valid),
+        weights=pad_clients(sched.weights),
+        steps_per_epoch=sched.steps_per_epoch,
+        local_epochs=sched.local_epochs,
+    )
 
 
 @dataclasses.dataclass

@@ -10,7 +10,8 @@ Five model settings (paper section 6):
 
 plus the section 6.2 ablations (quality-greedy / data-greedy).  Every
 federated setting is a (recruitment, selection, aggregator) triple of
-specs for the ``Federation`` facade (``policies_for``).
+specs for the ``Federation`` facade (``policies_for``).  ``run_paper_scale``
+runs the five settings at 189 clients on both engines.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import torch
 
 from repro_torch.core.recruitment import DATA_GREEDY, QUALITY_GREEDY
 from repro_torch.data.pipeline import ArrayDataset, build_client_datasets, global_dataset
-from repro_torch.data.synth_eicu import Cohort, CohortConfig, generate_cohort
+from repro_torch.data.synth_eicu import NUM_HOSPITALS, Cohort, CohortConfig, generate_cohort
 from repro_torch.device import resolve_device
 from repro_torch.federated.api import Federation, FederationConfig
+from repro_torch.federated.cohort import CohortTrainer, client_generators
 from repro_torch.federated.central import CentralConfig, train_central
 from repro_torch.metrics.regression import evaluate_predictions
 from repro_torch.models.gru import GRUConfig, gru_apply, init_gru, make_loss_fn
@@ -57,8 +59,13 @@ class ExperimentConfig:
     gamma_dv: float = 0.5
     gamma_sa: float = 0.5
     gamma_th: float = 0.1
-    # Federated training engine; only "sequential" is ported so far.
-    engine: str = "sequential"
+    # Federated training engine: "vectorized" (batched steps over a chunk of
+    # clients) or "sequential" (one client at a time).
+    engine: str = "vectorized"
+    # Vectorized engine: clients per batched step (None = whole cohort).
+    cohort_chunk: int | None = None
+    # Vectorized engine: in-place accumulator, staged chunks released early.
+    donate_buffers: bool = True
     # Policy overrides for the Federation facade (None = the paper's sampling).
     selection: Any = None
     aggregator: Any = "fedavg"
@@ -135,6 +142,8 @@ def run_setting(
             recruited=None,
             engine=None,
             round_times_s=None,
+            cohort_stats=None,
+            cohort_steps=None,
         )
     else:
         fed_cfg = FederationConfig(
@@ -144,11 +153,23 @@ def run_setting(
             **policies_for(setting, exp),
             seed=seed,
             engine=exp.engine,
+            cohort_chunk=exp.cohort_chunk,
+            donate_buffers=exp.donate_buffers,
         )
         federation = Federation(
             fed_cfg, build_client_datasets(cohort), loss_fn, optimizer, device=dev
         )
-        result = federation.run(init_params, progress=progress)
+        vectorized = federation.effective_engine == "vectorized"
+        cohort_steps = 0
+
+        def on_round(record) -> None:
+            nonlocal cohort_steps
+            if vectorized:
+                cohort_steps += federation.cohort_trainer.last_round_stats["cohort_steps"]
+            if progress is not None:
+                progress(record)
+
+        result = federation.run(init_params, progress=on_round)
         params = result.params
         summary = result.summary()
         info.update(
@@ -159,6 +180,9 @@ def run_setting(
             recruited=None if result.recruitment is None else result.recruitment.num_recruited,
             engine=federation.effective_engine,
             round_times_s=[r.wall_time_s for r in result.history],
+            cohort_stats=federation.cohort_trainer.last_round_stats,
+            # Batched steps the vectorized engine ran, over all rounds and chunks.
+            cohort_steps=cohort_steps if vectorized else None,
             comm={k: summary[k] for k in ("params_down", "params_up", "bytes_transferred")},
             epsilon=summary["epsilon"],
         )
@@ -177,6 +201,143 @@ def _predict(params, model_cfg: GRUConfig, dataset: ArrayDataset, batch: int = 2
         x = torch.from_numpy(np.ascontiguousarray(dataset.x[start : start + batch])).to(dev)
         outs.append(gru_apply(params, model_cfg, x).cpu().numpy())
     return np.concatenate(outs)
+
+
+def paper_scale_cohort_config(total_stays: int = 189 * 23) -> CohortConfig:
+    """A 189-hospital cohort with ~23 stays each.
+
+    The scale the engines care about is the client count, so this keeps all
+    189 hospitals and shrinks each one's data: the many-small-hospitals
+    regime the vectorized engine is for.  The split is hospital-stratified,
+    so every client survives the ``min_train=2`` cut and has the same local
+    train size (the schedule's step axis is every client's real step count).
+    """
+    num = NUM_HOSPITALS
+    return CohortConfig(
+        total_stays=max(total_stays, num * 8),
+        min_hospital_size=max(total_stays // num, 8),
+        split_mode="stratified",
+    )
+
+
+PAPER_SCALE_SETTINGS = (
+    "central",
+    "federated-ac",
+    "federated-sc",
+    "federated-arc",
+    "federated-src",
+)
+
+
+def _mean_round_time(info: dict[str, Any]) -> float:
+    """Steady-state seconds per round: drop round 0 (it pays the first
+    build and allocations) and take the median."""
+    times = info.get("round_times_s")
+    if not times:
+        return float(info["tau_s"])
+    return float(np.median(times[1:] if len(times) > 1 else times))
+
+
+def run_paper_scale(
+    *,
+    rounds: int = 3,
+    local_epochs: int = 1,
+    batch_size: int = 4,
+    seed: int = 0,
+    total_stays: int = 189 * 23,
+    engines: tuple[str, ...] = ("vectorized", "sequential"),
+    settings: tuple[str, ...] = PAPER_SCALE_SETTINGS,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """The paper's five settings at 189 clients, each federated one on every engine.
+
+    Records each setting's steady-state round time (central: time per
+    epoch), test metrics and the vectorized engine's round stats.  A
+    donation probe runs one all-clients round in two chunks with donation
+    on and off and records both rounds' stats; ``peak_device_bytes`` is
+    None on the CPU.  ``device`` defaults to the card.
+    """
+    dev = resolve_device(device)
+    cohort_cfg = paper_scale_cohort_config(total_stays=total_stays)
+    cohort = generate_cohort(cohort_cfg, seed=seed)
+    clients = build_client_datasets(cohort)
+    base = ExperimentConfig(
+        rounds=rounds,
+        local_epochs=local_epochs,
+        central_epochs=rounds * local_epochs,
+        batch_size=batch_size,
+        device=str(dev),
+    )
+
+    report: dict[str, Any] = {}
+    for setting in settings:
+        row: dict[str, Any] = {}
+        setting_engines = ("vectorized",) if setting == "central" else engines
+        for engine in setting_engines:
+            exp = dataclasses.replace(base, engine=engine)
+            out = run_setting(setting, exp, cohort, seed=seed)
+            if setting == "central":
+                # central has no rounds; its comparable unit is one epoch
+                unit_time = out["tau_s"] / max(base.central_epochs, 1)
+                time_unit = "epoch"
+            else:
+                unit_time = _mean_round_time(out)
+                time_unit = "round"
+            entry = {
+                "tau_s": out["tau_s"],
+                "round_time_s": unit_time,
+                "time_unit": time_unit,
+                "metrics": out["metrics"],
+                "local_steps": out["local_steps"],
+                "federation_size": out["federation_size"],
+                "recruited": out["recruited"],
+                "cohort_stats": out.get("cohort_stats"),
+            }
+            row["n/a" if setting == "central" else engine] = entry
+            if verbose:
+                print(
+                    f"  [paper189 {setting}/{engine}] round={entry['round_time_s']:.3f}s "
+                    f"tau={out['tau_s']:.1f}s msle={out['metrics']['msle']:.4f}",
+                    flush=True,
+                )
+        if setting != "central" and {"vectorized", "sequential"} <= set(row):
+            row["speedup"] = row["sequential"]["round_time_s"] / row["vectorized"]["round_time_s"]
+        report[setting] = row
+
+    # Donation probe: one all-participants round, donated against plain buffers.
+    model_cfg = GRUConfig()
+    loss_fn = make_loss_fn(model_cfg)
+    memory: dict[str, Any] = {}
+    for donate in (True, False):
+        trainer = CohortTrainer(
+            loss_fn=loss_fn,
+            optimizer=AdamW(learning_rate=base.learning_rate, weight_decay=base.weight_decay),
+            batch_size=batch_size,
+            local_epochs=local_epochs,
+            cohort_chunk=max(1, (len(clients) + 1) // 2),  # 2 chunks: cross-chunk peak
+            donate=donate,
+            device=dev,
+        )
+        params = init_gru(torch.Generator().manual_seed(seed), model_cfg, dev)
+        generators = client_generators(np.random.default_rng([seed, 2]), len(clients), dev)
+        trainer.train_cohort(params, clients, np.random.default_rng(seed), generators)
+        memory["donated" if donate else "plain"] = trainer.last_round_stats
+    peaks = [memory[k]["peak_device_bytes"] for k in ("donated", "plain")]
+    memory["donated_peak_lower"] = None if None in peaks else peaks[0] < peaks[1]
+
+    return {
+        "bench": "paper189",
+        "num_clients": len(clients),
+        "rounds": rounds,
+        "local_epochs": local_epochs,
+        "batch_size": batch_size,
+        "total_stays": cohort_cfg.total_stays,
+        "seed": seed,
+        "device": str(dev),
+        "settings": report,
+        "memory": memory,
+    }
 
 
 def run_seeds(

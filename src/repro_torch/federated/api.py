@@ -1,7 +1,9 @@
 """Composable federation API: pluggable recruitment / selection / aggregation.
 
-The port of the JAX package's ``federated/api.py`` for the sequential engine.
-Three stages are the extension points of the runtime:
+The port of the JAX package's ``federated/api.py``, on both engines:
+``"vectorized"`` (the default, ``federated/cohort.py::CohortTrainer``) and
+``"sequential"`` (``federated/client.py::LocalTrainer``).  Three stages
+are the extension points of the runtime:
 
 * ``RecruitmentPolicy`` — who joins the federation, decided once before
   round one from the disclosure tuples ``(P_co, n_c)``.  Built-ins:
@@ -21,8 +23,11 @@ Seeded replay: a run is a function of ``FederationConfig.seed``.  The
 recruitment generator is ``default_rng([seed, 1])``, the shared batch-plan
 generator ``default_rng(seed)`` (consumed client-major by selection and
 ``padded_batches``, exactly as in the reference, so participants and batch
-order match it), and a ``torch.Generator`` seeded with ``seed`` on the
-training device draws dropout masks.
+order match it), and the dropout generators come from
+``default_rng([seed, 2])``: each round draws one seed per participant, in
+participant order, and seeds a ``torch.Generator`` on the training device
+with it (``cohort.client_generators``).  Both engines train client ``i`` of
+a round with the same generator, so they draw identical masks.
 """
 
 from __future__ import annotations
@@ -43,14 +48,15 @@ from repro_torch.core.recruitment import (
     preset_recruitment,
     recruit,
 )
-from repro_torch.data.pipeline import ClientDataset
+from repro_torch.data.pipeline import ClientDataset, cohort_steps_per_epoch
 from repro_torch.federated.client import LocalTrainer
+from repro_torch.federated.cohort import CohortTrainer, client_generators
 from repro_torch.federated.fedavg import aggregate_stacked, params_nbytes, stack_trees
 from repro_torch.federated.selection import round_robin_clients, select_clients
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
-ENGINES = ("sequential",)
+ENGINES = ("vectorized", "sequential")
 
 
 # ---------------------------------------------------------------------------
@@ -460,15 +466,17 @@ class FederationConfig:
     selection: str | SelectionPolicy = "uniform"
     aggregator: str | Aggregator = "fedavg"
     seed: int = 0
-    # Only the per-client engine is ported; the vectorized cohort engine is
-    # a later slice.
-    engine: str = "sequential"
+    # "vectorized" (batched steps over a chunk of clients) or "sequential"
+    # (one client at a time).
+    engine: str = "vectorized"
+    # Vectorized engine: clients per batched step (None = the whole cohort).
+    cohort_chunk: int | None = None
+    # Vectorized engine: in-place accumulator, staged chunks released early.
+    donate_buffers: bool = True
 
     def __post_init__(self) -> None:
         if self.engine not in ENGINES:
-            raise NotImplementedError(
-                f"engine {self.engine!r} is not ported yet; the port runs {ENGINES}"
-            )
+            raise ValueError(f"unknown engine {self.engine!r}; choose from {ENGINES}")
 
 
 class Federation:
@@ -505,6 +513,15 @@ class Federation:
             device=device,
         )
         self.device = self.trainer.device
+        self.cohort_trainer = CohortTrainer(
+            loss_fn=loss_fn,
+            optimizer=optimizer,
+            batch_size=config.batch_size,
+            local_epochs=config.local_epochs,
+            cohort_chunk=config.cohort_chunk,
+            donate=config.donate_buffers,
+            device=self.device,
+        )
 
     @property
     def effective_engine(self) -> str:
@@ -532,13 +549,17 @@ class Federation:
     # -- stages 3+4: train + aggregate --------------------------------------
 
     def _train_round(
-        self, params: PyTree, participants: np.ndarray, rng, generator
+        self, params: PyTree, participants: np.ndarray, rng, generators, spe: int
     ) -> tuple[PyTree, np.ndarray, int]:
-        """Train every participant in turn, then FedAvg-reduce once (the
-        ``"reduced"`` mode: the engine's reduction is the aggregation)."""
+        """train -> aggregate for one round (the ``"reduced"`` mode: the
+        engine's weighted FedAvg reduction is the aggregation)."""
+        cohort = [self.all_clients[int(cid)] for cid in participants]
+        if self.config.engine == "vectorized":
+            return self.cohort_trainer.train_cohort(
+                params, cohort, rng, generators, steps_per_epoch=spe
+            )
         client_params, weights, losses, steps = [], [], [], 0
-        for cid in participants:
-            client = self.all_clients[int(cid)]
+        for client, generator in zip(cohort, generators):
             new_params, loss, n_c = self.trainer.train_client(params, client, rng, generator)
             client_params.append(new_params)
             weights.append(n_c)
@@ -559,10 +580,14 @@ class Federation:
         """Run the round program; ``progress`` receives each record as it lands."""
         cfg = self.config
         rng = np.random.default_rng(cfg.seed)
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(cfg.seed)
+        generator_rng = np.random.default_rng([cfg.seed, 2])
 
         federation_ids, recruitment = self.build_federation()
+        # The vectorized schedule's step axis is the federation-wide max,
+        # whatever mix a round samples.
+        federation_spe = cohort_steps_per_epoch(
+            [self.all_clients[int(i)].n_train for i in federation_ids], cfg.batch_size
+        )
         params = tree_map(lambda p: p.detach().to(self.device), init_params)
         history: list[RoundRecord] = []
         # Communication accounting: each participant receives the full param
@@ -582,8 +607,11 @@ class Federation:
                 raise ValueError(
                     "selection must return a non-empty, strictly sorted subset of the federation"
                 )
-            # The per-client loss readback inside waits for each client's steps.
-            params, losses, steps = self._train_round(params, participants, rng, generator)
+            generators = client_generators(generator_rng, len(participants), self.device)
+            # The per-client loss readbacks inside wait for the clients' steps.
+            params, losses, steps = self._train_round(
+                params, participants, rng, generators, federation_spe
+            )
             self.selection_policy.observe(participants, losses)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # the aggregate is done too

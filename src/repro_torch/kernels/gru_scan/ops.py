@@ -3,7 +3,8 @@
 ``GRUScan`` is the port of the JAX ``gru_scan_op`` ``custom_vjp``: its
 forward saves ``(x_gates, w_hh, b_hh, h_seq)`` and its backward is the
 single reverse pass of ``gru_scan_bwd`` (the CUDA kernel on the card, the
-plain reverse loop on the CPU) with no forward recompute.
+plain reverse loop on the CPU) with no forward recompute.  ``gru_sequence``
+also takes a leading client axis, which the kernels take as it is.
 """
 
 from __future__ import annotations
@@ -27,12 +28,18 @@ class GRUScan(torch.autograd.Function):
 
 
 def gru_sequence(
-    x: torch.Tensor,       # (B, T, F)
-    w_ih: torch.Tensor,    # (F, 3N)
-    w_hh: torch.Tensor,    # (N, 3N)
-    b_ih: torch.Tensor,    # (3N,)
-    b_hh: torch.Tensor,    # (3N,)
+    x: torch.Tensor,       # (B, T, F), or (C, B, T, F) with a client axis
+    w_ih: torch.Tensor,    # (F, 3N), or (C, F, 3N)
+    w_hh: torch.Tensor,    # (N, 3N), or (C, N, 3N)
+    b_ih: torch.Tensor,    # (3N,), or (C, 3N)
+    b_hh: torch.Tensor,    # (3N,), or (C, 3N)
 ) -> torch.Tensor:
-    """Hidden sequence (B, T, N) for one GRU layer."""
+    """Hidden sequence (B, T, N) for one GRU layer, or (C, B, T, N) for C
+    clients with their own weights."""
+    if x.dim() == 4:
+        c, b, t, f = x.shape
+        # one batched product over every client's timesteps
+        x_gates = torch.bmm(x.reshape(c, b * t, f), w_ih) + b_ih.unsqueeze(1)
+        return GRUScan.apply(x_gates.reshape(c, b, t, -1), w_hh, b_hh)
     x_gates = x @ w_ih + b_ih  # one large matmul over all timesteps
     return GRUScan.apply(x_gates, w_hh, b_hh)

@@ -10,6 +10,11 @@ Params are nested dicts of tensors with the JAX pytree's keys and layouts:
 recurrence through ``gru_sequence``; the tensors' device decides between
 the CUDA kernel and its plain version, so no switch runs the card without
 the kernel.
+
+The cohort engine trains C clients in one step: every leaf then carries a
+leading client axis, ``x`` is ``(C, B, T, F)``, the loss is a ``(C,)``
+vector of per-client masked means, and dropout draws each client's mask
+from that client's own generator, as its one-client step would.
 """
 
 from __future__ import annotations
@@ -107,8 +112,15 @@ def gru_apply(
     """x: (B, T, F) -> predicted LoS (B,), strictly non-negative (eq. 2).
 
     In train mode, dropout between layers draws its masks from
-    ``generator``, which must live on ``x``'s device.
+    ``generator``, which must live on ``x``'s device.  With a client axis
+    (``x`` of (C, B, T, F), every param leaf with a leading C) the result
+    is (C, B) and ``generator`` is a sequence of C generators: client c's
+    mask comes from ``generator[c]``.  A client whose entry is None (the
+    cohort engine's padding step, whose result it discards) draws nothing
+    and keeps every unit, scaled as a kept unit is.
     """
+    if x.dim() == 4:
+        return _gru_apply_cohort(params, cfg, x, train, generator)
     h = x
     for i, layer in enumerate(params["layers"]):
         h = gru_sequence(h, layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"])
@@ -122,18 +134,49 @@ def gru_apply(
     return y_hat[:, 0]
 
 
+def _gru_apply_cohort(params, cfg: GRUConfig, x, train: bool, generators) -> torch.Tensor:
+    """``gru_apply`` over a leading client axis: (C, B, T, F) -> (C, B)."""
+    h = x
+    for i, layer in enumerate(params["layers"]):
+        h = gru_sequence(h, layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"])
+        if train and cfg.dropout > 0.0 and i < len(params["layers"]) - 1:
+            if generators is None or len(generators) != h.shape[0]:
+                raise ValueError("dropout over a client axis requires one generator per client")
+            # Each client's draw has the shape and order of its one-client step.
+            u = torch.zeros(h.shape, device=h.device, dtype=h.dtype)
+            for c, g in enumerate(generators):
+                if g is not None:
+                    u[c].uniform_(0.0, 1.0, generator=g)
+            h = torch.where(u < 1.0 - cfg.dropout, h / (1.0 - cfg.dropout), 0.0)
+    h_final = h[:, :, -1, :]
+    y_hat = torch.relu(torch.bmm(h_final, params["head"]["w"]) + params["head"]["b"].unsqueeze(1))
+    return y_hat[..., 0]
+
+
 def msle_loss(
     y: torch.Tensor, y_hat: torch.Tensor, mask: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Paper eq. (6): mean squared logarithmic error."""
+    """Paper eq. (6): mean squared logarithmic error.
+
+    For (C, B) inputs (a client axis) it is a (C,) vector, each client's
+    masked mean.
+    """
     err = (torch.log1p(y) - torch.log1p(y_hat)) ** 2
+    if y_hat.dim() == 2:
+        if mask is None:
+            return err.mean(dim=-1)
+        return (err * mask).sum(dim=-1) / torch.clamp(mask.sum(dim=-1), min=1.0)
     if mask is None:
         return err.mean()
     return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def make_loss_fn(cfg: GRUConfig):
-    """loss(params, batch=(x, y, mask), generator) for training loops."""
+    """loss(params, batch=(x, y, mask), generator) for training loops.
+
+    With a client axis in ``batch`` the loss is (C,) and ``generator`` a
+    sequence of per-client generators (None entries draw nothing).
+    """
 
     def loss_fn(params, batch, generator=None):
         x, y, mask = batch

@@ -3,9 +3,20 @@
 The JAX package's ``AdamW.init`` / ``update`` written over trees of tensors,
 with the reference's order of operations (``torch.optim.AdamW`` orders them
 differently): the update is ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``,
-with bias corrections computed in float32 and optional global-norm clipping.
-``update`` returns new moment tensors; ``apply_updates`` adds the updates to
-the params **in place** and returns the same tree.
+with bias corrections computed in float32 on the host and optional
+global-norm clipping.  ``update`` returns new moment tensors;
+``apply_updates`` adds the updates to the params **in place** and returns
+the same tree.
+
+``update_stacked`` is the same step for a client-stacked tree (every leaf
+with a leading client axis), where each client has its own step count: the
+host computes each client's coefficients with ``coefficients`` and hands
+them over as a ``(3, C)`` tensor (``cohort_coefficients`` lays them out for
+a whole round).  Both forms apply a bias correction as a product with its
+float32 reciprocal, ``m * (1 / b1c)``: CUDA divides a tensor by a host
+scalar that way but divides by a tensor exactly, so a division would round
+differently in the two forms.  With a product, each client of a stacked
+step gets the same bits as the one-client step.
 """
 
 from __future__ import annotations
@@ -21,7 +32,7 @@ from repro_torch.tree import PyTree, tree_leaves, tree_map
 
 
 class AdamWState(NamedTuple):
-    step: int      # steps taken
+    step: Any      # steps taken: an int, or a (C,) int array for a client-stacked tree
     mu: PyTree     # first moment
     nu: PyTree     # second moment
 
@@ -44,6 +55,31 @@ class AdamW:
             nu=tree_map(torch.zeros_like, params),
         )
 
+    def coefficients(self, step: int) -> tuple[float, float, float]:
+        """``(1 / b1c, 1 / b2c, -lr)`` of step ``step`` (counted from 1), in float32."""
+        f32 = np.float32
+        b1c = f32(1) - f32(self.b1) ** f32(step)
+        b2c = f32(1) - f32(self.b2) ** f32(step)
+        lr = f32(self.learning_rate)
+        if self.schedule is not None:
+            lr = lr * f32(self.schedule(step))
+        return float(f32(1) / b1c), float(f32(1) / b2c), -float(lr)
+
+    def cohort_coefficients(self, step_valid: np.ndarray) -> np.ndarray:
+        """``(C, T)`` step validity -> ``(T, 3, C)`` float32 coefficients.
+
+        Slot ``(t, :, c)`` holds ``coefficients(k)`` for client ``c``'s k-th
+        valid step; a slot that is not valid holds ``(1, 1, 0)``.
+        """
+        counts = np.cumsum(step_valid, axis=1)
+        top = int(counts.max(initial=0))
+        table = np.array(
+            [(1.0, 1.0, 0.0)] + [self.coefficients(k) for k in range(1, top + 1)],
+            dtype=np.float32,
+        )
+        index = np.where(step_valid, counts, 0)
+        return np.ascontiguousarray(table[index].transpose(1, 2, 0))
+
     @torch.no_grad()
     def update(
         self, grads: PyTree, state: AdamWState, params: PyTree
@@ -53,24 +89,52 @@ class AdamW:
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (global_norm(grads) + 1e-12), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
+        mu, nu, updates = self._step(grads, state, params, self.coefficients(step))
+        return updates, AdamWState(step=step, mu=mu, nu=nu)
 
+    @torch.no_grad()
+    def update_stacked(
+        self, grads: PyTree, state: AdamWState, params: PyTree, coefficients: torch.Tensor
+    ) -> tuple[PyTree, AdamWState]:
+        """``update`` for a client-stacked tree; ``coefficients`` is ``(3, C)``
+        on the params' device, each client's ``coefficients(step)``.
+
+        Clipping, when set, is per client.  The returned step is
+        ``state.step + 1`` for every client; the caller keeps the old state of
+        a client whose step does not count.
+        """
+        if self.clip_norm is not None:
+            c = coefficients.shape[-1]
+            norms = torch.sqrt(sum(
+                torch.sum(torch.square(g.float()).reshape(c, -1), dim=1)
+                for g in tree_leaves(grads)
+            ))
+            scale = torch.clamp(self.clip_norm / (norms + 1e-12), max=1.0)
+            grads = tree_map(lambda g: g * _per_client(scale, g), grads)
+        mu, nu, updates = self._step(grads, state, params, tuple(coefficients))
+        return updates, AdamWState(step=state.step + 1, mu=mu, nu=nu)
+
+    def _step(self, grads, state, params, coefs):
+        """New moments and the updates.  ``coefs`` is ``(1/b1c, 1/b2c, -lr)``,
+        each a float or a ``(C,)`` tensor of one value per client."""
         b1, b2 = self.b1, self.b2
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * (g * g), state.nu, grads)
-        f32 = np.float32
-        b1c = float(f32(1) - f32(b1) ** f32(step))
-        b2c = float(f32(1) - f32(b2) ** f32(step))
-        lr = f32(self.learning_rate)
-        if self.schedule is not None:
-            lr = lr * f32(self.schedule(step))
-        neg_lr = -float(lr)
 
         def _update(m, v, p):
-            adam = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+            inv_b1c, inv_b2c, neg_lr = (_per_client(k, p) for k in coefs)
+            adam = (m * inv_b1c) / (torch.sqrt(v * inv_b2c) + self.eps)
             return (neg_lr * (adam + self.weight_decay * p)).to(p.dtype)
 
-        updates = tree_map(_update, mu, nu, params)
-        return updates, AdamWState(step=step, mu=mu, nu=nu)
+        return mu, nu, tree_map(_update, mu, nu, params)
+
+
+def _per_client(k, like: torch.Tensor):
+    """A float as is; a ``(C,)`` tensor shaped to broadcast over ``like``'s
+    non-client axes."""
+    if isinstance(k, float):
+        return k
+    return k.view(k.shape[0], *([1] * (like.dim() - 1)))
 
 
 @torch.no_grad()

@@ -13,6 +13,10 @@ ssd_chunk_scan and ssd_chunk_scan_bwd, and each of their stages against its
 plain stage in ref.py, 1e-4 times max(1, max|ref|), as sums over up to L*N
 and L*P products (and, for dB and dC, over the heads) taken in another
 order, on the tensor cores in 3xTF32.
+
+The cohort engine's batched step: a client's loss and gradients do not
+depend on how many other clients share its step (C >= 2), bit for bit,
+which is what lets a chunked round give the unchunked round's params.
 """
 
 import numpy as np
@@ -373,3 +377,30 @@ def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda):
         if bool(settled.any()):
             assert float(gap[settled].max()) <= 1e-4
         assert float(gap.max()) <= 2 * opt.learning_rate + 1e-4
+
+
+@pytest.mark.parametrize("c", [2, 3, 4, 8])
+def test_cohort_step_does_not_depend_on_the_chunk_size(cuda, c):
+    from repro_torch.models import gru
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = gru.GRUConfig()
+    params = gru.init_gru(torch.Generator().manual_seed(0), cfg, cuda)
+    rng = np.random.default_rng(0)
+    full = 16
+    x = torch.tensor(rng.normal(size=(full, 128, 24, 38)), dtype=torch.float32, device=cuda)
+    y = torch.tensor(rng.uniform(0.5, 20, size=(full, 128)), dtype=torch.float32, device=cuda)
+    mask = torch.ones(full, 128, device=cuda)
+    stacked = tree_map(lambda p: torch.stack([p + 0.01 * i for i in range(full)]), params)
+    loss_fn = gru.make_loss_fn(cfg)
+
+    def step(k):
+        p = tree_map(lambda q: q[:k].clone().requires_grad_(True), stacked)
+        gens = [torch.Generator(device=cuda).manual_seed(i) for i in range(k)]
+        loss = loss_fn(p, (x[:k], y[:k], mask[:k]), gens)
+        return loss, torch.autograd.grad(loss.sum(), tree_leaves(p))
+
+    loss_all, grads_all = step(full)
+    loss, grads = step(c)
+    assert torch.equal(loss, loss_all[:c])
+    assert all(torch.equal(g, a[:c]) for g, a in zip(grads, grads_all))

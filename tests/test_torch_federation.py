@@ -100,7 +100,8 @@ def test_federation_matches_jax(cohorts, init_params, setting):
         jax_clients(jax_cohort), jax_gru.make_loss_fn(JCFG), JaxAdamW(),
     ).run(init_params)
     got = Federation(
-        FederationConfig(rounds=2, local_epochs=1, batch_size=8, seed=1, **policies),
+        FederationConfig(rounds=2, local_epochs=1, batch_size=8, seed=1, engine="sequential",
+                         **policies),
         build_client_datasets(cohort), gru.make_loss_fn(TCFG), AdamW(), device="cpu",
     ).run(gru.params_from_jax(init_params, "cpu"))
 

@@ -218,11 +218,14 @@ def test_resolve_device_takes_the_cpu_only_when_asked():
 def test_unported_options_say_so():
     from repro_torch.federated.api import FederationConfig, resolve_recruitment, resolve_selection
     from repro_torch.federated.client import LocalTrainer
+    from repro_torch.federated.cohort import CohortTrainer
     from repro_torch.models.gru import GRUConfig, make_loss_fn
     from repro_torch.optim.adamw import AdamW
 
-    with pytest.raises(NotImplementedError, match="vectorized"):
-        FederationConfig(engine="vectorized")
+    with pytest.raises(NotImplementedError, match="resident"):
+        CohortTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, staging="resident", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        FederationConfig(engine="warp-drive")
     with pytest.raises(NotImplementedError, match="privacy"):
         LocalTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, device="cpu", dp=object())
     with pytest.raises(ValueError, match="did you mean 'nu-greedy'"):
