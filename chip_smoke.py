@@ -32,7 +32,8 @@ exit code and no result line:
              kernels against its plain stage; runs compared bit for bit;
              then the same times.
 4. parity  — a small federation trained on the card (default, vectorized
-             engine, dropout 0) against the same one trained on the CPU
+             engine, resident staging, dropout 0) against the same one trained
+             on the CPU
              through the plain versions; on the card, with dropout 0.05, the
              vectorized engine against the sequential one and a chunked
              cohort against an unchunked one.
@@ -70,17 +71,30 @@ exit code and no result line:
              it, and the SSD kernels' shares of device time.
 13. cohort slice — federated-arc at full width on the full cohort (35
              recruited clients, all participating, 4 local epochs, one
-             chunk), 2 rounds on each engine: round time, real client-steps
-             per second, batched steps, bytes staged, peak memory, exact
-             launch counts, both engines' test MSLE (within 1e-4 of each
-             other) and their largest param difference.
+             chunk), 2 rounds on three paths from one init: resident staging
+             (the default), rebuild staging and the sequential engine: round
+             time, real client-steps per second, batched steps, bytes staged
+             and resident, staging seconds, the resident cohort's attach
+             time, peak memory, exact launch counts; resident and rebuild
+             params bit for bit equal, a resident round under 10 MB staged,
+             the resident and sequential test MSLE within 1e-4.
 14. paper scale — ``run_paper_scale(rounds=3, local_epochs=1, batch_size=4)``:
              189 clients of ~23 stays, the five settings on both engines,
              round times, speedups and the donation probe.
 15. cohort profile — one vectorized federated-arc round under
-             torch.profiler: device busy time (copies and kernels) and idle
-             share, kernels, and the GRU kernels' shares of device and of
-             kernel time.
+             torch.profiler, rebuild staging then resident: device busy time
+             (copies and kernels) and idle share, kernels a batched step,
+             and the GRU kernels' shares of device and of kernel time.
+16. cohort variants — one federated-arc round at full width from one
+             init: unchunked, chunks of 12 with prefetch on and off (the
+             same bits; prefetch engaged), chunks of 17 (17, 17, 1), and
+             ``hierarchical:4``; each within 1e-6 of the unchunked round.
+17. trimmed mean — federated-src, one round with ``trimmed-mean:0.1``
+             (the per-client trainer): finite metrics, exact launches.
+18. staging comparison — ``run_staging_comparison`` at its defaults
+             (189 clients, hidden 8, four staging variants): round times,
+             bytes, the byte ratio (at least 10) and the variants' largest
+             param difference (at most 1e-4).
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -105,8 +119,9 @@ DX_TOL = 1e-5
 DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in another order
 PARITY_TOL = 1e-4
 ENGINE_LOSS_TOL = 1e-5       # the engines' round losses (phase 4)
-CHUNK_TOL = 1e-6             # chunked against unchunked params (phase 4)
+CHUNK_TOL = 1e-6             # chunked, prefetched, hierarchical against one chunk (phases 4, 16)
 ARC_MSLE_TOL = 1e-4          # the engines' test MSLE on federated-arc (phase 13)
+MAX_RESIDENT_STAGED = 10_000_000   # bytes a resident arc round may stage (phase 13)
 SSD_TOL = 1e-4               # times max(1, max|ref|): sums of up to L*N and L*P products in another order
 MAMBA_TOL = 1e-4             # 24 float32 layers, card against CPU: times max(1, max|ref|), a gradient leaf times its own max|ref|
 DECAY_GRAD_TOL = 1e-3        # times its own max|ref|: the A_log and dt_bias leaves (phase 10)
@@ -204,7 +219,7 @@ def main() -> int:
     del train_step
     torch.cuda.empty_cache()
 
-    # -- 13. the cohort slice: federated-arc at full width, both engines ------
+    # -- 13. the cohort slice: federated-arc at full width, three paths -------
     for kernel, n in run_cohort_slice(torch, K, cohort).items():
         launches[kernel] += n
 
@@ -212,8 +227,17 @@ def main() -> int:
     for kernel, n in run_paper_scale_phase(torch, K).items():
         launches[kernel] += n
 
-    # -- 15. where a vectorized round's time goes ------------------------------
-    profile_cohort_round(torch, cohort)
+    # -- 15. where a vectorized round's time goes, rebuild then resident -------
+    for staging in ("rebuild", "resident"):
+        profile_cohort_round(torch, cohort, staging)
+
+    # -- 16-17. chunks and prefetch; hierarchical and trimmed-mean -------------
+    for kernel, n in run_chunk_and_aggregator_phase(torch, K, cohort).items():
+        launches[kernel] += n
+
+    # -- 18. the staging comparison --------------------------------------------
+    for kernel, n in run_staging_comparison_phase(torch, K).items():
+        launches[kernel] += n
 
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
@@ -1433,80 +1457,119 @@ def profile_training(torch, train_step) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_cohort_slice(torch, K, cohort) -> dict[str, int]:
-    """federated-arc on the full cohort, 2 rounds x 4 local epochs, every
-    recruited client in every round, one chunk; each engine from the same
-    init, with its launches counted from 0 over its run and its predictions."""
-    from repro_torch.data.pipeline import build_client_datasets, global_dataset
-    from repro_torch.data.synth_eicu import Cohort
-    from repro_torch.experiments.paper import ExperimentConfig, _predict, policies_for
+def arc_federation(torch, cohort, exp, **config):
+    """federated-arc on the full cohort at full width: the paper's model and
+    optimizer, every recruited client in every round, seed 0."""
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.experiments.paper import policies_for
     from repro_torch.federated.api import Federation, FederationConfig
-    from repro_torch.metrics.regression import evaluate_predictions
-    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.models.gru import GRUConfig, make_loss_fn
     from repro_torch.optim.adamw import AdamW
 
+    config = {**policies_for("federated-arc", exp), **config}
+    return Federation(
+        FederationConfig(rounds=exp.rounds, local_epochs=exp.local_epochs,
+                         batch_size=exp.batch_size, seed=0, **config),
+        build_client_datasets(cohort), make_loss_fn(GRUConfig()),
+        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda",
+    )
+
+
+def run_federation(torch, K, fed):
+    """``fed.run`` from the seed-0 init with the GRU counts set to 0 just
+    before: the result, each round's cohort stats (None on the per-client
+    trainer) and the launches."""
+    from repro_torch.models.gru import GRUConfig, init_gru
+
+    stats = []
+
+    def on_round(record):
+        if fed.effective_engine == "vectorized":
+            stats.append(dict(fed.cohort_trainer.last_round_stats))
+
+    params0 = init_gru(torch.Generator().manual_seed(0), GRUConfig(), "cuda")
+    torch.cuda.synchronize()
+    reset_gru_counts(K)
+    result = fed.run(params0, progress=on_round)
+    return result, stats or None, gru_counts(K)
+
+
+def cohort_fields(fed, result, stats) -> dict:
+    """What a cohort phase prints of a federated-arc run."""
+    rounds = result.history
+    dc = fed.cohort_trainer.device_cohort
+    field = (lambda key: [st[key] for st in stats]) if stats else (lambda key: None)
+    return dict(
+        federation_size=int(result.federation_ids.size),
+        participants=[len(r.participant_ids) for r in rounds],
+        round_times_s=[r.round_time_s for r in rounds],
+        local_steps=result.total_local_steps,
+        client_steps_per_s=result.total_local_steps / sum(r.round_time_s for r in rounds),
+        mean_local_loss=[r.mean_local_loss for r in rounds],
+        attach_seconds=dc.attach_seconds if dc is not None else None,
+        **{key: field(key) for key in (
+            "staging", "chunks", "cohort_steps", "bytes_staged", "stage_seconds",
+            "bytes_resident", "peak_device_bytes", "plans_prefetched", "slice_chunks")},
+    )
+
+
+def run_cohort_slice(torch, K, cohort) -> dict[str, int]:
+    """federated-arc on the full cohort, 2 rounds x 4 local epochs, every
+    recruited client in every round, one chunk, on three paths from the same
+    init: resident staging (the default), rebuild staging and the sequential
+    engine; each with its launches counted from 0 over its run and its
+    predictions."""
+    from repro_torch.data.pipeline import build_client_datasets, global_dataset
+    from repro_torch.data.synth_eicu import Cohort
+    from repro_torch.experiments.paper import ExperimentConfig, _predict
+    from repro_torch.metrics.regression import evaluate_predictions
+    from repro_torch.models.gru import GRUConfig
+
     exp = ExperimentConfig(rounds=2, local_epochs=4)
-    clients = build_client_datasets(cohort)
-    sizes = {c.client_id: c.n_train for c in clients}
+    sizes = {c.client_id: c.n_train for c in build_client_datasets(cohort)}
     test = global_dataset(cohort, Cohort.TEST)
     predict_batches = math.ceil(len(test) / 2048)
-    model_cfg = GRUConfig()
     total = {"gru_scan": 0, "gru_scan_bwd": 0}
     outs = {}
-    for engine in ("vectorized", "sequential"):
-        fed = Federation(
-            FederationConfig(rounds=exp.rounds, local_epochs=exp.local_epochs,
-                             batch_size=exp.batch_size, **policies_for("federated-arc", exp),
-                             seed=0, engine=engine),
-            clients, make_loss_fn(model_cfg), AdamW(exp.learning_rate,
-                                                    weight_decay=exp.weight_decay),
-            device="cuda",
-        )
-        stats = []
-
-        def on_round(record, fed=fed, engine=engine):
-            if engine == "vectorized":
-                stats.append(dict(fed.cohort_trainer.last_round_stats))
-
-        params0 = init_gru(torch.Generator().manual_seed(0), model_cfg, "cuda")
-        torch.cuda.synchronize()
-        reset_gru_counts(K)
-        result = fed.run(params0, progress=on_round)
-        metrics = evaluate_predictions(test.y, _predict(result.params, model_cfg, test))
+    paths = {"resident": {}, "rebuild": {"staging": "rebuild"},
+             "sequential": {"engine": "sequential"}}
+    for path, config in paths.items():
+        fed = arc_federation(torch, cohort, exp, **config)
+        result, stats, _ = run_federation(torch, K, fed)
+        metrics = evaluate_predictions(test.y, _predict(result.params, GRUConfig(), test))
         counts = gru_counts(K)
         rounds = result.history
-        round_s = sum(r.round_time_s for r in rounds)
         steps = sum(st["cohort_steps"] for st in stats) if stats else result.total_local_steps
-        emit(phase="cohort_slice", setting="federated-arc", engine=engine,
-             federation_size=int(result.federation_ids.size),
-             participants=[len(r.participant_ids) for r in rounds],
-             round_times_s=[r.round_time_s for r in rounds],
-             local_steps=result.total_local_steps,
-             client_steps_per_s=result.total_local_steps / round_s,
-             cohort_steps=[st["cohort_steps"] for st in stats] or None,
-             bytes_staged=[st["bytes_staged"] for st in stats] or None,
-             stage_seconds=[st["stage_seconds"] for st in stats] or None,
-             peak_device_bytes=[st["peak_device_bytes"] for st in stats] or None,
-             mean_local_loss=[r.mean_local_loss for r in rounds], metrics=metrics,
-             launches=counts)
+        emit(phase="cohort_slice", setting="federated-arc", path=path,
+             engine=fed.effective_engine, **cohort_fields(fed, result, stats),
+             metrics=metrics, launches=counts)
         require(all(math.isfinite(v) for v in metrics.values()),
-                f"federated-arc ({engine}): metrics not finite: {metrics}")
+                f"federated-arc ({path}): metrics not finite: {metrics}")
         require(all(len(r.participant_ids) == result.federation_ids.size for r in rounds),
                 "federated-arc: not every recruited client participated")
-        if engine == "vectorized":
+        if stats:
             want = schedule_steps(rounds, sizes, exp.batch_size, exp.local_epochs)
             require(steps == want, f"federated-arc batched steps {steps}, the schedules give {want}")
-        check_launches(f"federated-arc ({engine})", counts, steps, predict_batches)
+            require(all(st["staging"] == path for st in stats), f"{path}: staged {stats}")
+        if path == "resident":
+            staged = [st["bytes_staged"] for st in stats]
+            require(max(staged) < MAX_RESIDENT_STAGED,
+                    f"a resident arc round staged {staged} bytes")
+        check_launches(f"federated-arc ({path})", counts, steps, predict_batches)
         total = {k: total[k] + counts[k] for k in total}
-        outs[engine] = (result, metrics)
+        outs[path] = (result, metrics)
         del fed, result
         torch.cuda.empty_cache()
 
     msle = {k: m["msle"] for k, (_, m) in outs.items()}
-    diff = param_diff(outs["vectorized"][0].params, outs["sequential"][0].params)
-    emit(phase="cohort_slice_parity", msle=msle, max_param_diff=diff,
+    staging_diff = param_diff(outs["resident"][0].params, outs["rebuild"][0].params)
+    engine_diff = param_diff(outs["resident"][0].params, outs["sequential"][0].params)
+    emit(phase="cohort_slice_parity", msle=msle, resident_rebuild_max_param_diff=staging_diff,
+         max_param_diff=engine_diff,
          local_steps={k: r.total_local_steps for k, (r, _) in outs.items()})
-    require(abs(msle["vectorized"] - msle["sequential"]) <= ARC_MSLE_TOL,
+    require(staging_diff == 0.0,
+            f"federated-arc: resident and rebuild params differ by {staging_diff}")
+    require(abs(msle["resident"] - msle["sequential"]) <= ARC_MSLE_TOL,
             f"federated-arc: the engines' test MSLE differ: {msle}")
     return total
 
@@ -1544,11 +1607,13 @@ def run_paper_scale_phase(torch, K) -> dict[str, int]:
     return counts
 
 
-def profile_cohort_round(torch, cohort) -> None:
+def profile_cohort_round(torch, cohort, staging: str) -> None:
     """One vectorized federated-arc round (35 clients, 4 local epochs, one
-    chunk) under torch.profiler, after one unprofiled round: wall time,
-    device busy time and idle share, kernels, the GRU kernels' shares."""
+    chunk) with ``staging`` under torch.profiler, after one unprofiled round
+    (which attaches the resident cohort): wall time, device busy time and
+    idle share, kernels a batched step, copy time, the GRU kernels' shares."""
     import numpy as np
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import build_client_datasets, cohort_steps_per_epoch
@@ -1561,7 +1626,8 @@ def profile_cohort_round(torch, cohort) -> None:
     cfg = GRUConfig()
     exp = ExperimentConfig()
     clients = build_client_datasets(cohort)
-    fed = Federation(FederationConfig(**policies_for("federated-arc", exp), seed=0),
+    fed = Federation(FederationConfig(**policies_for("federated-arc", exp), seed=0,
+                                      staging=staging),
                      clients, make_loss_fn(cfg), AdamW(), device="cuda")
     ids, _ = fed.build_federation()
     arc = [fed.all_clients[int(i)] for i in ids]
@@ -1583,6 +1649,8 @@ def profile_cohort_round(torch, cohort) -> None:
         wall_s = time.perf_counter() - t0
     stats = trainer.last_round_stats
     by_name, count = device_times(prof)
+    copies = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and e.name.startswith(("Memcpy", "Memset")))
     device_s = sum(by_name.values()) / 1e6
     copy_s = sum(us for name, us in by_name.items() if name.startswith("Memcpy")) / 1e6
     kernel_s = device_s - copy_s
@@ -1591,19 +1659,110 @@ def profile_cohort_round(torch, cohort) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     share = (lambda us: us / 1e6 / device_s) if device_s > 0 else (lambda us: None)
     kernel_share = (lambda us: us / 1e6 / kernel_s) if kernel_s > 0 else (lambda us: None)
-    emit(phase="cohort_profile", setting="federated-arc", clients=len(arc),
+    steps = stats["cohort_steps"]
+    emit(phase="cohort_profile", setting="federated-arc", staging=staging, clients=len(arc),
          device_copy_s=copy_s, device_kernel_s=kernel_s,
          gru_scan_share_of_kernels=kernel_share(gru_us["fwd"]),
          gru_scan_bwd_share_of_kernels=kernel_share(gru_us["bwd"]),
-         cohort_steps=stats["cohort_steps"], bytes_staged=stats["bytes_staged"],
-         stage_seconds=stats["stage_seconds"], wall_s=wall_s,
-         step_ms=wall_s / stats["cohort_steps"] * 1e3,
+         cohort_steps=steps, bytes_staged=stats["bytes_staged"],
+         bytes_resident=stats["bytes_resident"], stage_seconds=stats["stage_seconds"],
+         peak_device_bytes=stats["peak_device_bytes"], wall_s=wall_s,
+         step_ms=wall_s / steps * 1e3,
          device_busy_s=device_s if device_s > 0 else None,
          device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
-         kernels_launched=count, gru_scan_us=gru_us["fwd"], gru_scan_bwd_us=gru_us["bwd"],
+         kernels_launched=count, device_ops_per_step=count / steps,
+         kernels_per_step=(count - copies) / steps, copies=copies,
+         gru_scan_us=gru_us["fwd"], gru_scan_bwd_us=gru_us["bwd"],
          gru_scan_share_of_device=share(gru_us["fwd"]),
          gru_scan_bwd_share_of_device=share(gru_us["bwd"]),
          top_device_us={name[:80]: us for name, us in top})
+    del fed, trainer
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 16-18: chunks and prefetch, the grouped and stacked aggregators, the
+# staging comparison
+# ---------------------------------------------------------------------------
+
+
+def run_chunk_and_aggregator_phase(torch, K, cohort) -> dict[str, int]:
+    """One federated-arc round at full width from one init: unchunked,
+    chunks of 12 with prefetch on and off, chunks of 17 (17, 17 and 1
+    client), and ``hierarchical:4`` (four engine rounds); then
+    federated-src with ``trimmed-mean:0.1`` (the per-client trainer)."""
+    from repro_torch.data.pipeline import global_dataset
+    from repro_torch.data.synth_eicu import Cohort
+    from repro_torch.experiments.paper import ExperimentConfig, run_setting
+
+    exp = ExperimentConfig(rounds=1, local_epochs=4)
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    runs = {}
+    variants = {
+        "whole": {},
+        "chunk12": {"cohort_chunk": 12},
+        "chunk12-noprefetch": {"cohort_chunk": 12, "prefetch": False},
+        "chunk17": {"cohort_chunk": 17},
+        "hierarchical:4": {"aggregator": "hierarchical:4"},
+    }
+    for name, config in variants.items():
+        fed = arc_federation(torch, cohort, exp, **config)
+        result, stats, counts = run_federation(torch, K, fed)
+        emit(phase="cohort_variant", setting="federated-arc", variant=name,
+             **cohort_fields(fed, result, stats), launches=counts)
+        if name != "hierarchical:4":
+            # Each chunk is one round of the cohort engine: 2 + 2 launches a step.
+            check_launches(f"federated-arc ({name})", counts, stats[0]["cohort_steps"], 0)
+        require(all(math.isfinite(r.mean_local_loss) for r in result.history),
+                f"{name}: a round loss is not finite")
+        total = {k: total[k] + counts[k] for k in total}
+        runs[name] = (result.params, stats[-1])
+        del fed, result
+        torch.cuda.empty_cache()
+
+    diff = {name: param_diff(runs["whole"][0], p) for name, (p, _) in runs.items()
+            if name != "whole"}
+    prefetch_diff = param_diff(runs["chunk12"][0], runs["chunk12-noprefetch"][0])
+    emit(phase="cohort_variants_parity", max_param_diff_vs_whole=diff,
+         prefetch_on_off_max_param_diff=prefetch_diff,
+         plans_prefetched={k: st["plans_prefetched"] for k, (_, st) in runs.items()})
+    require(prefetch_diff == 0.0, f"prefetch on and off differ by {prefetch_diff}")
+    require(runs["chunk12"][1]["prefetch"] and runs["chunk12"][1]["plans_prefetched"] > 0,
+            f"prefetch did not engage: {runs['chunk12'][1]}")
+    for name in ("chunk12", "chunk17", "hierarchical:4"):
+        require(diff[name] <= CHUNK_TOL, f"{name} and the unchunked round differ by {diff[name]}")
+
+    n_test = len(global_dataset(cohort, Cohort.TEST))
+    reset_gru_counts(K)
+    src = run_setting("federated-src",
+                      ExperimentConfig(rounds=1, local_epochs=4, aggregator="trimmed-mean:0.1"),
+                      cohort, seed=0)
+    counts = gru_counts(K)
+    emit(phase="trimmed_mean", setting="federated-src", engine=src["engine"],
+         participants=src["federation_size"], local_steps=src["local_steps"],
+         round_times_s=src["round_times_s"], metrics=src["metrics"], launches=counts)
+    require(src["engine"] == "sequential", f"trimmed-mean ran on {src['engine']}")
+    require(all(math.isfinite(v) for v in src["metrics"].values()),
+            f"trimmed-mean: metrics not finite: {src['metrics']}")
+    check_launches("federated-src (trimmed-mean)", counts, src["local_steps"],
+                   math.ceil(n_test / 2048))
+    return {k: total[k] + counts[k] for k in total}
+
+
+def run_staging_comparison_phase(torch, K) -> dict[str, int]:
+    """``run_staging_comparison`` at its defaults on the card."""
+    from repro_torch.experiments.paper import run_staging_comparison
+
+    reset_gru_counts(K)
+    t0 = time.perf_counter()
+    report = run_staging_comparison(verbose=False, device="cuda")
+    counts = gru_counts(K)
+    emit(phase="staging_comparison", seconds=time.perf_counter() - t0, launches=counts,
+         **report)
+    require(report["max_param_diff"] <= PARITY_TOL,
+            f"staging variants differ by {report['max_param_diff']}")
+    require(report["bytes_ratio"] >= 10.0, f"bytes ratio {report['bytes_ratio']}")
+    return counts
 
 
 if __name__ == "__main__":

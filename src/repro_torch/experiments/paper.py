@@ -11,7 +11,8 @@ Five model settings (paper section 6):
 plus the section 6.2 ablations (quality-greedy / data-greedy).  Every
 federated setting is a (recruitment, selection, aggregator) triple of
 specs for the ``Federation`` facade (``policies_for``).  ``run_paper_scale``
-runs the five settings at 189 clients on both engines.
+runs the five settings at 189 clients on both engines, and
+``run_staging_comparison`` the vectorized engine's staging variants.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from repro_torch.federated.central import CentralConfig, train_central
 from repro_torch.metrics.regression import evaluate_predictions
 from repro_torch.models.gru import GRUConfig, gru_apply, init_gru, make_loss_fn
 from repro_torch.optim.adamw import AdamW
+from repro_torch.tree import tree_leaves
 
 MODEL_SETTINGS = (
     "central",
@@ -66,6 +68,12 @@ class ExperimentConfig:
     cohort_chunk: int | None = None
     # Vectorized engine: in-place accumulator, staged chunks released early.
     donate_buffers: bool = True
+    # Vectorized engine: "resident" uploads client data once and stages int32
+    # index plans per round (batches gathered on the device); "rebuild"
+    # re-stages the whole schedule every round (the staging reference).
+    staging: str = "resident"
+    # Resident staging: build and copy the next chunk's plan while one trains.
+    prefetch: bool = True
     # Policy overrides for the Federation facade (None = the paper's sampling).
     selection: Any = None
     aggregator: Any = "fedavg"
@@ -155,6 +163,8 @@ def run_setting(
             engine=exp.engine,
             cohort_chunk=exp.cohort_chunk,
             donate_buffers=exp.donate_buffers,
+            staging=exp.staging,
+            prefetch=exp.prefetch,
         )
         federation = Federation(
             fed_cfg, build_client_datasets(cohort), loss_fn, optimizer, device=dev
@@ -338,6 +348,134 @@ def run_paper_scale(
         "settings": report,
         "memory": memory,
     }
+
+
+STAGING_VARIANTS = ("rebuild", "rebuild-chunked", "resident", "resident-noprefetch")
+
+
+def run_staging_comparison(
+    *,
+    rounds: int = 4,
+    local_epochs: int = 1,
+    batch_size: int = 32,
+    seed: int = 0,
+    total_stays: int = 189 * 64,
+    cohort_chunk: int | None = 48,
+    variants: tuple[str, ...] = STAGING_VARIANTS,
+    repeats: int = 2,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """Rebuild-per-round against device-resident staging at 189 clients.
+
+    The full 189-hospital federation trains ``rounds`` all-participant
+    rounds under each staging variant of the vectorized engine; the report
+    records each variant's steady-state round time, bytes staged per round
+    and prefetch hits, the two ratios ``speedup`` (rebuild round time over
+    resident) and ``bytes_ratio`` (rebuild bytes over resident), and
+    ``max_param_diff`` across variants, so a fast but wrong staging path
+    cannot pass unseen.  ``rebuild`` runs the whole cohort per step;
+    ``resident`` runs chunked (``cohort_chunk``) with prefetch;
+    ``rebuild-chunked`` and ``resident-noprefetch`` isolate the two terms.
+    The model is small (hidden 8, one layer): the client axis and the
+    staging path are what is measured.  ``device`` defaults to the card.
+    """
+    dev = resolve_device(device)
+    cohort_cfg = paper_scale_cohort_config(total_stays=total_stays)
+    clients = build_client_datasets(generate_cohort(cohort_cfg, seed=seed))
+    model_cfg = GRUConfig(hidden_dim=8, num_layers=1)
+    loss_fn = make_loss_fn(model_cfg)
+    params0 = init_gru(torch.Generator().manual_seed(seed), model_cfg, dev)
+    configs: dict[str, dict[str, Any]] = {
+        "rebuild": {"staging": "rebuild", "cohort_chunk": None},
+        "rebuild-chunked": {"staging": "rebuild", "cohort_chunk": cohort_chunk},
+        "resident": {"staging": "resident", "prefetch": True, "cohort_chunk": cohort_chunk},
+        "resident-noprefetch": {
+            "staging": "resident", "prefetch": False, "cohort_chunk": cohort_chunk,
+        },
+    }
+    results: dict[str, Any] = {}
+    params_by_variant: dict[str, Any] = {}
+    for variant in variants:
+        fed_cfg = FederationConfig(
+            rounds=rounds,
+            local_epochs=local_epochs,
+            batch_size=batch_size,
+            selection="uniform",  # all 189 clients, every round
+            seed=seed,
+            engine="vectorized",
+            **configs[variant],
+        )
+        # Best of ``repeats`` whole federations (the least steady-state round
+        # time); the entry's every number comes from that one run.
+        best: dict[str, Any] | None = None
+        for _ in range(max(repeats, 1)):
+            federation = Federation(
+                fed_cfg, clients, loss_fn,
+                AdamW(learning_rate=5e-3, weight_decay=5e-3), device=dev,
+            )
+            out = federation.run(params0)
+            stats = federation.cohort_trainer.last_round_stats or {}
+            round_time = _mean_round_time(
+                {"round_times_s": [r.wall_time_s for r in out.history],
+                 "tau_s": out.total_wall_time_s}
+            )
+            if best is not None and round_time >= best["round_time_s"]:
+                continue
+            best = {
+                "round_time_s": round_time,
+                "tau_s": out.total_wall_time_s,
+                "bytes_staged_per_round": stats.get("bytes_staged", 0),
+                "bytes_resident": stats.get("bytes_resident", 0),
+                "plans_prefetched": stats.get("plans_prefetched", 0),
+                "chunks": stats.get("chunks", 0),
+                "shards": stats.get("shards", 1),
+                "params": out.params,
+            }
+        entry = {k: v for k, v in best.items() if k != "params"}
+        results[variant] = entry
+        params_by_variant[variant] = best["params"]
+        if verbose:
+            print(
+                f"  [pipeline {variant}] round={entry['round_time_s']:.3f}s "
+                f"staged={entry['bytes_staged_per_round']:,}B "
+                f"prefetched={entry['plans_prefetched']}",
+                flush=True,
+            )
+
+    report: dict[str, Any] = {
+        "bench": "staging_pipeline",
+        "num_clients": len(clients),
+        "rounds": rounds,
+        "local_epochs": local_epochs,
+        "batch_size": batch_size,
+        "cohort_chunk": cohort_chunk,
+        "total_stays": cohort_cfg.total_stays,
+        "mesh": None,
+        "seed": seed,
+        "repeats": repeats,
+        "device": str(dev),
+        "variants": results,
+    }
+    if "rebuild" in results and "resident" in results:
+        report["speedup"] = (
+            results["rebuild"]["round_time_s"] / results["resident"]["round_time_s"]
+        )
+        report["bytes_ratio"] = results["rebuild"]["bytes_staged_per_round"] / max(
+            results["resident"]["bytes_staged_per_round"], 1
+        )
+        if "rebuild-chunked" in results:
+            report["speedup_vs_chunked_rebuild"] = (
+                results["rebuild-chunked"]["round_time_s"]
+                / results["resident"]["round_time_s"]
+            )
+        ref = tree_leaves(params_by_variant["rebuild"])
+        report["max_param_diff"] = max(
+            float((a - b).abs().max())
+            for other in params_by_variant.values()
+            for a, b in zip(ref, tree_leaves(other))
+        )
+    return report
 
 
 def run_seeds(

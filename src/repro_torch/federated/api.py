@@ -12,7 +12,9 @@ are the extension points of the runtime:
 * ``SelectionPolicy`` — which federation members train in a given round.
   Built-ins: ``"uniform"``, ``"round-robin"`` and ``"loss-weighted"``.
 * ``Aggregator`` — how client updates become the new global params.
-  Built-in: ``"fedavg"``.
+  Built-ins: ``"fedavg"``, ``"trimmed-mean"`` (per-client params, so its
+  rounds run the per-client trainer) and ``"hierarchical"`` (one engine
+  round per regional group, then FedAvg over the groups).
 
 Every policy resolves from a string spec ``name`` or ``name:arg,...``, or an
 instance can be passed directly.  The round program is::
@@ -50,13 +52,20 @@ from repro_torch.core.recruitment import (
 )
 from repro_torch.data.pipeline import ClientDataset, cohort_steps_per_epoch
 from repro_torch.federated.client import LocalTrainer
-from repro_torch.federated.cohort import CohortTrainer, client_generators
-from repro_torch.federated.fedavg import aggregate_stacked, params_nbytes, stack_trees
+from repro_torch.federated.cohort import STAGING_MODES, CohortTrainer, client_generators
+from repro_torch.federated.fedavg import (
+    aggregate_stacked,
+    check_trim,
+    params_nbytes,
+    stack_trees,
+    trimmed_mean_stacked,
+)
 from repro_torch.federated.selection import round_robin_clients, select_clients
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
 ENGINES = ("vectorized", "sequential")
+AGGREGATION_MODES = ("reduced", "grouped", "stacked")
 
 
 # ---------------------------------------------------------------------------
@@ -105,15 +114,22 @@ class SelectionPolicy:
 class Aggregator:
     """Combines one round's client updates into the new global params.
 
-    ``mode = "reduced"``: the engine's weighted FedAvg reduction is this
-    aggregator's result.  The other modes of the reference (grouped,
-    stacked) come with their aggregators in a later slice of the port.
+    ``mode`` tells the round program how updates must be delivered:
+    ``"reduced"`` — the engine's weighted FedAvg reduction is this
+    aggregator's exact result; ``"grouped"`` — one engine round per
+    ``groups(...)`` partition, then ``aggregate`` over the stacked group
+    means weighted by the groups' sample counts; ``"stacked"`` — every
+    client's params from the per-client trainer, then ``aggregate``.
     """
 
-    mode: str = "reduced"
+    mode: str = "stacked"
 
     def aggregate(self, stacked: PyTree, weights: np.ndarray) -> PyTree:
         """Reduce a client-stacked tree (leading client axis) to params."""
+        raise NotImplementedError
+
+    def groups(self, participant_ids: np.ndarray) -> list[np.ndarray]:
+        """Partition participants for ``mode == "grouped"`` aggregators."""
         raise NotImplementedError
 
 
@@ -186,8 +202,17 @@ def resolve_selection(spec) -> SelectionPolicy:
 
 
 def resolve_aggregator(spec) -> Aggregator:
-    """``"fedavg"`` / instance -> policy."""
+    """``"fedavg"`` / ``"trimmed-mean:0.1"`` / ``"hierarchical:4"`` / instance -> policy."""
     return _resolve(_AGGREGATORS, spec, "aggregator", Aggregator)
+
+
+def available_policies() -> dict[str, tuple[str, ...]]:
+    """Registered spec names per stage — the discoverable policy surface."""
+    return {
+        "recruitment": tuple(sorted(_RECRUITMENTS)),
+        "selection": tuple(sorted(_SELECTIONS)),
+        "aggregator": tuple(sorted(_AGGREGATORS)),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +412,51 @@ class FedAvgAggregator(Aggregator):
         return aggregate_stacked(stacked, weights)
 
 
+@register_aggregator("trimmed-mean")
+class TrimmedMeanAggregator(Aggregator):
+    """Coordinate-wise trimmed mean (Yin et al. 2018) — outlier-robust.
+
+    Drops the ``floor(trim * C)`` smallest and largest values of every
+    coordinate across the client axis, then averages the rest (unweighted).
+    ``trim = 0`` is the plain coordinate mean.
+    """
+
+    mode = "stacked"
+
+    def __init__(self, trim: float = 0.1) -> None:
+        check_trim(trim)
+        self.trim = float(trim)
+
+    def aggregate(self, stacked, weights):
+        return trimmed_mean_stacked(stacked, self.trim)
+
+
+@register_aggregator("hierarchical")
+class HierarchicalFedAvg(Aggregator):
+    """Two-level FedAvg: regional sub-federations reduce first.
+
+    Participants are split into ``num_regions`` contiguous groups; each
+    group runs one engine round, then the group means are FedAvg-ed with
+    the groups' total sample weights.  Numerically this telescopes to flat
+    FedAvg.
+    """
+
+    mode = "grouped"
+
+    def __init__(self, num_regions: int = 2) -> None:
+        if int(num_regions) < 1:
+            raise ValueError(f"hierarchical needs >= 1 region, got {num_regions}")
+        self.num_regions = int(num_regions)
+
+    def groups(self, participant_ids) -> list[np.ndarray]:
+        ids = np.asarray(participant_ids)
+        parts = np.array_split(ids, min(self.num_regions, len(ids)))
+        return [p for p in parts if len(p)]
+
+    def aggregate(self, stacked, weights):
+        return aggregate_stacked(stacked, weights)
+
+
 # ---------------------------------------------------------------------------
 # run records
 # ---------------------------------------------------------------------------
@@ -473,10 +543,23 @@ class FederationConfig:
     cohort_chunk: int | None = None
     # Vectorized engine: in-place accumulator, staged chunks released early.
     donate_buffers: bool = True
+    # Vectorized engine: "resident" uploads the federation's train arrays
+    # once and stages int32 index plans per round; "rebuild" re-stages the
+    # whole schedule every round (the staging reference).
+    staging: str = "resident"
+    # Resident staging: build and copy chunk k+1's plan while chunk k trains.
+    prefetch: bool = True
+    # Resident staging: bound the device cohort to this many bytes (an LRU
+    # pool of client rows, filled per round).  None = the whole federation.
+    resident_budget_bytes: int | None = None
 
     def __post_init__(self) -> None:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; choose from {ENGINES}")
+        if self.staging not in STAGING_MODES:
+            raise ValueError(
+                f"unknown staging {self.staging!r}; choose from {STAGING_MODES}"
+            )
 
 
 class Federation:
@@ -499,10 +582,9 @@ class Federation:
         self.recruitment_policy = resolve_recruitment(config.recruitment)
         self.selection_policy = resolve_selection(config.selection)
         self.aggregator = resolve_aggregator(config.aggregator)
-        if self.aggregator.mode != "reduced":
-            raise NotImplementedError(
-                f"aggregator mode {self.aggregator.mode!r} is not ported yet; "
-                "the grouped and stacked aggregators come in a later slice"
+        if self.aggregator.mode not in AGGREGATION_MODES:
+            raise ValueError(
+                f"aggregator mode {self.aggregator.mode!r} not in {AGGREGATION_MODES}"
             )
         self.all_clients = {c.client_id: c for c in clients}
         self.trainer = LocalTrainer(
@@ -520,12 +602,18 @@ class Federation:
             local_epochs=config.local_epochs,
             cohort_chunk=config.cohort_chunk,
             donate=config.donate_buffers,
+            staging=config.staging,
+            prefetch=config.prefetch,
+            resident_budget_bytes=config.resident_budget_bytes,
             device=self.device,
         )
 
     @property
     def effective_engine(self) -> str:
-        return self.config.engine
+        """The engine rounds actually run on: stacked-mode aggregators need
+        every client's params, so they run the per-client trainer whatever
+        ``config.engine`` says."""
+        return "sequential" if self.aggregator.mode == "stacked" else self.config.engine
 
     # -- stage 1: build_federation ------------------------------------------
 
@@ -548,16 +636,24 @@ class Federation:
 
     # -- stages 3+4: train + aggregate --------------------------------------
 
-    def _train_round(
-        self, params: PyTree, participants: np.ndarray, rng, generators, spe: int
+    def _train_group(
+        self, params: PyTree, group: np.ndarray, rng, generators, spe: int
     ) -> tuple[PyTree, np.ndarray, int]:
-        """train -> aggregate for one round (the ``"reduced"`` mode: the
-        engine's weighted FedAvg reduction is the aggregation)."""
-        cohort = [self.all_clients[int(cid)] for cid in participants]
+        """One engine round over ``group``: FedAvg-reduced params, each
+        client's mean local loss and the real local steps."""
+        cohort = [self.all_clients[int(cid)] for cid in group]
         if self.config.engine == "vectorized":
             return self.cohort_trainer.train_cohort(
                 params, cohort, rng, generators, steps_per_epoch=spe
             )
+        client_params, weights, losses, steps = self._train_clients(
+            params, cohort, rng, generators
+        )
+        return aggregate_stacked(stack_trees(client_params), weights), losses, steps
+
+    def _train_clients(self, params: PyTree, cohort, rng, generators):
+        """The per-client trainer over ``cohort``: each client's params,
+        sample count and mean local loss, and the real local steps."""
         client_params, weights, losses, steps = [], [], [], 0
         for client, generator in zip(cohort, generators):
             new_params, loss, n_c = self.trainer.train_client(params, client, rng, generator)
@@ -565,10 +661,47 @@ class Federation:
             weights.append(n_c)
             losses.append(loss)
             steps += self.trainer.steps_per_round(client)
-        params = aggregate_stacked(
-            stack_trees(client_params), np.asarray(weights, dtype=np.float32)
+        return (client_params, np.asarray(weights, dtype=np.float32),
+                np.asarray(losses, dtype=np.float32), steps)
+
+    def _train_round(
+        self, params: PyTree, participants: np.ndarray, rng, generators, spe: int
+    ) -> tuple[PyTree, np.ndarray, int]:
+        """train -> aggregate for one round, dispatched on the aggregator
+        mode.  ``generators`` holds one per participant; grouped rounds hand
+        them out in the order of the groups' concatenation."""
+        mode = self.aggregator.mode
+        if mode == "reduced":
+            return self._train_group(params, participants, rng, generators, spe)
+
+        if mode == "grouped":
+            groups = self.aggregator.groups(participants)
+            flat = np.concatenate([np.asarray(g) for g in groups]) if groups else np.array([])
+            if sorted(flat.tolist()) != sorted(np.asarray(participants).tolist()):
+                raise ValueError("aggregator groups must partition the participants")
+            group_params, group_w, losses, steps, used = [], [], [], 0, 0
+            for group in groups:
+                p_g, losses_g, steps_g = self._train_group(
+                    params, group, rng, generators[used : used + len(group)], spe
+                )
+                used += len(group)
+                group_params.append(p_g)
+                group_w.append(sum(self.all_clients[int(c)].n_train for c in group))
+                losses.append(losses_g)
+                steps += steps_g
+            new_params = self.aggregator.aggregate(
+                stack_trees(group_params), np.asarray(group_w, dtype=np.float32)
+            )
+            return new_params, np.concatenate(losses), steps
+
+        # mode == "stacked": the aggregator needs every client's params, which
+        # the vectorized engine's reduction never forms, so these rounds run
+        # the per-client trainer whatever the engine setting.
+        cohort = [self.all_clients[int(cid)] for cid in participants]
+        client_params, weights, losses, steps = self._train_clients(
+            params, cohort, rng, generators
         )
-        return params, np.asarray(losses, dtype=np.float32), steps
+        return self.aggregator.aggregate(stack_trees(client_params), weights), losses, steps
 
     # -- the round program ---------------------------------------------------
 
@@ -583,6 +716,13 @@ class Federation:
         generator_rng = np.random.default_rng([cfg.seed, 2])
 
         federation_ids, recruitment = self.build_federation()
+        if self.effective_engine == "vectorized" and cfg.staging == "resident":
+            # One upload of the recruited federation; every round after it
+            # stages int32 index plans.  Its time is the device cohort's
+            # ``attach_seconds``, in no round's time.
+            self.cohort_trainer.attach_device_cohort(
+                [self.all_clients[int(i)] for i in federation_ids]
+            )
         # The vectorized schedule's step axis is the federation-wide max,
         # whatever mix a round samples.
         federation_spe = cohort_steps_per_epoch(

@@ -1,9 +1,8 @@
 """Vectorized cohort training: one batched step trains a whole chunk of clients.
 
-The port of the JAX package's ``federated/cohort.py`` with
-``staging="rebuild"``.  The sequential engine (``federated/client.py``) runs
-one client at a time, so a round costs one host-paced step per client per
-batch.  Here the global params are copied onto a leading client axis and
+The port of the JAX package's ``federated/cohort.py``.  The sequential
+engine (``federated/client.py``) runs one client at a time, so a round
+costs one host-paced step per client per batch.  Here the global params are copied onto a leading client axis and
 every local step of a round is one batched step for a whole chunk of
 clients: one ``(C, B·T, F) @ (C, F, 3N)`` product per GRU layer, the CUDA
 ``gru_scan`` / ``gru_scan_bwd`` on their client axis, one AdamW update of
@@ -36,24 +35,48 @@ A step on which no client of the chunk is valid is skipped on the host (the
 reference computes it inside its scan, as a no-op): the results are the
 same bits, and a chunk costs ``local_epochs × max_c ceil(n_c / B)`` steps.
 
-Staging: each chunk's schedule (x, y, the example mask, step validity and
-the AdamW coefficients) is written step-major into one host buffer and
-uploaded with one copy.  With ``donate`` (the port of the reference's
-donated buffers) the accumulator is added into in place and a chunk's
-staged tensors are released before the next chunk is staged; without it
-the accumulator is added out of place and the previous chunk's tensors
-stay alive until the next is staged.
+Staging (``staging=``) controls how a round's batches reach the device:
+
+* ``"rebuild"`` (the trainer's default, kept as the staging reference):
+  each chunk's schedule (x, y, the example mask, step validity and the
+  AdamW coefficients) is written step-major into one host buffer and
+  uploaded with one pageable copy.
+* ``"resident"`` (``Federation``'s default): the federation's train arrays
+  are uploaded once (``data/device_cohort.py``) and a chunk stages only its
+  plan, step-major in one pinned buffer: int32 flat indices ``(T, C, B)``
+  into the resident arrays (``row * (max_n + 1) + sample``), step validity,
+  the AdamW coefficients and each client's index limit.  A step gathers
+  its batch on the device, one ``index_select`` for x and one for y, and
+  its example mask is ``index < limit``: the rebuilt batch, bit for bit.
+  With ``prefetch`` and more than one chunk, a ``StagingPipeline`` thread
+  builds chunk k+1's plan and copies it on a side stream while chunk k
+  trains; the step's stream waits on the copy's event.
+
+With ``donate`` (the port of the reference's donated buffers) the
+accumulator is added into in place and a chunk's staged tensors are
+released before the next chunk is staged inline; without it the
+accumulator is added out of place and the previous chunk's tensors stay
+alive until the next is staged.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.data.device_cohort import (
+    DeviceCohort,
+    Layout,
+    build_device_cohort,
+    fill_cohort_plan,
+    host_buffer,
+    upload,
+)
 from repro_torch.data.pipeline import (
     ClientDataset,
     cohort_steps_per_epoch,
@@ -61,6 +84,7 @@ from repro_torch.data.pipeline import (
     local_round_steps,
 )
 from repro_torch.device import resolve_device
+from repro_torch.federated.staging import StagingPipeline
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
@@ -69,7 +93,6 @@ LossFn = Callable[..., Any]  # loss(params, batch, generators) -> (C,) tensor
 STAGING_MODES = ("rebuild", "resident")
 # The GRU kernels put the client axis on the grid's y dimension.
 MAX_CHUNK = 65535
-_ALIGN = 64
 
 
 def client_generators(
@@ -85,22 +108,53 @@ def client_generators(
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
-def _torch_dtype(dtype: np.dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
-
-
 @dataclasses.dataclass
 class _Chunk:
-    """One chunk's staged schedule on the training device, step-major."""
+    """One chunk's staged tensors on the training device, step-major."""
 
-    x: torch.Tensor             # (T, C, B, *features)
-    y: torch.Tensor             # (T, C, B)
-    mask: torch.Tensor          # (T, C, B)
     valid: torch.Tensor         # (T, C) bool
     coefficients: torch.Tensor  # (T, 3, C): AdamW's 1/b1c, 1/b2c, -lr per client
     valid_host: np.ndarray      # (T, C) bool
     weights: np.ndarray         # (C,) float32 n_c
-    nbytes: int
+    nbytes: int                 # host bytes staged
+    seconds: float              # host seconds staging took
+
+    def batch(self, t: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Step ``t``'s ``(x, y, mask)``, each with a leading client axis."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class _RebuiltChunk(_Chunk):
+    """Rebuild staging: the whole schedule."""
+
+    x: torch.Tensor     # (T, C, B, *features)
+    y: torch.Tensor     # (T, C, B)
+    mask: torch.Tensor  # (T, C, B)
+
+    def batch(self, t):
+        return self.x[t], self.y[t], self.mask[t]
+
+
+@dataclasses.dataclass
+class _PlannedChunk(_Chunk):
+    """Resident staging: an index plan into the resident cohort."""
+
+    idx: torch.Tensor     # (T, C, B) int32 flat indices into x and y
+    limit: torch.Tensor   # (C, 1) int32: a slot is a real example iff idx < limit
+    x: torch.Tensor       # (rows * (max_n + 1), *features), a view of the cohort
+    y: torch.Tensor       # (rows * (max_n + 1),)
+    staged: torch.Tensor  # the plan's device buffer (every view above)
+    ready: Any            # the side stream's copy event; None when copied inline
+    sliced: bool          # the chunk's rows are a contiguous run, indexed from its start
+
+    def batch(self, t):
+        ib = self.idx[t]
+        c, b = ib.shape
+        flat = ib.view(-1)
+        x = torch.index_select(self.x, 0, flat).view(c, b, *self.x.shape[1:])
+        y = torch.index_select(self.y, 0, flat).view(c, b)
+        return x, y, (ib < self.limit).to(torch.float32)
 
 
 @dataclasses.dataclass
@@ -113,10 +167,26 @@ class CohortTrainer:
     local_epochs: int
     # Max clients per batched step; None = the whole cohort at once.
     cohort_chunk: int | None = None
-    # Options of the reference that later slices of the port bring.
+    # The client axis over several GPUs: a later slice of the port.
     mesh: Any = None
     donate: bool = True
+    # "rebuild" re-stages the whole schedule every round (the staging
+    # reference); "resident" keeps the federation's train arrays on the
+    # device and stages int32 index plans.  Federation defaults to "resident".
     staging: str = "rebuild"
+    # Resident staging: build and copy chunk k+1's plan on a thread (and a
+    # side stream on the card) while chunk k trains.  Engages only when a
+    # round has more than one chunk; the same bits either way.
+    prefetch: bool = True
+    # Resident staging: bound the device cohort to this many bytes; above
+    # it, client rows live in an LRU pool filled per round.  None = all.
+    resident_budget_bytes: int | None = None
+    # Resident staging: index a chunk whose rows are one contiguous run from
+    # the run's start (counted in ``slice_chunks``).  The same bits either way.
+    slice_fastpath: bool = True
+    # Record the round's peak device memory (resets the card's peak counter).
+    track_stats: bool = True
+    # DP-SGD and tracing: later slices of the port.
     dp: Any = None
     tracer: Any = None
     # Where to train: None is the card; "cpu" runs the plain versions.
@@ -128,7 +198,6 @@ class CohortTrainer:
         if self.staging not in STAGING_MODES:
             raise ValueError(f"unknown staging {self.staging!r}; choose from {STAGING_MODES}")
         unported = (
-            (self.staging == "resident", "staging='resident' (device-resident cohorts)", 2),
             (self.mesh is not None, "mesh= (the client axis over several GPUs)", 9),
             (self.dp is not None, "dp= (DP-SGD, repro.privacy)", 6),
             (self.tracer is not None, "tracer= (repro.obs)", 8),
@@ -139,35 +208,58 @@ class CohortTrainer:
                     f"CohortTrainer {what} is not ported yet (ROADMAP Queue 1 item {item})"
                 )
         self.device = resolve_device(self.device)
+        self._device_cohort: DeviceCohort | None = None
+        # Resident plans: two host buffers (pinned on the card), chunk k in
+        # buffer k % 2, reused round after round; the event of each one's
+        # last copy, which must finish before it is refilled.
+        self._plan_buffers: list[torch.Tensor | None] = [None, None]
+        self._plan_copied: list[Any] = [None, None]
+        self._side_stream = None
 
     # ------------------------------------------------------------------
     # staging
     # ------------------------------------------------------------------
 
-    def _stage(self, part: Sequence[ClientDataset], rng: np.random.Generator, spe: int) -> _Chunk:
+    @property
+    def device_cohort(self) -> DeviceCohort | None:
+        return self._device_cohort
+
+    def attach_device_cohort(self, clients: Sequence[ClientDataset]) -> DeviceCohort:
+        """Upload a federation's train arrays once for resident staging.
+
+        Rounds over any subset of ``clients`` then stage only index plans.
+        ``Federation.run`` calls this with the recruited federation before
+        round one; a direct ``train_cohort`` caller may skip it, and the
+        first resident round then attaches its own cohort.
+        """
+        self._device_cohort = build_device_cohort(
+            clients, resident_budget_bytes=self.resident_budget_bytes, device=self.device
+        )
+        return self._device_cohort
+
+    def _ensure_device_cohort(self, clients: Sequence[ClientDataset]) -> DeviceCohort:
+        dc = self._device_cohort
+        if dc is not None and all(dc.owns(c) for c in clients):
+            return dc
+        return self.attach_device_cohort(clients)
+
+    def _stage_rebuild(
+        self, part: Sequence[ClientDataset], rng: np.random.Generator, spe: int
+    ) -> _RebuiltChunk:
         """Build one chunk's schedule into one host buffer and upload it with
         one copy.  Consumes ``rng``: chunks must be staged in order."""
+        t0 = time.perf_counter()
         c, b, t = len(part), self.batch_size, spe * self.local_epochs
         x0, y0 = part[0].train.x, part[0].train.y
-        layout = {
+        layout = Layout({
             "x": ((t, c, b, *x0.shape[1:]), x0.dtype),
             "y": ((t, c, b), y0.dtype),
-            "mask": ((t, c, b), np.dtype(np.float32)),
-            "valid": ((t, c), np.dtype(np.bool_)),
-            "coefficients": ((t, 3, c), np.dtype(np.float32)),
-        }
-        offsets, total = {}, 0
-        for name, (shape, dtype) in layout.items():
-            offsets[name] = total
-            total += -(-int(np.prod(shape)) * dtype.itemsize // _ALIGN) * _ALIGN
-        buf = np.zeros(total, dtype=np.uint8)
-
-        def host_view(name):
-            shape, dtype = layout[name]
-            n = int(np.prod(shape)) * dtype.itemsize
-            return buf[offsets[name] : offsets[name] + n].view(dtype).reshape(shape)
-
-        host = {name: host_view(name) for name in layout}
+            "mask": ((t, c, b), np.float32),
+            "valid": ((t, c), np.bool_),
+            "coefficients": ((t, 3, c), np.float32),
+        })
+        buf = np.zeros(layout.nbytes, dtype=np.uint8)
+        host = layout.host_views(buf)
         # The fill writes client-major (C, T, ...) views of the step-major buffer.
         fill_cohort_schedule(
             [p.train for p in part], b, self.local_epochs, rng, spe,
@@ -176,20 +268,101 @@ class CohortTrainer:
         )
         valid_host = host["valid"].copy()
         host["coefficients"][...] = self.optimizer.cohort_coefficients(valid_host.T)
-        staged = torch.from_numpy(buf).to(self.device)
-
-        def device_view(name):
-            shape, dtype = layout[name]
-            n = int(np.prod(shape)) * dtype.itemsize
-            flat = staged[offsets[name] : offsets[name] + n]
-            return flat.view(_torch_dtype(dtype)).view(shape)
-
-        return _Chunk(
-            **{name: device_view(name) for name in layout},
+        staged = layout.device_views(torch.from_numpy(buf).to(self.device))
+        return _RebuiltChunk(
+            **staged,
             valid_host=valid_host,
             weights=np.asarray([p.n_train for p in part], dtype=np.float32),
-            nbytes=total,
+            nbytes=layout.nbytes,
+            seconds=time.perf_counter() - t0,
         )
+
+    def _stage_plan(
+        self,
+        part: Sequence[ClientDataset],
+        rng: np.random.Generator,
+        spe: int,
+        dc: DeviceCohort,
+        slot: int,
+        side: Any,
+    ) -> _PlannedChunk:
+        """Build one chunk's index plan into host buffer ``slot`` and copy it
+        to the device (on ``side``, a stream, when given).  Consumes ``rng``:
+        chunks must be staged in order."""
+        t0 = time.perf_counter()
+        c, b, t = len(part), self.batch_size, spe * self.local_epochs
+        width = dc.pad_index + 1
+        if dc.num_rows * width > np.iinfo(np.int32).max:
+            raise ValueError(
+                f"a device cohort of {dc.num_rows} rows of {width} samples is above "
+                "the int32 index range of a plan"
+            )
+        rows = np.asarray([dc.row_of(p) for p in part], dtype=np.int64)
+        contiguous = np.array_equal(rows, np.arange(rows[0], rows[0] + c))
+        full = c == dc.num_rows and contiguous and rows[0] == 0
+        sliced = self.slice_fastpath and contiguous and not full
+        r0 = int(rows[0]) if sliced else 0
+        base = (rows - r0) * width
+        sizes = np.asarray([p.n_train for p in part], dtype=np.int64)
+        layout = Layout({
+            "idx": ((t, c, b), np.int32),
+            "valid": ((t, c), np.bool_),
+            "coefficients": ((t, 3, c), np.float32),
+            "limit": ((c, 1), np.int32),
+        })
+        host = self._plan_buffer(slot, layout.nbytes)[: layout.nbytes]
+        views = layout.host_views(host.numpy())
+        views["valid"][...] = False
+        fill_cohort_plan(
+            sizes, b, self.local_epochs, rng, spe, dc.pad_index,
+            views["idx"].swapaxes(0, 1), views["valid"].swapaxes(0, 1), base=base,
+        )
+        valid_host = views["valid"].copy()
+        views["coefficients"][...] = self.optimizer.cohort_coefficients(valid_host.T)
+        views["limit"][:, 0] = base + sizes
+        staged, ready = self._copy_plan(host, slot, side)
+        plan = layout.device_views(staged)
+        x, y = (dc.x[r0 : r0 + c], dc.y[r0 : r0 + c]) if sliced else (dc.x, dc.y)
+        return _PlannedChunk(
+            valid=plan["valid"],
+            coefficients=plan["coefficients"],
+            valid_host=valid_host,
+            weights=sizes.astype(np.float32),
+            nbytes=layout.nbytes,
+            seconds=time.perf_counter() - t0,
+            idx=plan["idx"],
+            limit=plan["limit"],
+            x=x.flatten(0, 1),
+            y=y.flatten(0, 1),
+            staged=staged,
+            ready=ready,
+            sliced=sliced,
+        )
+
+    def _plan_buffer(self, slot: int, nbytes: int) -> torch.Tensor:
+        """Host buffer ``slot``, at least ``nbytes`` long, once its last copy
+        to the device has finished reading it."""
+        copied = self._plan_copied[slot]
+        if copied is not None:
+            copied.synchronize()
+        buf = self._plan_buffers[slot]
+        if buf is None or buf.numel() < nbytes:
+            buf = self._plan_buffers[slot] = host_buffer(nbytes, self.device)
+        return buf
+
+    def _copy_plan(self, host: torch.Tensor, slot: int, side: Any) -> tuple[torch.Tensor, Any]:
+        """Copy a plan to the device: on the card asynchronously, on ``side``
+        when given (then the returned event marks the copy's end for the
+        consuming stream), else on the current stream."""
+        if self.device.type != "cuda":
+            return upload(host, self.device), None
+        stream = side if side is not None else torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(stream):
+            staged = upload(host, self.device)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        self._plan_copied[slot] = copied
+        return staged, copied if side is not None else None
 
     # ------------------------------------------------------------------
     # one chunk's local training
@@ -218,7 +391,7 @@ class CohortTrainer:
                 continue  # every client pads here: a no-op for all of them
             executed += 1
             gens = [g if v else None for g, v in zip(generators, valid)]
-            loss = self.loss_fn(p, (chunk.x[t], chunk.y[t], chunk.mask[t]), gens)
+            loss = self.loss_fn(p, chunk.batch(t), gens)
             grads_flat = torch.autograd.grad(loss.sum(), leaves)
             grads_iter = iter(grads_flat)
             grads = tree_map(lambda _: next(grads_iter), p)
@@ -289,8 +462,41 @@ class CohortTrainer:
         sizes = [cl.n_train for cl in clients]
         spe = steps_per_epoch or cohort_steps_per_epoch(sizes, self.batch_size)
         cuda = self.device.type == "cuda"
-        if cuda:
+        resident = self.staging == "resident"
+        dcohort = self._ensure_device_cohort(clients) if resident else None
+        pooled = resident and dcohort.is_pooled
+        pool_before = (0, 0, 0, 0)
+        if pooled:
+            # One residency pass per round, before any plan is staged: rows
+            # stay put for the whole round, so the staging thread's plans
+            # never race an eviction.
+            pool_before = (dcohort.uploads, dcohort.evictions, dcohort.bytes_uploaded,
+                           dcohort.hits)
+            dcohort.ensure_resident(clients)
+        if cuda and self.track_stats:
             torch.cuda.reset_peak_memory_stats(self.device)
+
+        starts = range(0, len(clients), chunk)
+        prefetch = resident and self.prefetch and len(starts) > 1
+        side = None
+        if prefetch and cuda:
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+            side = self._side_stream
+
+        def stage(item: tuple[int, int]) -> _Chunk:
+            index, start = item
+            part = clients[start : start + chunk]
+            if resident:
+                return self._stage_plan(part, rng, spe, dcohort, index % 2, side)
+            return self._stage_rebuild(part, rng, spe)
+
+        pipeline: StagingPipeline | None = None
+        if prefetch:
+            pipeline = StagingPipeline(stage, list(enumerate(starts)))
+            staged_chunks = iter(pipeline)
+        else:
+            staged_chunks = (stage(item) for item in enumerate(starts))
 
         acc = tree_map(
             lambda q: torch.zeros(q.shape, dtype=torch.promote_types(q.dtype, torch.float32),
@@ -298,26 +504,36 @@ class CohortTrainer:
             params,
         )
         total_weight, bytes_staged, num_chunks, executed, stage_s = 0.0, 0, 0, 0, 0.0
+        slice_chunks = 0
         per_losses = np.full(len(clients), np.nan, dtype=np.float32)
         held: _Chunk | None = None
-        for start in range(0, len(clients), chunk):
-            part = clients[start : start + chunk]
-            t0 = time.perf_counter()
-            staged = self._stage(part, rng, spe)
-            stage_s += time.perf_counter() - t0
-            held = None  # without donation the previous chunk lived until here
-            stacked, losses, steps = self._train_chunk(
-                params, staged, generators[start : start + chunk]
-            )
-            acc = self._accumulate(acc, stacked, staged.weights)
-            if not self.donate:
-                held = staged
-            per_losses[start : start + len(part)] = losses
-            total_weight += float(staged.weights.sum())
-            bytes_staged += staged.nbytes
-            executed += steps
-            num_chunks += 1
-            del stacked, staged
+        try:
+            for start, staged in zip(starts, staged_chunks):
+                held = None  # without donation the previous chunk lived until here
+                if isinstance(staged, _PlannedChunk):
+                    slice_chunks += staged.sliced
+                    if staged.ready is not None:
+                        current = torch.cuda.current_stream(self.device)
+                        current.wait_event(staged.ready)
+                        staged.staged.record_stream(current)
+                stacked, losses, steps = self._train_chunk(
+                    params, staged, generators[start : start + chunk]
+                )
+                acc = self._accumulate(acc, stacked, staged.weights)
+                if not self.donate:
+                    held = staged
+                per_losses[start : start + len(staged.weights)] = losses
+                total_weight += float(staged.weights.sum())
+                bytes_staged += staged.nbytes
+                stage_s += staged.seconds
+                executed += steps
+                num_chunks += 1
+                del stacked, staged
+        finally:
+            if pipeline is not None:
+                # Re-raise an uncollected staging error only when the round is
+                # not already propagating another one.
+                pipeline.close(raise_pending=sys.exc_info()[0] is None)
         del held
 
         new_params = tree_map(lambda a, q: (a / total_weight).to(q.dtype), acc, params)
@@ -326,11 +542,25 @@ class CohortTrainer:
             "shards": 1,
             "donated": self.donate,
             "staging": self.staging,
+            "prefetch": pipeline is not None,
             "bytes_staged": bytes_staged,
-            # Host seconds building and uploading the chunks' schedules.
+            "bytes_resident": dcohort.nbytes if resident else 0,
+            "plans_prefetched": pipeline.prefetched if pipeline is not None else 0,
+            # Host seconds building and copying the chunks' schedules or plans
+            # (on the staging thread when prefetching).
             "stage_seconds": stage_s,
-            "peak_device_bytes": torch.cuda.max_memory_allocated(self.device) if cuda else None,
+            # The card's peak allocation over the round (the resident cohort
+            # included); None on the CPU or without track_stats.
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(self.device)
+                                  if cuda and self.track_stats else None),
             "cohort_steps": executed,
+            "slice_chunks": slice_chunks,
+            "pool": pooled,
+            "pool_rows": dcohort.pool_rows if pooled else 0,
+            "pool_uploads": dcohort.uploads - pool_before[0] if pooled else 0,
+            "pool_evictions": dcohort.evictions - pool_before[1] if pooled else 0,
+            "pool_bytes_uploaded": dcohort.bytes_uploaded - pool_before[2] if pooled else 0,
+            "pool_hits": dcohort.hits - pool_before[3] if pooled else 0,
         }
         real_steps = sum(local_round_steps(n, self.batch_size, self.local_epochs) for n in sizes)
         return new_params, per_losses, real_steps

@@ -55,6 +55,46 @@ def weighted_sum_stacked(stacked: PyTree, weights) -> PyTree:
     return tree_map(lambda leaf: _contract(w, leaf), stacked)
 
 
+def check_trim(trim: float) -> None:
+    """``trim`` must leave clients: a fraction in [0, 0.5) from each tail."""
+    if not (0.0 <= trim < 0.5):
+        hint = (
+            f" — did you mean trim={min(trim / 2, 0.45):g} "
+            "(the fraction trimmed from *each* tail)?"
+            if 0.5 <= trim < 1.0
+            else (
+                f" — to trim {trim:g} clients per tail out of C, pass "
+                f"the fraction {trim:g}/C"
+                if trim >= 1.0
+                else ""
+            )
+        )
+        raise ValueError(
+            f"trim fraction must be in [0, 0.5), got {trim}: trimming half "
+            f"or more from both tails leaves no clients{hint}"
+        )
+
+
+def trimmed_mean_stacked(stacked: PyTree, trim: float) -> PyTree:
+    """Coordinate-wise trimmed mean over the leading client axis.
+
+    For every scalar coordinate, drop the ``floor(trim * C)`` smallest and
+    largest client values and average the rest (Yin et al. 2018).
+    Unweighted by construction; ``trim = 0`` is the plain coordinate mean.
+    """
+    check_trim(trim)
+
+    def _trim(leaf: torch.Tensor) -> torch.Tensor:
+        c = leaf.shape[0]
+        # trim < 0.5 guarantees 2k < c, so at least one client survives.
+        k = int(np.floor(trim * c))
+        ct = torch.promote_types(leaf.dtype, torch.float32)
+        kept = torch.sort(leaf.to(ct), dim=0).values[k : c - k]
+        return kept.mean(dim=0).to(leaf.dtype)
+
+    return tree_map(_trim, stacked)
+
+
 def delta(new: PyTree, old: PyTree) -> PyTree:
     return tree_map(lambda a, b: a - b, new, old)
 

@@ -4,9 +4,9 @@ and against the port's own sequential engine.
 * ``build_cohort_schedule`` / ``pad_cohort_schedule`` give arrays bit-equal
   to the JAX package's on the same seed, and leave the numpy generator in
   the same state; the trainer's step-major staging holds the same bytes.
-* The port's ``Federation`` (vectorized, the default) against JAX's
-  ``Federation(engine="vectorized", staging="rebuild")`` from the same
-  params, dropout 0: each round's loss within 1e-5, params within 1e-4 (the
+* The port's ``Federation`` (vectorized, the default; rebuild staging)
+  against JAX's ``Federation(engine="vectorized", staging="rebuild")`` from
+  the same params, dropout 0: each round's loss within 1e-5, params within 1e-4 (the
   near-zero-gradient drift of ``tests/test_torch_federation.py``).
 * The port's two engines against each other with dropout 0.05 (both draw
   each client's masks from the same per-client generator): 16 uneven
@@ -130,7 +130,7 @@ def test_staged_chunk_holds_the_schedule_step_major(model):
     opt = AdamW()
     trainer = CohortTrainer(gru.make_loss_fn(cfg), opt, batch_size=8, local_epochs=2, device="cpu")
     rng_a, rng_b = np.random.default_rng(2), np.random.default_rng(2)
-    chunk = trainer._stage(clients, rng_a, spe=6)
+    chunk = trainer._stage_rebuild(clients, rng_a, spe=6)
     sched = pipeline.build_cohort_schedule([c.train for c in clients], 8, 2, rng_b, steps_per_epoch=6)
     assert rng_a.bit_generator.state == rng_b.bit_generator.state
     assert np.array_equal(chunk.x.numpy().swapaxes(0, 1), sched.x)
@@ -245,7 +245,8 @@ def test_vectorized_federation_matches_jax(setting):
         jax_gru.make_loss_fn(jcfg), JaxAdamW(),
     ).run(init)
     fed = Federation(
-        FederationConfig(rounds=2, local_epochs=2, batch_size=8, seed=1, **policies),
+        FederationConfig(rounds=2, local_epochs=2, batch_size=8, seed=1, staging="rebuild",
+                         **policies),
         build_client_datasets(generate_cohort(CohortConfig(**COHORT), seed=3)),
         gru.make_loss_fn(tcfg), AdamW(), device="cpu",
     )
@@ -394,8 +395,8 @@ def test_errors(model):
         trainer().train_cohort(params0, many, rng, gens * len(many))
     with pytest.raises(ValueError, match="unknown staging"):
         trainer(staging="lazy")
-    for kw, item in ((dict(staging="resident"), 2), (dict(mesh="auto"), 9),
-                     (dict(dp={"clip_norm": 1.0}), 6), (dict(tracer=object()), 8)):
+    for kw, item in ((dict(mesh="auto"), 9), (dict(dp={"clip_norm": 1.0}), 6),
+                     (dict(tracer=object()), 8)):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             trainer(**kw)
 

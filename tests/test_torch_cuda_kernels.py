@@ -17,6 +17,8 @@ order, on the tensor cores in 3xTF32.
 The cohort engine's batched step: a client's loss and gradients do not
 depend on how many other clients share its step (C >= 2), bit for bit,
 which is what lets a chunked round give the unchunked round's params.
+Resident staging (batches gathered on the card through an index plan)
+trains to rebuild staging's bits, chunks of one client included.
 """
 
 import numpy as np
@@ -404,3 +406,37 @@ def test_cohort_step_does_not_depend_on_the_chunk_size(cuda, c):
     loss, grads = step(c)
     assert torch.equal(loss, loss_all[:c])
     assert all(torch.equal(g, a[:c]) for g, a in zip(grads, grads_all))
+
+
+@pytest.mark.parametrize("chunk", [1, 3, None])
+def test_resident_staging_is_rebuild_staging_on_the_card(cuda, chunk):
+    """A chunk staged resident (the batch gathered on the card from the
+    resident cohort, the plan copied on a side stream when there are several
+    chunks) trains to the rebuilt chunk's bits, a 1-client chunk included."""
+    from repro_torch.data.pipeline import ArrayDataset, ClientDataset
+    from repro_torch.federated.cohort import CohortTrainer, client_generators
+    from repro_torch.models import gru
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves
+
+    rng = np.random.default_rng(0)
+    clients = []
+    for i, n in enumerate(rng.integers(40, 300, 5)):
+        x = rng.normal(size=(int(n), 24, 38)).astype(np.float32)
+        y = rng.uniform(0.5, 20, size=int(n)).astype(np.float32)
+        clients.append(ClientDataset(i, ArrayDataset(x, y), ArrayDataset(x, y)))
+    cfg = gru.GRUConfig(dropout=0.05)
+    params = gru.init_gru(torch.Generator().manual_seed(0), cfg, cuda)
+    out, stats = {}, {}
+    for staging in ("rebuild", "resident"):
+        trainer = CohortTrainer(gru.make_loss_fn(cfg), AdamW(), 128, 2, cohort_chunk=chunk,
+                                staging=staging, device=cuda)
+        gens = client_generators(np.random.default_rng([0, 2]), len(clients), cuda)
+        out[staging] = trainer.train_cohort(params, clients, np.random.default_rng(0), gens)
+        stats[staging] = trainer.last_round_stats
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(out["rebuild"][0]),
+                                                 tree_leaves(out["resident"][0])))
+    assert np.array_equal(out["rebuild"][1], out["resident"][1])
+    assert stats["resident"]["prefetch"] == (chunk is not None)
+    assert stats["resident"]["bytes_staged"] * 100 < stats["rebuild"]["bytes_staged"]
+    assert stats["resident"]["peak_device_bytes"] > stats["resident"]["bytes_resident"] > 0

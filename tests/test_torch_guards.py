@@ -49,7 +49,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     modules = port_modules()
     assert "repro_torch.experiments.paper" in modules
     assert {"repro_torch.models.zoo", "repro_torch.launch.serve",
-            "repro_torch.launch.train"} <= set(modules)
+            "repro_torch.launch.train", "repro_torch.data.device_cohort",
+            "repro_torch.federated.staging"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -222,8 +223,8 @@ def test_unported_options_say_so():
     from repro_torch.models.gru import GRUConfig, make_loss_fn
     from repro_torch.optim.adamw import AdamW
 
-    with pytest.raises(NotImplementedError, match="resident"):
-        CohortTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, staging="resident", device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        CohortTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, mesh="auto", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         FederationConfig(engine="warp-drive")
     with pytest.raises(NotImplementedError, match="privacy"):
