@@ -95,6 +95,21 @@ exit code and no result line:
              (189 clients, hidden 8, four staging variants): round times,
              bytes, the byte ratio (at least 10) and the variants' largest
              param difference (at most 1e-4).
+19. privacy — DP, secagg and krum on the card: ``gru_scan`` and
+             ``gru_scan_bwd`` at DP's per-example shape, C·B clients of batch
+             1 ((4480, 1, 24, 32) at arc, (24192, 1, 24, 32) for 189
+             clients), against their plain versions and bit for bit, with
+             device times beside the batched shape of the same work; a
+             4-client DP federation (clip binding, noise 0, dropout 0) on the
+             card against the CPU (params within 1e-5); on the card, the two
+             engines under DP with noise and dropout 0.05 (round losses 1e-5,
+             params 1e-4) and degenerate DP against unprotected (dropout 0,
+             1e-5); federated-arc at full width with DP, 2 resident
+             vectorized rounds and 1 sequential (round time, epsilon, GRU
+             launches, per-example clients, peak memory), one profiled DP
+             round of one local epoch (device operations a step); and one arc
+             round each of ``secagg-fedavg`` (within its quantization bound
+             of FedAvg) and ``krum:4``.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -120,6 +135,7 @@ DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in an
 PARITY_TOL = 1e-4
 ENGINE_LOSS_TOL = 1e-5       # the engines' round losses (phase 4)
 CHUNK_TOL = 1e-6             # chunked, prefetched, hierarchical against one chunk (phases 4, 16)
+DP_PARITY_TOL = 1e-5         # DP card against CPU; degenerate DP against none (phase 19)
 ARC_MSLE_TOL = 1e-4          # the engines' test MSLE on federated-arc (phase 13)
 MAX_RESIDENT_STAGED = 10_000_000   # bytes a resident arc round may stage (phase 13)
 SSD_TOL = 1e-4               # times max(1, max|ref|): sums of up to L*N and L*P products in another order
@@ -237,6 +253,10 @@ def main() -> int:
 
     # -- 18. the staging comparison --------------------------------------------
     for kernel, n in run_staging_comparison_phase(torch, K).items():
+        launches[kernel] += n
+
+    # -- 19. DP, secagg and krum on the card -----------------------------------
+    for kernel, n in run_privacy_phase(torch, dev, K, cohort).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -1607,11 +1627,13 @@ def run_paper_scale_phase(torch, K) -> dict[str, int]:
     return counts
 
 
-def profile_cohort_round(torch, cohort, staging: str) -> None:
+def profile_cohort_round(torch, cohort, staging: str, phase: str = "cohort_profile",
+                         **config) -> None:
     """One vectorized federated-arc round (35 clients, 4 local epochs, one
     chunk) with ``staging`` under torch.profiler, after one unprofiled round
     (which attaches the resident cohort): wall time, device busy time and
-    idle share, kernels a batched step, copy time, the GRU kernels' shares."""
+    idle share, kernels a batched step, copy time, the GRU kernels' shares.
+    ``config`` goes to the ``FederationConfig`` (phase 19: DP, one epoch)."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1627,7 +1649,7 @@ def profile_cohort_round(torch, cohort, staging: str) -> None:
     exp = ExperimentConfig()
     clients = build_client_datasets(cohort)
     fed = Federation(FederationConfig(**policies_for("federated-arc", exp), seed=0,
-                                      staging=staging),
+                                      staging=staging, **config),
                      clients, make_loss_fn(cfg), AdamW(), device="cuda")
     ids, _ = fed.build_federation()
     arc = [fed.all_clients[int(i)] for i in ids]
@@ -1660,7 +1682,7 @@ def profile_cohort_round(torch, cohort, staging: str) -> None:
     share = (lambda us: us / 1e6 / device_s) if device_s > 0 else (lambda us: None)
     kernel_share = (lambda us: us / 1e6 / kernel_s) if kernel_s > 0 else (lambda us: None)
     steps = stats["cohort_steps"]
-    emit(phase="cohort_profile", setting="federated-arc", staging=staging, clients=len(arc),
+    emit(phase=phase, setting="federated-arc", staging=staging, clients=len(arc),
          device_copy_s=copy_s, device_kernel_s=kernel_s,
          gru_scan_share_of_kernels=kernel_share(gru_us["fwd"]),
          gru_scan_bwd_share_of_kernels=kernel_share(gru_us["bwd"]),
@@ -1763,6 +1785,258 @@ def run_staging_comparison_phase(torch, K) -> dict[str, int]:
             f"staging variants differ by {report['max_param_diff']}")
     require(report["bytes_ratio"] >= 10.0, f"bytes ratio {report['bytes_ratio']}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 19: DP, secagg and krum
+# ---------------------------------------------------------------------------
+
+# DP's per-example shape: C·B clients of batch 1, and the batched (C, B) shape
+# of the same rows (arc's 35 clients and all 189, at batch 128).
+PER_EXAMPLE_CASES = ((COHORT, 128), (AC_COHORT, 128))
+
+
+def check_per_example_kernels(torch, dev, K) -> None:
+    """``gru_scan`` and ``gru_scan_bwd`` at (C·B, 1, 24, 32) against their
+    plain versions, two runs bit for bit; then both kernels' device times
+    (CUDA graph) there and at (C, B, 24, 32), and the bounds of each."""
+    from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref
+
+    t, n = 24, 32
+    for c, b in PER_EXAMPLE_CASES:
+        examples = c * b
+        xg, w, bias, dy = gru_inputs(torch, dev, examples, 1, t, n, seed=examples)
+        h = K.gru_scan(xg, w, bias)
+        h2 = K.gru_scan(xg, w, bias)
+        dx, dw, db = K.gru_scan_bwd(xg, w, bias, h, dy)
+        dx2, dw2, db2 = K.gru_scan_bwd(xg, w, bias, h, dy)
+        torch.cuda.synchronize()
+        dx_r, dw_r, db_r = gru_scan_bwd_ref(xg, w, bias, h, dy)
+        e = {"fwd": max_err(h, gru_scan_ref(xg, w, bias)), "dx": max_err(dx, dx_r),
+             "dw": max_err(dw, dw_r), "db": max_err(db, db_r)}
+        same_bits = all(torch.equal(x, y) for x, y in ((h, h2), (dx, dx2), (dw, dw2), (db, db2)))
+        require(e["fwd"] <= FWD_TOL, f"per-example {examples}: gru_scan error {e['fwd']}")
+        require(e["dx"] <= DX_TOL, f"per-example {examples}: dx_gates error {e['dx']}")
+        require(e["dw"] <= DW_TOL * max(1.0, float(dw_r.abs().max())),
+                f"per-example {examples}: dW_hh error {e['dw']}")
+        require(e["db"] <= DW_TOL * max(1.0, float(db_r.abs().max())),
+                f"per-example {examples}: db_hh error {e['db']}")
+        require(same_bits, f"per-example {examples}: two forward or backward runs differ")
+        del dx_r, dw_r, db_r, dx2, dw2, db2, h2
+
+        xb, wb, bb, dyb = gru_inputs(torch, dev, c, b, t, n, seed=c)
+        hb = K.gru_scan(xb, wb, bb)
+        calls = 20
+        device_ms = {
+            "per_example": {
+                "gru_scan": graph_ms(torch, lambda: K.gru_scan(xg, w, bias), calls=calls),
+                "gru_scan_bwd": graph_ms(torch, lambda: K.gru_scan_bwd(xg, w, bias, h, dy),
+                                         calls=calls)},
+            "batched": {
+                "gru_scan": graph_ms(torch, lambda: K.gru_scan(xb, wb, bb), calls=calls),
+                "gru_scan_bwd": graph_ms(torch, lambda: K.gru_scan_bwd(xb, wb, bb, hb, dyb),
+                                         calls=calls)},
+        }
+        one = work(1, t, n)
+        batched = work(b, t, n)
+        bounds = {
+            "per_example": {"gru_scan": bound_ms(examples * one[0], examples * one[1])[0],
+                            "gru_scan_bwd": bound_ms(examples * one[2], examples * one[3])[0]},
+            "batched": {"gru_scan": bound_ms(c * batched[0], c * batched[1])[0],
+                        "gru_scan_bwd": bound_ms(c * batched[2], c * batched[3])[0]},
+        }
+        emit(phase="dp_kernels", per_example_shape=[examples, 1, t, n],
+             batched_shape=[c, b, t, n], max_abs_err=e, bitwise_repeat=same_bits,
+             device_ms=device_ms, bound_ms=bounds,
+             dw_partials_bytes=K._scratch(h, examples, 1, t, n)[1].numel() * 4)
+        del xg, w, bias, dy, h, dx, dw, db, xb, wb, bb, dyb, hb
+        torch.cuda.empty_cache()
+
+
+def small_federation_runs(torch):
+    """A 4-client federation at full width, 2 rounds of 1 local epoch (phase
+    4's), from one CPU init: ``run(dropout, device, **config)``."""
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.data.synth_eicu import CohortConfig, generate_cohort
+    from repro_torch.federated.api import Federation, FederationConfig
+    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    clients = build_client_datasets(generate_cohort(CohortConfig().scaled(0.02), seed=1))
+    params0 = init_gru(torch.Generator().manual_seed(1), GRUConfig(), "cpu")
+    base = dict(rounds=2, local_epochs=1, recruitment="top-n-samples:4", selection="uniform",
+                seed=1)
+
+    def run(dropout, device, **config):
+        fed = Federation(FederationConfig(**base, **config), clients,
+                         make_loss_fn(GRUConfig(dropout=dropout)), AdamW(), device=device)
+        return fed.run(params0)
+
+    return run, clients, params0
+
+
+def clipped_share(torch, clients, params0, clip: float) -> float:
+    """The share of a full batch's examples whose gradient the clip scales
+    down, at the init, for the largest of ``clients``."""
+    from repro_torch.models.gru import GRUConfig, make_loss_fn
+    from repro_torch.privacy.dp import per_example_clip_factors, per_example_value_and_grad
+    from repro_torch.tree import tree_map
+
+    client = max(clients, key=lambda c: c.n_train)
+    x, y = client.train.x[:128], client.train.y[:128]
+    batch = (torch.from_numpy(x)[None], torch.from_numpy(y)[None], torch.ones(1, len(y)))
+    _, grads = per_example_value_and_grad(
+        make_loss_fn(GRUConfig(dropout=0.0)), tree_map(lambda p: p[None], params0), batch, None)
+    return float((per_example_clip_factors(grads, clip) < 1.0).float().mean())
+
+
+def check_dp_parity(torch) -> None:
+    """Phase 19 (b) and (c): a DP federation on the card against the CPU, the
+    engines against each other under DP on the card, degenerate DP against
+    unprotected."""
+    from repro_torch.privacy.dp import DPConfig
+
+    run, clients, params0 = small_federation_runs(torch)
+    clip = 0.1
+    share = clipped_share(torch, clients, params0, clip)
+    binding = DPConfig(clip_norm=clip, noise_multiplier=0.0)
+    out = {device: run(0.0, device, privacy=binding) for device in ("cuda", "cpu")}
+    diff = param_diff(out["cuda"].params, out["cpu"].params)
+    losses = {d: [r.mean_local_loss for r in out[d].history] for d in out}
+    emit(phase="dp_parity", clip_norm=clip, clipped_share_at_init=share, max_param_diff=diff,
+         losses=losses, epsilon=[r.epsilon for r in out["cuda"].history])
+    require(share > 0.5, f"the clip of {clip} scales {share} of the examples: not binding")
+    require(diff <= DP_PARITY_TOL, f"card and CPU DP federations differ by {diff}")
+
+    noisy = DPConfig(clip_norm=1.0, noise_multiplier=1.0)
+    runs = {engine: run(0.05, "cuda", engine=engine, privacy=noisy)
+            for engine in ("vectorized", "sequential")}
+    losses = {k: [r.mean_local_loss for r in v.history] for k, v in runs.items()}
+    loss_diff = max(abs(a - b) for a, b in zip(losses["vectorized"], losses["sequential"]))
+    engine_diff = param_diff(runs["vectorized"].params, runs["sequential"].params)
+    emit(phase="dp_engine_parity", dropout=0.05, privacy=noisy.to_state(), losses=losses,
+         max_loss_diff=loss_diff, max_param_diff=engine_diff)
+    require(loss_diff <= ENGINE_LOSS_TOL, f"DP engines' round losses differ by {loss_diff}")
+    require(engine_diff <= PARITY_TOL, f"DP engines' params differ by {engine_diff}")
+
+    # Degenerate DP (no clip, no noise) is the unprotected estimator: one
+    # step's gradient and the round losses within 1e-5.  After AdamW steps an
+    # entry whose gradient is near zero drifts further (1.5e-5 on the CPU at
+    # this size; ROADMAP Queue 3), so its params are held to PARITY_TOL.
+    degenerate = DPConfig(clip_norm=None, noise_multiplier=0.0)
+    grad_diff = degenerate_step_diff(torch, clients, params0, degenerate)
+    runs = {(engine, name): run(0.0, "cuda", engine=engine, privacy=dp)
+            for engine in ("vectorized", "sequential")
+            for name, dp in (("none", None), ("degenerate", degenerate))}
+    loss_diff = {engine: max(abs(a.mean_local_loss - b.mean_local_loss) for a, b in zip(
+        runs[engine, "none"].history, runs[engine, "degenerate"].history))
+        for engine in ("vectorized", "sequential")}
+    param_gap = {engine: param_diff(runs[engine, "none"].params, runs[engine, "degenerate"].params)
+                 for engine in ("vectorized", "sequential")}
+    emit(phase="dp_degenerate", step_grad_max_diff=grad_diff, max_loss_diff=loss_diff,
+         max_param_diff=param_gap)
+    require(grad_diff <= DP_PARITY_TOL, f"degenerate DP's step gradient differs by {grad_diff}")
+    for engine in loss_diff:
+        require(loss_diff[engine] <= DP_PARITY_TOL,
+                f"degenerate DP's round losses differ by {loss_diff[engine]} ({engine})")
+        require(param_gap[engine] <= PARITY_TOL,
+                f"degenerate DP's params differ by {param_gap[engine]} ({engine})")
+
+
+def degenerate_step_diff(torch, clients, params0, degenerate) -> float:
+    """On the card, the degenerate DP estimator's gradient of one full batch
+    (the largest client's first 128 examples) against the batch gradient."""
+    from repro_torch.models.gru import GRUConfig, make_loss_fn
+    from repro_torch.privacy.dp import dp_value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    loss_fn = make_loss_fn(GRUConfig(dropout=0.0))
+    client = max(clients, key=lambda c: c.n_train)
+    batch = tuple(torch.from_numpy(a).cuda() for a in (client.train.x[:128], client.train.y[:128]))
+    batch = (*batch, torch.ones(len(batch[1]), device="cuda"))
+    params = tree_map(lambda p: p.cuda().requires_grad_(True), params0)
+    want = torch.autograd.grad(loss_fn(params, batch, None), tree_leaves(params))
+    _, got = dp_value_and_grad(loss_fn, degenerate)(
+        tree_map(lambda p: p.detach()[None], params), tuple(t[None] for t in batch), None)
+    return max(max_err(g[0], w) for g, w in zip(tree_leaves(got), want))
+
+
+def run_privacy_phase(torch, dev, K, cohort) -> dict[str, int]:
+    """Phase 19: the GRU kernels at DP's per-example shape; DP parity; DP on
+    federated-arc at full width, both engines; a profiled DP round; one arc
+    round each of ``secagg-fedavg`` (with a FedAvg round from the same init on
+    the same trainer) and ``krum:4``."""
+    import numpy as np
+
+    from repro_torch.experiments.paper import ExperimentConfig
+    from repro_torch.privacy.dp import DPConfig
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    check_per_example_kernels(torch, dev, K)
+    check_dp_parity(torch)
+
+    privacy = DPConfig(clip_norm=1.0, noise_multiplier=1.0)
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    for engine, rounds in (("vectorized", 2), ("sequential", 1)):
+        exp = ExperimentConfig(rounds=rounds, local_epochs=4)
+        fed = arc_federation(torch, cohort, exp, engine=engine, privacy=privacy)
+        result, stats, counts = run_federation(torch, K, fed)
+        steps = sum(st["cohort_steps"] for st in stats) if stats else result.total_local_steps
+        eps = [r.epsilon for r in result.history]
+        emit(phase="dp_slice", setting="federated-arc", engine=fed.effective_engine,
+             privacy=privacy.to_state(), **cohort_fields(fed, result, stats), epsilon=eps,
+             per_example_clients=([st["per_example_clients"] for st in stats] if stats
+                                  else exp.batch_size),
+             launches=counts)
+        require(all(math.isfinite(r.mean_local_loss) for r in result.history),
+                f"DP arc ({engine}): a round loss is not finite")
+        require(all(e is not None and e > 0 for e in eps) and eps == sorted(eps),
+                f"DP arc ({engine}): epsilons {eps}")
+        if stats:
+            want = result.federation_ids.size * exp.batch_size
+            require(all(st["per_example_clients"] == want for st in stats),
+                    f"DP arc: per-example clients {[st['per_example_clients'] for st in stats]}")
+        check_launches(f"DP arc ({engine})", counts, steps, 0)
+        total = {k: total[k] + counts[k] for k in total}
+        del fed, result
+        torch.cuda.empty_cache()
+
+    profile_cohort_round(torch, cohort, "resident", phase="dp_profile", privacy=privacy,
+                         local_epochs=1)
+
+    exp = ExperimentConfig(rounds=1, local_epochs=4)
+    runs = {}
+    for aggregator in ("fedavg", "secagg-fedavg", "krum:4"):
+        fed = arc_federation(torch, cohort, exp, engine="sequential", aggregator=aggregator)
+        result, _, counts = run_federation(torch, K, fed)
+        agg = fed.aggregator
+        emit(phase="robust_aggregator", setting="federated-arc", aggregator=aggregator,
+             engine=fed.effective_engine, participants=len(result.history[0].participant_ids),
+             round_times_s=[r.round_time_s for r in result.history],
+             mean_local_loss=[r.mean_local_loss for r in result.history],
+             survivors=(int(agg.last_survivors.sum()) if aggregator == "secagg-fedavg" else None),
+             krum_chosen=(agg.last_chosen.tolist() if aggregator.startswith("krum") else None),
+             launches=counts)
+        require(all(math.isfinite(float(p.abs().max())) for p in tree_leaves(result.params)),
+                f"{aggregator}: params not finite")
+        check_launches(f"arc ({aggregator})", counts, result.total_local_steps, 0)
+        total = {k: total[k] + counts[k] for k in total}
+        runs[aggregator] = (result, agg)
+        del fed
+        torch.cuda.empty_cache()
+
+    (plain, _), (masked, secagg) = runs["fedavg"], runs["secagg-fedavg"]
+    clients = len(plain.history[0].participant_ids)
+    diff = param_diff(plain.params, masked.params)
+    largest = max(float(p.abs().max()) for p in tree_leaves(plain.params))
+    bound = clients / 2 ** (secagg.fraction_bits + 1) + largest * 2.0 ** -23
+    emit(phase="secagg_parity", clients=clients, survivors=int(secagg.last_survivors.sum()),
+         max_param_diff=diff, quantization_bound=bound,
+         seconds=time.perf_counter() - t_phase)
+    require(bool(np.all(secagg.last_survivors)), "secagg: a client dropped without a dropout model")
+    require(diff <= bound, f"secagg and fedavg differ by {diff}, above {bound}")
+    return total
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ Five model settings (paper section 6):
 plus the section 6.2 ablations (quality-greedy / data-greedy).  Every
 federated setting is a (recruitment, selection, aggregator) triple of
 specs for the ``Federation`` facade (``policies_for``).  ``run_paper_scale``
-runs the five settings at 189 clients on both engines, and
-``run_staging_comparison`` the vectorized engine's staging variants.
+runs the five settings at 189 clients on both engines,
+``run_staging_comparison`` the vectorized engine's staging variants, and
+``run_privacy_frontier`` the privacy tier's utility and robustness
+frontiers.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from repro_torch.federated.central import CentralConfig, train_central
 from repro_torch.metrics.regression import evaluate_predictions
 from repro_torch.models.gru import GRUConfig, gru_apply, init_gru, make_loss_fn
 from repro_torch.optim.adamw import AdamW
+from repro_torch.privacy.adversary import ScenarioConfig, apply_scenario
+from repro_torch.privacy.dp import DPConfig
 from repro_torch.tree import tree_leaves
 
 MODEL_SETTINGS = (
@@ -77,6 +81,9 @@ class ExperimentConfig:
     # Policy overrides for the Federation facade (None = the paper's sampling).
     selection: Any = None
     aggregator: Any = "fedavg"
+    # DP-SGD: None (unprotected), a DPConfig, or a job-spec dict
+    # ({"clip_norm": ..., "noise_multiplier": ..., "delta": ...}).
+    privacy: Any = None
     # Where to train: None is the card; "cpu" runs the plain versions.
     device: str | None = None
 
@@ -165,6 +172,7 @@ def run_setting(
             donate_buffers=exp.donate_buffers,
             staging=exp.staging,
             prefetch=exp.prefetch,
+            privacy=exp.privacy,
         )
         federation = Federation(
             fed_cfg, build_client_datasets(cohort), loss_fn, optimizer, device=dev
@@ -506,3 +514,125 @@ def run_seeds(
     agg["federation_size"] = runs[0]["federation_size"]
     agg["recruited"] = runs[0]["recruited"]
     return agg
+
+
+def run_privacy_frontier(
+    exp: ExperimentConfig | None = None,
+    *,
+    setting: str = "federated-ac",
+    clip_norm: float = 1.0,
+    noise_multipliers: tuple = (0.5, 1.0, 2.0),
+    attacks: tuple = ("label-flip", "scaled-update"),
+    attack_fractions: tuple = (0.1, 0.2, 0.3),
+    aggregators: tuple = ("fedavg", "trimmed-mean:0.35", "krum:4"),
+    attack_scale: float = 50.0,
+    scenario_seed: int = 5,
+    seed: int = 0,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """The two privacy-tier frontiers on one cohort.
+
+    ``utility``: test metrics vs the accountant's final ``(epsilon,
+    delta)`` across noise multipliers, with the unprotected run as the
+    epsilon = None anchor — the utility cost of DP at the paper's
+    setting.  ``robustness``: test metrics for every (aggregator, attack,
+    attacker fraction) cell, with each aggregator's clean run as its own
+    baseline — what plain FedAvg loses under attack and the robust rules
+    retain.  Metrics come from the hold-out test split, which no attacker
+    touches.  ``device`` (else ``exp.device``) defaults to the card.
+    """
+    exp = exp or ExperimentConfig()
+    dev = resolve_device(device if device is not None else exp.device)
+    cohort = build_cohort(exp, seed=seed)
+    clients = build_client_datasets(cohort)
+    test = global_dataset(cohort, Cohort.TEST)
+    model_cfg = GRUConfig()
+    loss_fn = make_loss_fn(model_cfg)
+    optimizer = AdamW(learning_rate=exp.learning_rate, weight_decay=exp.weight_decay)
+    init_params = init_gru(torch.Generator().manual_seed(seed), model_cfg, dev)
+
+    def one_run(privacy=None, aggregator=None, scenario=None) -> dict[str, Any]:
+        policies = policies_for(setting, exp)
+        if aggregator is not None:
+            policies["aggregator"] = aggregator
+        fed_cfg = FederationConfig(
+            rounds=exp.rounds,
+            local_epochs=exp.local_epochs,
+            batch_size=exp.batch_size,
+            **policies,
+            seed=seed,
+            engine=exp.engine,
+            cohort_chunk=exp.cohort_chunk,
+            donate_buffers=exp.donate_buffers,
+            staging=exp.staging,
+            prefetch=exp.prefetch,
+            privacy=privacy,
+        )
+        federation = Federation(fed_cfg, clients, loss_fn, optimizer, device=dev)
+        if scenario is not None:
+            apply_scenario(federation, scenario)
+        result = federation.run(init_params)
+        y_hat = _predict(result.params, model_cfg, test)
+        return {
+            "metrics": evaluate_predictions(test.y, y_hat),
+            "epsilon": result.summary()["epsilon"],
+            "tau_s": result.total_wall_time_s,
+            "engine": federation.effective_engine,
+        }
+
+    out: dict[str, Any] = {
+        "setting": setting,
+        "seed": seed,
+        "clip_norm": clip_norm,
+        "utility": [],
+        "robustness": [],
+    }
+
+    baseline = one_run()
+    out["utility"].append({"privacy": None, "epsilon": None, **baseline})
+    if verbose:
+        m = baseline["metrics"]
+        print(f"  [privacy {setting}] unprotected mae={m['mae']:.3f}", flush=True)
+    for nm in noise_multipliers:
+        dp = DPConfig(clip_norm=clip_norm, noise_multiplier=float(nm))
+        run = one_run(privacy=dp)
+        out["utility"].append({"privacy": dp.to_state(), **run})
+        if verbose:
+            m = run["metrics"]
+            print(
+                f"  [privacy {setting}] sigma/C={nm:g} "
+                f"eps={run['epsilon']:.2f} mae={m['mae']:.3f}",
+                flush=True,
+            )
+
+    for aggregator in aggregators:
+        clean = one_run(aggregator=aggregator)
+        out["robustness"].append(
+            {"aggregator": aggregator, "attack": None, "fraction": 0.0, **clean}
+        )
+        for attack in attacks:
+            for fraction in attack_fractions:
+                scenario = ScenarioConfig(
+                    attack=attack,
+                    fraction=float(fraction),
+                    scale=attack_scale,
+                    seed=scenario_seed,
+                )
+                run = one_run(aggregator=aggregator, scenario=scenario)
+                out["robustness"].append(
+                    {
+                        "aggregator": aggregator,
+                        "attack": attack,
+                        "fraction": float(fraction),
+                        **run,
+                    }
+                )
+                if verbose:
+                    m = run["metrics"]
+                    print(
+                        f"  [privacy {setting}] {aggregator} {attack}@{fraction:g} "
+                        f"mae={m['mae']:.3f} (clean {clean['metrics']['mae']:.3f})",
+                        flush=True,
+                    )
+    return out

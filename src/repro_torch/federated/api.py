@@ -12,9 +12,14 @@ are the extension points of the runtime:
 * ``SelectionPolicy`` — which federation members train in a given round.
   Built-ins: ``"uniform"``, ``"round-robin"`` and ``"loss-weighted"``.
 * ``Aggregator`` — how client updates become the new global params.
-  Built-ins: ``"fedavg"``, ``"trimmed-mean"`` (per-client params, so its
-  rounds run the per-client trainer) and ``"hierarchical"`` (one engine
-  round per regional group, then FedAvg over the groups).
+  Built-ins: ``"fedavg"``, ``"trimmed-mean"``, ``"secagg-fedavg"`` and
+  ``"krum"`` (per-client params, so their rounds run the per-client
+  trainer) and ``"hierarchical"`` (one engine round per regional group,
+  then FedAvg over the groups).
+
+DP-SGD (``FederationConfig.privacy``) runs in both engines
+(``privacy/dp.py``); one Rényi accountant a run turns each round's
+sampling rate into the cumulative ``RoundRecord.epsilon``.
 
 Every policy resolves from a string spec ``name`` or ``name:arg,...``, or an
 instance can be passed directly.  The round program is::
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import difflib
+import importlib
 import time
 from typing import Any, Callable, Sequence
 
@@ -62,6 +68,8 @@ from repro_torch.federated.fedavg import (
 )
 from repro_torch.federated.selection import round_robin_clients, select_clients
 from repro_torch.optim.adamw import AdamW
+from repro_torch.privacy.accountant import RdpAccountant
+from repro_torch.privacy.dp import DPConfig, resolve_dp
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
 ENGINES = ("vectorized", "sequential")
@@ -201,13 +209,26 @@ def resolve_selection(spec) -> SelectionPolicy:
     return _resolve(_SELECTIONS, spec, "selection", SelectionPolicy)
 
 
+# The privacy tier's aggregators ("secagg-fedavg", "krum") register when
+# their modules load.  Those modules import this one, so the registry loads
+# them on first use rather than at import, which keeps the imports acyclic.
+_AGGREGATOR_MODULES = ("repro_torch.privacy.secagg", "repro_torch.privacy.adversary")
+
+
+def _load_aggregators() -> None:
+    for name in _AGGREGATOR_MODULES:
+        importlib.import_module(name)
+
+
 def resolve_aggregator(spec) -> Aggregator:
-    """``"fedavg"`` / ``"trimmed-mean:0.1"`` / ``"hierarchical:4"`` / instance -> policy."""
+    """``"fedavg"`` / ``"trimmed-mean:0.1"`` / ``"krum:4"`` / instance -> policy."""
+    _load_aggregators()
     return _resolve(_AGGREGATORS, spec, "aggregator", Aggregator)
 
 
 def available_policies() -> dict[str, tuple[str, ...]]:
     """Registered spec names per stage — the discoverable policy surface."""
+    _load_aggregators()
     return {
         "recruitment": tuple(sorted(_RECRUITMENTS)),
         "selection": tuple(sorted(_SELECTIONS)),
@@ -472,9 +493,11 @@ class RoundRecord:
     params_up: int                   # parameter tensors returned clients -> server
     bytes_transferred: int           # down + up, from the param tree's real sizes
     wall_time_s: float
-    # Async-runtime and DP fields of the reference; None on these rounds.
+    # Async-runtime fields of the reference; None on these rounds.
     virtual_time: float | None = None
     staleness: float | None = None
+    # DP runs only: the cumulative (epsilon, delta)-DP budget through this
+    # round; None on unprotected runs.
     epsilon: float | None = None
 
     @property
@@ -511,11 +534,15 @@ class FederatedRunResult:
             "params_down": sum(r.params_down for r in self.history),
             "params_up": sum(r.params_up for r in self.history),
             "bytes_transferred": sum(r.bytes_transferred for r in self.history),
-            # The async runtime and DP are not ported: no record carries
-            # a virtual time, a staleness or an epsilon yet.
+            # The async runtime is not ported: no record carries a
+            # virtual time or a staleness yet.
             "virtual_time": None,
             "mean_staleness": None,
-            "epsilon": None,
+            # DP runs: the final cumulative privacy budget (the last
+            # record's epsilon — the accountant only ever grows it).
+            "epsilon": next(
+                (r.epsilon for r in reversed(self.history) if r.epsilon is not None), None
+            ),
             "metrics": self.metrics,
         }
 
@@ -552,6 +579,11 @@ class FederationConfig:
     # Resident staging: bound the device cohort to this many bytes (an LRU
     # pool of client rows, filled per round).  None = the whole federation.
     resident_budget_bytes: int | None = None
+    # DP-SGD (privacy/dp.py): a DPConfig, a job-spec dict ({"clip_norm": ...,
+    # "noise_multiplier": ..., "delta": ...}), or None.  When set, every local
+    # step clips per-example gradients and adds calibrated Gaussian noise,
+    # and each RoundRecord carries the accountant's cumulative epsilon.
+    privacy: DPConfig | dict | None = None
 
     def __post_init__(self) -> None:
         if self.engine not in ENGINES:
@@ -587,12 +619,14 @@ class Federation:
                 f"aggregator mode {self.aggregator.mode!r} not in {AGGREGATION_MODES}"
             )
         self.all_clients = {c.client_id: c for c in clients}
+        self.dp = resolve_dp(config.privacy)
         self.trainer = LocalTrainer(
             loss_fn=loss_fn,
             optimizer=optimizer,
             batch_size=config.batch_size,
             local_epochs=config.local_epochs,
             device=device,
+            dp=self.dp,
         )
         self.device = self.trainer.device
         self.cohort_trainer = CohortTrainer(
@@ -605,6 +639,7 @@ class Federation:
             staging=config.staging,
             prefetch=config.prefetch,
             resident_budget_bytes=config.resident_budget_bytes,
+            dp=self.dp,
             device=self.device,
         )
 
@@ -728,6 +763,15 @@ class Federation:
         federation_spe = cohort_steps_per_epoch(
             [self.all_clients[int(i)].n_train for i in federation_ids], cfg.batch_size
         )
+        # One Rényi accountant per run: stepped once per round at that round's
+        # client sampling rate, read for every RoundRecord.  (Replaying the
+        # completed rounds on resume waits for snapshots, ROADMAP Queue 1
+        # item 5.)
+        accountant = (
+            RdpAccountant(self.dp.noise_multiplier, delta=self.dp.delta)
+            if self.dp is not None
+            else None
+        )
         params = tree_map(lambda p: p.detach().to(self.device), init_params)
         history: list[RoundRecord] = []
         # Communication accounting: each participant receives the full param
@@ -755,6 +799,10 @@ class Federation:
             self.selection_policy.observe(participants, losses)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # the aggregate is done too
+            epsilon = None
+            if accountant is not None:
+                accountant.step(len(participants) / federation_ids.size)
+                epsilon = accountant.epsilon()
             wall = time.perf_counter() - t_round
             record = RoundRecord(
                 round_index=rnd,
@@ -765,6 +813,7 @@ class Federation:
                 params_up=len(participants) * n_tensors,
                 bytes_transferred=2 * len(participants) * model_nbytes,
                 wall_time_s=wall,
+                epsilon=epsilon,
             )
             history.append(record)
             if progress is not None:

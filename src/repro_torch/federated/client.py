@@ -17,6 +17,7 @@ import torch
 from repro_torch.data.pipeline import ClientDataset, local_round_steps
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import AdamW, AdamWState, apply_updates
+from repro_torch.privacy.dp import DPConfig, dp_value_and_grad, resolve_dp
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
 LossFn = Callable[..., Any]  # loss(params, batch, generator) -> scalar tensor
@@ -44,6 +45,25 @@ def train_step(
     return apply_updates(params, updates), opt_state, loss.detach()
 
 
+def dp_train_step(
+    dp_grad: Callable[..., Any],
+    optimizer: AdamW,
+    params: PyTree,
+    opt_state: AdamWState,
+    batch: tuple[torch.Tensor, ...],
+    generator: torch.Generator | None,
+) -> tuple[PyTree, AdamWState, torch.Tensor]:
+    """One DP-SGD AdamW step: ``dp_grad`` (``privacy/dp.py::dp_value_and_grad``)
+    over a client axis of one."""
+    loss, grads = dp_grad(
+        tree_map(lambda p: p.unsqueeze(0), params),
+        tuple(a.unsqueeze(0) for a in batch),
+        None if generator is None else [generator],
+    )
+    updates, opt_state = optimizer.update(tree_map(lambda g: g[0], grads), opt_state, params)
+    return apply_updates(params, updates), opt_state, loss[0]
+
+
 def trainable_copy(params: PyTree) -> PyTree:
     """A private copy of ``params`` whose leaves require grad."""
     return tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
@@ -58,15 +78,13 @@ class LocalTrainer:
     batch_size: int
     local_epochs: int
     device: str | torch.device | None = None
-    # In-jit DP-SGD has not been ported: only None is accepted.
-    dp: Any = None
+    # DP-SGD (privacy/dp.py): a DPConfig, a job-spec dict, or None, which
+    # keeps the unprotected step untouched.
+    dp: DPConfig | dict | None = None
 
     def __post_init__(self) -> None:
-        if self.dp is not None:
-            raise NotImplementedError(
-                "DP-SGD (repro.privacy.dp) is not ported yet; it comes with the "
-                "privacy slice of the port"
-            )
+        self.dp = resolve_dp(self.dp)
+        self._dp_grad = None if self.dp is None else dp_value_and_grad(self.loss_fn, self.dp)
         self.device = resolve_device(self.device)
 
     def train_client(
@@ -80,7 +98,8 @@ class LocalTrainer:
 
         Returns (updated params, mean train loss of last epoch, n_c).  The
         global ``params`` are not modified.  ``generator`` draws the dropout
-        masks (None trains without dropout).
+        masks, and under DP the noise (None trains without dropout, and
+        without noise only).
         """
         params = trainable_copy(params)
         opt_state = self.optimizer.init(params)
@@ -88,10 +107,15 @@ class LocalTrainer:
         for _ in range(self.local_epochs):
             losses = []
             for batch in client.train.padded_batches(self.batch_size, rng):
-                params, opt_state, loss = train_step(
-                    self.loss_fn, self.optimizer, params, opt_state,
-                    to_device(batch, self.device), generator,
-                )
+                batch = to_device(batch, self.device)
+                if self._dp_grad is None:
+                    params, opt_state, loss = train_step(
+                        self.loss_fn, self.optimizer, params, opt_state, batch, generator
+                    )
+                else:
+                    params, opt_state, loss = dp_train_step(
+                        self._dp_grad, self.optimizer, params, opt_state, batch, generator
+                    )
                 losses.append(loss)
             last_losses = losses
         # One readback per client: it also waits for the client's last step.

@@ -31,6 +31,13 @@ Parity with the sequential engine holds by construction:
   of two or more clients (``tests/test_torch_cuda_kernels.py``), so a
   chunked round gives the unchunked round's params.
 
+With ``dp`` (DP-SGD, ``privacy/dp.py``) a step's gradients come from
+``dp_value_and_grad``: each client's batch of B becomes B per-example
+clients of batch 1 on the GRU kernels' client axis (C·B of them, which
+``MAX_CHUNK`` bounds), clipped, summed and noised per client; a client's
+generator draws its shared dropout masks and then its noise, only on its
+valid steps.  ``dp=None`` runs the unprotected step untouched.
+
 A step on which no client of the chunk is valid is skipped on the host (the
 reference computes it inside its scan, as a no-op): the results are the
 same bits, and a chunk costs ``local_epochs × max_c ceil(n_c / B)`` steps.
@@ -86,6 +93,7 @@ from repro_torch.data.pipeline import (
 from repro_torch.device import resolve_device
 from repro_torch.federated.staging import StagingPipeline
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.privacy.dp import DPConfig, dp_value_and_grad, resolve_dp
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
 LossFn = Callable[..., Any]  # loss(params, batch, generators) -> (C,) tensor
@@ -186,8 +194,11 @@ class CohortTrainer:
     slice_fastpath: bool = True
     # Record the round's peak device memory (resets the card's peak counter).
     track_stats: bool = True
-    # DP-SGD and tracing: later slices of the port.
-    dp: Any = None
+    # DP-SGD (privacy/dp.py): a DPConfig, a job-spec dict, or None, which
+    # keeps the unprotected step untouched.  Under DP a chunk of C clients
+    # at batch B runs the GRU kernels on C·B per-example clients.
+    dp: DPConfig | dict | None = None
+    # Tracing: a later slice of the port.
     tracer: Any = None
     # Where to train: None is the card; "cpu" runs the plain versions.
     device: str | torch.device | None = None
@@ -199,7 +210,6 @@ class CohortTrainer:
             raise ValueError(f"unknown staging {self.staging!r}; choose from {STAGING_MODES}")
         unported = (
             (self.mesh is not None, "mesh= (the client axis over several GPUs)", 9),
-            (self.dp is not None, "dp= (DP-SGD, repro.privacy)", 6),
             (self.tracer is not None, "tracer= (repro.obs)", 8),
         )
         for asked, what, item in unported:
@@ -207,6 +217,8 @@ class CohortTrainer:
                 raise NotImplementedError(
                     f"CohortTrainer {what} is not ported yet (ROADMAP Queue 1 item {item})"
                 )
+        self.dp = resolve_dp(self.dp)
+        self._dp_grad = None if self.dp is None else dp_value_and_grad(self.loss_fn, self.dp)
         self.device = resolve_device(self.device)
         self._device_cohort: DeviceCohort | None = None
         # Resident plans: two host buffers (pinned on the card), chunk k in
@@ -391,10 +403,13 @@ class CohortTrainer:
                 continue  # every client pads here: a no-op for all of them
             executed += 1
             gens = [g if v else None for g, v in zip(generators, valid)]
-            loss = self.loss_fn(p, chunk.batch(t), gens)
-            grads_flat = torch.autograd.grad(loss.sum(), leaves)
-            grads_iter = iter(grads_flat)
-            grads = tree_map(lambda _: next(grads_iter), p)
+            if self._dp_grad is None:
+                loss = self.loss_fn(p, chunk.batch(t), gens)
+                grads_flat = torch.autograd.grad(loss.sum(), leaves)
+                grads_iter = iter(grads_flat)
+                grads = tree_map(lambda _: next(grads_iter), p)
+            else:
+                loss, grads = self._dp_grad(p, chunk.batch(t), gens)
             updates, new_state = self.optimizer.update_stacked(
                 grads, state, p, chunk.coefficients[t]
             )
@@ -454,10 +469,14 @@ class CohortTrainer:
         if self.cohort_chunk is not None and self.cohort_chunk <= 0:
             raise ValueError(f"cohort_chunk must be positive, got {self.cohort_chunk}")
         chunk = self.cohort_chunk or len(clients)
-        if min(chunk, len(clients)) > MAX_CHUNK:
+        # Under DP each of a chunk's clients is batch_size per-example clients.
+        launched = min(chunk, len(clients)) * (1 if self.dp is None else self.batch_size)
+        if launched > MAX_CHUNK:
+            what = ("clients" if self.dp is None
+                    else f"per-example clients (DP at batch {self.batch_size})")
             raise ValueError(
-                f"a chunk of {min(chunk, len(clients))} clients is above {MAX_CHUNK}, the "
-                "GRU kernels' grid y dimension; set cohort_chunk"
+                f"a chunk of {launched} {what} is above {MAX_CHUNK}, the GRU kernels' grid "
+                "y dimension; set cohort_chunk"
             )
         sizes = [cl.n_train for cl in clients]
         spe = steps_per_epoch or cohort_steps_per_epoch(sizes, self.batch_size)
@@ -554,6 +573,9 @@ class CohortTrainer:
             "peak_device_bytes": (torch.cuda.max_memory_allocated(self.device)
                                   if cuda and self.track_stats else None),
             "cohort_steps": executed,
+            # Under DP, the largest chunk's per-example clients on the GRU
+            # kernels' client axis (chunk × batch); 0 without DP.
+            "per_example_clients": 0 if self.dp is None else launched,
             "slice_chunks": slice_chunks,
             "pool": pooled,
             "pool_rows": dcohort.pool_rows if pooled else 0,

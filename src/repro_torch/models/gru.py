@@ -117,7 +117,11 @@ def gru_apply(
     is (C, B) and ``generator`` is a sequence of C generators: client c's
     mask comes from ``generator[c]``.  A client whose entry is None (the
     cohort engine's padding step, whose result it discards) draws nothing
-    and keeps every unit, scaled as a kept unit is.
+    and keeps every unit, scaled as a kept unit is.  With C = k·G clients
+    and G generators, each generator draws one mask for its group of k
+    consecutive clients: DP's per-example copies (``privacy/dp.py``), B
+    clients of batch 1 a participant, share their participant's
+    ``(1, T, N)`` mask.
     """
     if x.dim() == 4:
         return _gru_apply_cohort(params, cfg, x, train, generator)
@@ -140,13 +144,20 @@ def _gru_apply_cohort(params, cfg: GRUConfig, x, train: bool, generators) -> tor
     for i, layer in enumerate(params["layers"]):
         h = gru_sequence(h, layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"])
         if train and cfg.dropout > 0.0 and i < len(params["layers"]) - 1:
-            if generators is None or len(generators) != h.shape[0]:
-                raise ValueError("dropout over a client axis requires one generator per client")
-            # Each client's draw has the shape and order of its one-client step.
-            u = torch.zeros(h.shape, device=h.device, dtype=h.dtype)
+            if generators is None or not generators or h.shape[0] % len(generators):
+                raise ValueError(
+                    "dropout over a client axis requires one generator per client "
+                    "or per equal group of clients"
+                )
+            # Each generator's draw has the shape and order of its one-client
+            # step; a group of clients (DP's per-example copies) shares it.
+            group = h.shape[0] // len(generators)
+            u = torch.zeros((len(generators), *h.shape[1:]), device=h.device, dtype=h.dtype)
             for c, g in enumerate(generators):
                 if g is not None:
                     u[c].uniform_(0.0, 1.0, generator=g)
+            if group > 1:
+                u = u.repeat_interleave(group, dim=0)
             h = torch.where(u < 1.0 - cfg.dropout, h / (1.0 - cfg.dropout), 0.0)
     h_final = h[:, :, -1, :]
     y_hat = torch.relu(torch.bmm(h_final, params["head"]["w"]) + params["head"]["b"].unsqueeze(1))

@@ -114,11 +114,12 @@ def test_available_policies_are_the_references_less_the_unported_tiers():
     ours, theirs = api.available_policies(), jax_api.available_policies()
     assert ours["recruitment"] == theirs["recruitment"]
     assert ours["selection"] == theirs["selection"]
-    # krum and secagg-fedavg register with the reference's privacy tier,
-    # fedbuff and hierarchical-async with its async runtime.
+    # fedbuff and hierarchical-async register with the reference's async
+    # runtime; krum and secagg-fedavg with the privacy tier, ported.
     assert set(theirs["aggregator"]) - set(ours["aggregator"]) == {
-        "krum", "secagg-fedavg", "fedbuff", "hierarchical-async"}
-    assert set(ours["aggregator"]) == {"fedavg", "hierarchical", "trimmed-mean"}
+        "fedbuff", "hierarchical-async"}
+    assert set(ours["aggregator"]) == {
+        "fedavg", "hierarchical", "trimmed-mean", "krum", "secagg-fedavg"}
     assert api.AGGREGATION_MODES == jax_api.AGGREGATION_MODES
     # A user's aggregator that names no mode gets every client's params.
     assert api.Aggregator.mode == jax_api.Aggregator.mode == "stacked"

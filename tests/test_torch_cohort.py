@@ -395,10 +395,11 @@ def test_errors(model):
         trainer().train_cohort(params0, many, rng, gens * len(many))
     with pytest.raises(ValueError, match="unknown staging"):
         trainer(staging="lazy")
-    for kw, item in ((dict(mesh="auto"), 9), (dict(dp={"clip_norm": 1.0}), 6),
-                     (dict(tracer=object()), 8)):
+    for kw, item in ((dict(mesh="auto"), 9), (dict(tracer=object()), 8)):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             trainer(**kw)
+    # DP-SGD is ported: the trainer takes a job-spec dict
+    assert trainer(dp={"clip_norm": 1.0}).dp.clip_norm == 1.0
 
 
 def test_the_default_engine_is_vectorized():

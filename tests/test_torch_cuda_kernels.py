@@ -19,6 +19,10 @@ depend on how many other clients share its step (C >= 2), bit for bit,
 which is what lets a chunked round give the unchunked round's params.
 Resident staging (batches gathered on the card through an index plan)
 trains to rebuild staging's bits, chunks of one client included.
+
+DP-SGD: the per-example step (C·B clients of batch 1 on the kernels'
+client axis) on the card against the CPU (noise 0, dropout 0; 1e-5), and
+the two engines' DP rounds on the card with noise and dropout (1e-5).
 """
 
 import numpy as np
@@ -73,7 +77,8 @@ def max_err(a, b):
 @pytest.mark.parametrize(
     "lead,b,t,n",
     [((), 128, 24, 32), ((), 100, 24, 32), ((3,), 50, 24, 32), ((), 64, 24, 8),
-     ((), 64, 24, 64), ((), 37, 5, 2), ((35,), 128, 24, 32), ((), 5, 1, 4), ((), 37, 5, 33)],
+     ((), 64, 24, 64), ((), 37, 5, 2), ((35,), 128, 24, 32), ((), 5, 1, 4), ((), 37, 5, 33),
+     ((4480,), 1, 24, 32)],  # DP's per-example shape at arc: 35 clients x 128 examples
 )
 def test_kernels_match_plain_versions(cuda, lead, b, t, n):
     xg, w, bias, dy = inputs(cuda, b, t, n, lead=lead)
@@ -440,3 +445,69 @@ def test_resident_staging_is_rebuild_staging_on_the_card(cuda, chunk):
     assert stats["resident"]["prefetch"] == (chunk is not None)
     assert stats["resident"]["bytes_staged"] * 100 < stats["rebuild"]["bytes_staged"]
     assert stats["resident"]["peak_device_bytes"] > stats["resident"]["bytes_resident"] > 0
+
+
+def dp_clients(rng, sizes):
+    from repro_torch.data.pipeline import ArrayDataset, ClientDataset
+
+    clients = []
+    for i, n in enumerate(sizes):
+        x = rng.normal(size=(int(n), 24, 38)).astype(np.float32)
+        y = rng.uniform(0.5, 20, size=int(n)).astype(np.float32)
+        clients.append(ClientDataset(i, ArrayDataset(x, y), ArrayDataset(x, y)))
+    return clients
+
+
+def test_dp_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.models import gru
+    from repro_torch.privacy.dp import DPConfig, dp_value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = gru.GRUConfig(dropout=0.0)
+    params = gru.init_gru(torch.Generator().manual_seed(0), cfg, "cpu")
+    c, b = 4, 128
+    stacked = tree_map(lambda p: torch.stack([p + 0.01 * i for i in range(c)]), params)
+    rng = np.random.default_rng(1)
+    mask = np.ones((c, b), np.float32)
+    mask[:, 100:] = 0.0
+    batch = (torch.tensor(rng.normal(size=(c, b, 24, 38)), dtype=torch.float32),
+             torch.tensor(rng.uniform(0.5, 20, size=(c, b)), dtype=torch.float32),
+             torch.from_numpy(mask))
+    step = dp_value_and_grad(gru.make_loss_fn(cfg), DPConfig(clip_norm=1.0, noise_multiplier=0.0))
+    before = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
+    loss, grads = step(tree_map(lambda q: q.to(cuda), stacked), tuple(t.to(cuda) for t in batch),
+                       None)
+    torch.cuda.synchronize()
+    # two layers: one forward and one backward launch each, at C·B = 512
+    launched = (kernel.gru_scan.launches - before[0], kernel.gru_scan_bwd.launches - before[1])
+    assert launched == (2, 2)
+    loss_cpu, grads_cpu = step(stacked, batch, None)
+    assert max_err(loss.cpu(), loss_cpu) <= 1e-5
+    for g, r in zip(tree_leaves(grads), tree_leaves(grads_cpu)):
+        assert max_err(g.cpu(), r) <= 1e-5
+
+
+def test_dp_engines_agree_on_the_card(cuda):
+    from repro_torch.federated.client import LocalTrainer
+    from repro_torch.federated.cohort import CohortTrainer, client_generators
+    from repro_torch.federated.fedavg import aggregate_stacked, stack_trees
+    from repro_torch.models import gru
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.privacy.dp import DPConfig
+    from repro_torch.tree import tree_leaves
+
+    clients = dp_clients(np.random.default_rng(0), (40, 200, 130))
+    cfg = gru.GRUConfig(dropout=0.05)
+    params = gru.init_gru(torch.Generator().manual_seed(0), cfg, cuda)
+    privacy = DPConfig(clip_norm=1.0, noise_multiplier=1.0)
+    vec = CohortTrainer(gru.make_loss_fn(cfg), AdamW(), 128, 2, dp=privacy, device=cuda)
+    gens = client_generators(np.random.default_rng([0, 2]), len(clients), cuda)
+    got, losses, _ = vec.train_cohort(params, clients, np.random.default_rng(0), gens)
+    seq = LocalTrainer(gru.make_loss_fn(cfg), AdamW(), 128, 2, device=cuda, dp=privacy)
+    rng = np.random.default_rng(0)
+    gens = client_generators(np.random.default_rng([0, 2]), len(clients), cuda)
+    outs = [seq.train_client(params, cl, rng, g) for cl, g in zip(clients, gens)]
+    want = aggregate_stacked(stack_trees([o[0] for o in outs]),
+                             np.asarray([o[2] for o in outs], np.float32))
+    assert np.abs(losses - np.asarray([o[1] for o in outs])).max() <= 1e-5
+    assert max(max_err(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want))) <= 1e-5

@@ -227,9 +227,66 @@ def test_unported_options_say_so():
         CohortTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, mesh="auto", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         FederationConfig(engine="warp-drive")
-    with pytest.raises(NotImplementedError, match="privacy"):
+    # DP-SGD is ported: what is not a DP config is refused, never ignored
+    with pytest.raises(TypeError, match="privacy"):
         LocalTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, device="cpu", dp=object())
     with pytest.raises(ValueError, match="did you mean 'nu-greedy'"):
         resolve_recruitment("nu-gredy")
     with pytest.raises(ValueError, match="did you mean 'round-robin'"):
         resolve_selection("round-robbin:2")
+
+
+def test_privacy_and_runtime_modules_pull_in_no_jax_and_no_repro():
+    modules = [m for m in port_modules()
+               if m.startswith(("repro_torch.privacy", "repro_torch.federated.runtime"))]
+    assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
+            "repro_torch.privacy.secagg", "repro_torch.privacy.adversary",
+            "repro_torch.federated.runtime.latency"} <= set(modules)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import repro_torch.privacy as p\n"
+        "assert p.SecAggFedAvg and p.KrumAggregator and p.apply_scenario\n"
+        "from repro_torch.federated.api import available_policies\n"
+        "assert {'krum', 'secagg-fedavg'} <= set(available_policies()['aggregator'])\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    for first in modules:  # whichever module loads first, no import cycle bites
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import {first}\n" + code], capture_output=True, text=True,
+            timeout=120, env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"},
+        )
+        assert proc.returncode == 0, first + proc.stdout + proc.stderr
+
+
+def test_dp_chunks_above_the_grid_limit_raise_before_any_launch():
+    from repro_torch.data.pipeline import ArrayDataset, ClientDataset
+    from repro_torch.federated.cohort import MAX_CHUNK, CohortTrainer, client_generators
+    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.privacy.dp import DPConfig
+
+    cfg = GRUConfig(input_dim=3, hidden_dim=4, num_layers=1)
+    ds = ArrayDataset(np.zeros((2, 5, 3), np.float32), np.ones(2, np.float32))
+    clients = [ClientDataset(i, ds, ds) for i in range(MAX_CHUNK // 128 + 1)]  # 512 · 128 > 65535
+    params = init_gru(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    gens = client_generators(rng, len(clients), torch.device("cpu"))
+    state = rng.bit_generator.state
+    launches = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
+    for staging in ("rebuild", "resident"):
+        trainer = CohortTrainer(make_loss_fn(cfg), AdamW(), 128, 1, staging=staging,
+                                dp=DPConfig(1.0, 1.0), device="cpu")
+        with pytest.raises(ValueError, match="cohort_chunk") as err:
+            trainer.train_cohort(params, clients, rng, gens)
+        assert "65536 per-example clients" in str(err.value)
+        assert trainer.device_cohort is None and trainer.last_round_stats is None
+    assert rng.bit_generator.state == state  # nothing was staged
+    assert (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches) == launches
+    # the same chunk without DP, or DP in chunks that fit, is accepted
+    small = CohortTrainer(make_loss_fn(cfg), AdamW(), 128, 1, cohort_chunk=MAX_CHUNK // 128,
+                          dp=DPConfig(1.0, 1.0), device="cpu")
+    small.train_cohort(params, clients[:2], rng, gens[:2])
