@@ -110,6 +110,23 @@ exit code and no result line:
              round of one local epoch (device operations a step); and one arc
              round each of ``secagg-fedavg`` (within its quantization bound
              of FedAvg) and ``krum:4``.
+20. async  — the async runtime at full width (``AsyncFederation``, one
+             ``_train_group`` call a task): (a) federated-arc's 35 clients, 2
+             flushes of 4 local epochs, dropout 0.05, resident staging:
+             ``fedbuff:35`` with constant latency (one-client tasks) and
+             ``hierarchical-async:1`` each against the sync FedAvg arc run
+             from the same init (round losses 1e-5, params 1e-4, staleness
+             0), the sync round's time beside a flush's, exact launches;
+             (b) all 189 clients and the recruited 35 under ``fedbuff:0.25``
+             with ``lognormal:0.6`` and ``pareto:1.2`` latencies, client
+             dropout 0.05, 8 flushes of 1 local epoch: sizes, tasks, dropped
+             tasks, staleness, the virtual time of each flush, host seconds
+             a flush and a task, real local steps a second, exact launches,
+             and the shared time to target with the recruited speedup;
+             (c) ``run_async_comparison()`` at its defaults, its timeline
+             (sizes, flushes, tasks, dropped tasks, each flush's virtual
+             time) equal to ``BENCH_async.json``'s; then one profiled flush
+             of the recruited federation: the device's idle share.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -257,6 +274,10 @@ def main() -> int:
 
     # -- 19. DP, secagg and krum on the card -----------------------------------
     for kernel, n in run_privacy_phase(torch, dev, K, cohort).items():
+        launches[kernel] += n
+
+    # -- 20. the async runtime at full width -----------------------------------
+    for kernel, n in run_async_phase(torch, K, cohort).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -2037,6 +2058,239 @@ def run_privacy_phase(torch, dev, K, cohort) -> dict[str, int]:
     require(bool(np.all(secagg.last_survivors)), "secagg: a client dropped without a dropout model")
     require(diff <= bound, f"secagg and fedavg differ by {diff}, above {bound}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the async runtime
+# ---------------------------------------------------------------------------
+
+ASYNC_TIMELINE_FIELDS = ("federation_size", "recruited", "buffer_size", "flushes", "tasks",
+                         "dropped", "virtual_time", "mean_staleness")
+
+
+def async_federation(torch, cohort, exp, **config):
+    """An ``AsyncFederation`` on the full cohort at full width: the paper's
+    model (dropout 0.05) and optimizer, seed 0, on the card."""
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.federated.runtime import AsyncFederation, AsyncFederationConfig
+    from repro_torch.models.gru import GRUConfig, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    return AsyncFederation(
+        AsyncFederationConfig(rounds=exp.rounds, local_epochs=exp.local_epochs,
+                              batch_size=exp.batch_size, seed=0, **config),
+        build_client_datasets(cohort), make_loss_fn(GRUConfig()),
+        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda",
+    )
+
+
+def run_async(torch, K, fed, progress=None):
+    """``fed.run`` from the seed-0 init with the GRU counts set to 0 just
+    before: the result, the host seconds of the run and the launches."""
+    from repro_torch.models.gru import GRUConfig, init_gru
+
+    params0 = init_gru(torch.Generator().manual_seed(0), GRUConfig(), "cuda")
+    torch.cuda.synchronize()
+    reset_gru_counts(K)
+    t0 = time.perf_counter()
+    result = fed.run(params0, progress=progress)
+    return result, time.perf_counter() - t0, gru_counts(K)
+
+
+def async_fields(fed, result, seconds) -> dict:
+    """What phase 20 prints of an async run."""
+    stats = fed.last_run_stats
+    flush_s = [r.round_time_s for r in result.history]
+    return dict(
+        federation_size=int(result.federation_ids.size),
+        buffer_size=getattr(fed.aggregator, "buffer_size", None),
+        flushes=len(result.history), tasks=stats["tasks"], dropped=stats["dropped"],
+        forced_flushes=stats["forced_flushes"], unflushed_updates=stats["unflushed_updates"],
+        mean_staleness=result.summary()["mean_staleness"],
+        staleness=[r.staleness for r in result.history],
+        virtual_times=[r.virtual_time for r in result.history],
+        participants=[len(r.participant_ids) for r in result.history],
+        mean_local_loss=[r.mean_local_loss for r in result.history],
+        flush_times_s=flush_s, seconds=seconds,
+        host_s_per_flush=sum(flush_s) / max(len(flush_s), 1),
+        host_s_per_task=seconds / max(stats["tasks"], 1),
+        steps_trained=stats["steps_trained"],
+        local_steps_per_s=stats["steps_trained"] / seconds,
+    )
+
+
+def run_async_phase(torch, K, cohort) -> dict[str, int]:
+    """Phase 20: (a) fedbuff and hierarchical-async parity against a sync
+    arc run; (b) the straggler comparison at full width; (c) the reference's
+    own workload against ``BENCH_async.json``; one profiled flush."""
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.experiments.paper import (
+        ExperimentConfig,
+        policies_for,
+        run_async_comparison,
+        shared_time_to_target,
+    )
+
+    t_phase = time.perf_counter()
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    sizes = {c.client_id: c.n_train for c in build_client_datasets(cohort)}
+    recruited = policies_for("federated-arc", ExperimentConfig())["recruitment"]
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # (a) parity: one-client tasks and one whole-federation region against
+    # the sync FedAvg rounds of the same configuration and init.
+    exp = ExperimentConfig(rounds=2, local_epochs=4)
+    fed = arc_federation(torch, cohort, exp)
+    sync, _, counts = run_federation(torch, K, fed)
+    check_launches("sync arc", counts,
+                   schedule_steps(sync.history, sizes, exp.batch_size, exp.local_epochs), 0)
+    add(counts)
+    sync_round_s = [r.round_time_s for r in sync.history]
+    del fed
+    for aggregator in (f"fedbuff:{sync.federation_ids.size}", "hierarchical-async:1"):
+        fed = async_federation(torch, cohort, exp, recruitment=recruited, aggregator=aggregator,
+                               latency="constant")
+        result, seconds, counts = run_async(torch, K, fed)
+        loss_diff = max(abs(a.mean_local_loss - s.mean_local_loss)
+                        for a, s in zip(result.history, sync.history))
+        diff = param_diff(result.params, sync.params)
+        if aggregator.startswith("fedbuff"):
+            steps = fed.last_run_stats["steps_trained"]   # one client a task: real = batched
+        else:
+            steps = schedule_steps(result.history, sizes, exp.batch_size, exp.local_epochs)
+        emit(phase="async_parity", setting="federated-arc", aggregator=aggregator,
+             **async_fields(fed, result, seconds), sync_round_times_s=sync_round_s,
+             sync_mean_local_loss=[r.mean_local_loss for r in sync.history],
+             max_loss_diff=loss_diff, max_param_diff=diff, batched_steps=steps,
+             launches=counts)
+        require([r.participant_ids for r in result.history]
+                == [r.participant_ids for r in sync.history],
+                f"{aggregator}: flush participants differ from the sync rounds'")
+        require(all(r.staleness == 0.0 for r in result.history),
+                f"{aggregator}: staleness {[r.staleness for r in result.history]}")
+        require(loss_diff <= ENGINE_LOSS_TOL, f"{aggregator}: round losses differ by {loss_diff}")
+        require(diff <= PARITY_TOL, f"{aggregator}: params differ by {diff} from sync FedAvg")
+        check_launches(f"async arc ({aggregator})", counts, steps, 0)
+        add(counts)
+        del fed, result
+    del sync
+    torch.cuda.empty_cache()
+
+    # (b) the straggler comparison: all clients against the recruited ones.
+    exp = ExperimentConfig(rounds=8, local_epochs=1)
+    for latency in ("lognormal:0.6", "pareto:1.2"):
+        histories, row = {}, {}
+        for name, rec in (("all-clients", "all"), ("recruited", recruited)):
+            fed = async_federation(torch, cohort, exp, recruitment=rec,
+                                   aggregator="fedbuff:0.25", latency=latency, dropout=0.05)
+            result, seconds, counts = run_async(torch, K, fed)
+            row[name] = async_fields(fed, result, seconds)
+            emit(phase="async_straggler", federation=name, latency=latency, **row[name],
+                 sync_arc_round_times_s=sync_round_s, launches=counts)
+            require(len(result.history) == exp.rounds, f"{name} {latency}: {row[name]['flushes']}")
+            require(all(math.isfinite(v) for v in row[name]["mean_local_loss"]),
+                    f"{name} {latency}: a flush loss is not finite")
+            check_launches(f"async {name} ({latency})", counts,
+                           fed.last_run_stats["steps_trained"], 0)
+            add(counts)
+            histories[name] = result.history
+            del fed, result
+            torch.cuda.empty_cache()
+        target, times = shared_time_to_target(histories)
+        t_all, t_rec = times["all-clients"], times["recruited"]
+        emit(phase="async_time_to_target", latency=latency, target_loss=target,
+             time_to_target=times,
+             recruited_speedup=t_all / t_rec if t_all is not None and t_rec else None,
+             host_s={k: v["seconds"] for k, v in row.items()})
+
+    # (c) the reference's workload at its defaults: the timeline is a
+    # function of numpy streams alone, so it is the reference's record.
+    reset_gru_counts(K)
+    t0 = time.perf_counter()
+    report = run_async_comparison(device="cuda", verbose=False)
+    seconds = time.perf_counter() - t0
+    counts = gru_counts(K)
+    bench = json.loads((ROOT / "BENCH_async.json").read_text())
+    mismatches = []
+    for latency, row in report["latency"].items():
+        for name in ("all-clients", "recruited"):
+            got, want = row[name], bench["latency"][latency][name]
+            for field in ASYNC_TIMELINE_FIELDS:
+                if got[field] != want[field]:
+                    mismatches.append((latency, name, field, got[field], want[field]))
+            if [t for t, _ in got["trajectory"]] != [t for t, _ in want["trajectory"]]:
+                mismatches.append((latency, name, "trajectory virtual times"))
+            require(all(math.isfinite(v) for _, v in got["trajectory"]),
+                    f"run_async_comparison {latency} {name}: a flush loss is not finite")
+    emit(phase="async_comparison", seconds=seconds,
+         rows={lat: {name: {f: row[name][f] for f in (*ASYNC_TIMELINE_FIELDS, "final_loss",
+                                                      "time_to_target", "tau_s")}
+                     for name in ("all-clients", "recruited")}
+               | {"recruited_speedup": row["recruited_speedup"]}
+               for lat, row in report["latency"].items()},
+         timeline_mismatches=mismatches, launches=counts)
+    require(not mismatches, f"run_async_comparison's timeline differs from BENCH_async.json: "
+            f"{mismatches[:4]}")
+    require(counts["gru_scan"] == counts["gru_scan_bwd"] > 0,
+            f"run_async_comparison launches {counts}")
+    add(counts)
+
+    profile_async_flush(torch, K, cohort, recruited)
+    emit(phase="async_seconds", seconds=time.perf_counter() - t_phase)
+    return total
+
+
+def profile_async_flush(torch, K, cohort, recruited) -> None:
+    """The recruited federation (fedbuff:0.25, lognormal:0.6, dropout 0.05,
+    1 local epoch) with torch.profiler on from the end of flush 1 to the end
+    of flush 2: the flush's wall time, device busy time and idle share, its
+    one-client GRU launches and device operations a local step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.experiments.paper import ExperimentConfig
+
+    exp = ExperimentConfig(rounds=3, local_epochs=1)
+    fed = async_federation(torch, cohort, exp, recruitment=recruited,
+                           aggregator="fedbuff:0.25", latency="lognormal:0.6", dropout=0.05)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def on_flush(record):
+        if record.round_index == 0:
+            window["counts"] = gru_counts(K)
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif record.round_index == 1:
+            torch.cuda.synchronize()
+            window["wall_s"] = time.perf_counter() - window["t0"]
+            prof.stop()
+            window["counts"] = {k: v - window["counts"][k] for k, v in gru_counts(K).items()}
+            window["record"] = record
+
+    run_async(torch, K, fed, progress=on_flush)
+    by_name, count = device_times(prof)
+    device_s = sum(by_name.values()) / 1e6
+    wall_s = window["wall_s"]
+    launches = window["counts"]
+    steps = launches["gru_scan"] // 2   # two GRU layers: two forward launches a step
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    gru_us = {side: sum(us for name, us in by_name.items() if gru_side(name) == side)
+              for side in ("fwd", "bwd")}
+    emit(phase="async_profile", federation="recruited", aggregator="fedbuff:0.25",
+         latency="lognormal:0.6", flush=1, wall_s=wall_s,
+         flush_record_time_s=window["record"].round_time_s,
+         participants=len(window["record"].participant_ids), local_steps=steps,
+         step_ms=wall_s / steps * 1e3 if steps else None,
+         device_busy_s=device_s if device_s > 0 else None,
+         device_idle_share=1.0 - device_s / wall_s if device_s > 0 else None,
+         device_ops=count, device_ops_per_step=count / steps if steps else None,
+         gru_scan_us=gru_us["fwd"], gru_scan_bwd_us=gru_us["bwd"], launches=launches,
+         top_device_us={name[:80]: us for name, us in top})
+    del fed
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ are the extension points of the runtime:
   Built-ins: ``"fedavg"``, ``"trimmed-mean"``, ``"secagg-fedavg"`` and
   ``"krum"`` (per-client params, so their rounds run the per-client
   trainer) and ``"hierarchical"`` (one engine round per regional group,
-  then FedAvg over the groups).
+  then FedAvg over the groups).  The buffered ``"fedbuff"`` and
+  ``"hierarchical-async"`` resolve here too, but run only under
+  ``federated/runtime/async_federation.py::AsyncFederation``.
 
 DP-SGD (``FederationConfig.privacy``) runs in both engines
 (``privacy/dp.py``); one Rényi accountant a run turns each round's
@@ -128,6 +130,8 @@ class Aggregator:
     ``groups(...)`` partition, then ``aggregate`` over the stacked group
     means weighted by the groups' sample counts; ``"stacked"`` — every
     client's params from the per-client trainer, then ``aggregate``.
+    (``"buffered"`` is the async runtime's mode, ``runtime/staleness.py``;
+    the synchronous ``Federation`` rejects it.)
     """
 
     mode: str = "stacked"
@@ -209,10 +213,15 @@ def resolve_selection(spec) -> SelectionPolicy:
     return _resolve(_SELECTIONS, spec, "selection", SelectionPolicy)
 
 
-# The privacy tier's aggregators ("secagg-fedavg", "krum") register when
+# The privacy tier's aggregators ("secagg-fedavg", "krum") and the async
+# runtime's buffered ones ("fedbuff", "hierarchical-async") register when
 # their modules load.  Those modules import this one, so the registry loads
 # them on first use rather than at import, which keeps the imports acyclic.
-_AGGREGATOR_MODULES = ("repro_torch.privacy.secagg", "repro_torch.privacy.adversary")
+_AGGREGATOR_MODULES = (
+    "repro_torch.privacy.secagg",
+    "repro_torch.privacy.adversary",
+    "repro_torch.federated.runtime.staleness",
+)
 
 
 def _load_aggregators() -> None:
@@ -221,7 +230,7 @@ def _load_aggregators() -> None:
 
 
 def resolve_aggregator(spec) -> Aggregator:
-    """``"fedavg"`` / ``"trimmed-mean:0.1"`` / ``"krum:4"`` / instance -> policy."""
+    """``"fedavg"`` / ``"trimmed-mean:0.1"`` / ``"fedbuff:8"`` / instance -> policy."""
     _load_aggregators()
     return _resolve(_AGGREGATORS, spec, "aggregator", Aggregator)
 
@@ -493,7 +502,9 @@ class RoundRecord:
     params_up: int                   # parameter tensors returned clients -> server
     bytes_transferred: int           # down + up, from the param tree's real sizes
     wall_time_s: float
-    # Async-runtime fields of the reference; None on these rounds.
+    # Async runtime (federated/runtime/): the virtual clock at the flush and
+    # the flush's mean update staleness in server versions; None on
+    # synchronous rounds.
     virtual_time: float | None = None
     staleness: float | None = None
     # DP runs only: the cumulative (epsilon, delta)-DP budget through this
@@ -524,6 +535,10 @@ class FederatedRunResult:
     metrics: dict[str, Any] | None = None
 
     def summary(self) -> dict[str, Any]:
+        # Async-runtime totals: the simulated clock at the last flush and
+        # the mean update staleness — None on synchronous runs, where no
+        # record carries a virtual time.
+        async_records = [r for r in self.history if r.virtual_time is not None]
         return {
             "rounds": len(self.history),
             "federation_size": int(self.federation_ids.size),
@@ -534,10 +549,20 @@ class FederatedRunResult:
             "params_down": sum(r.params_down for r in self.history),
             "params_up": sum(r.params_up for r in self.history),
             "bytes_transferred": sum(r.bytes_transferred for r in self.history),
-            # The async runtime is not ported: no record carries a
-            # virtual time or a staleness yet.
-            "virtual_time": None,
-            "mean_staleness": None,
+            "virtual_time": max(r.virtual_time for r in async_records)
+            if async_records
+            else None,
+            # Weight each flush by its participant count so the figure
+            # reads as mean staleness per *update*, not per flush — a
+            # one-update forced flush must not count like a full buffer.
+            "mean_staleness": float(
+                np.average(
+                    [r.staleness for r in async_records],
+                    weights=[max(len(r.participant_ids), 1) for r in async_records],
+                )
+            )
+            if async_records
+            else None,
             # DP runs: the final cumulative privacy budget (the last
             # record's epsilon — the accountant only ever grows it).
             "epsilon": next(
@@ -614,6 +639,13 @@ class Federation:
         self.recruitment_policy = resolve_recruitment(config.recruitment)
         self.selection_policy = resolve_selection(config.selection)
         self.aggregator = resolve_aggregator(config.aggregator)
+        if self.aggregator.mode == "buffered":
+            raise ValueError(
+                f"aggregator {config.aggregator!r} is asynchronous "
+                "(mode='buffered'); run it with "
+                "repro_torch.federated.runtime.AsyncFederation instead of the "
+                "synchronous Federation"
+            )
         if self.aggregator.mode not in AGGREGATION_MODES:
             raise ValueError(
                 f"aggregator mode {self.aggregator.mode!r} not in {AGGREGATION_MODES}"

@@ -1,5 +1,68 @@
-"""The async federation runtime's models.
+"""Async federation runtime: virtual-clock scheduling, stragglers, staleness.
 
-Only the latency and dropout models are ported so far (``latency.py``);
-the scheduler, the buffered aggregators and ``AsyncFederation`` are not.
+The port of the JAX package's ``federated/runtime/``.  Importing this
+package registers the buffered aggregators (``"fedbuff:K"``,
+``"hierarchical-async:R"``) into the shared aggregator registry (which
+also loads them on its first use) and exposes the latency/dropout model
+registries (``"constant"``, ``"lognormal:0.5"``, ``"pareto:1.5"``,
+``"trace"``, ``"bernoulli:0.1"``).  The entry point is
+:class:`AsyncFederation` driven by an :class:`AsyncFederationConfig`.  The
+reference's flush snapshot types (``AsyncFederationSnapshot``,
+``PendingEvent``) wait for the port of ``checkpoint/`` (ROADMAP Queue 1
+item 5).
 """
+
+from repro_torch.federated.runtime.async_federation import (
+    AsyncFederation,
+    AsyncFederationConfig,
+)
+from repro_torch.federated.runtime.latency import (
+    BernoulliDropout,
+    ConstantLatency,
+    DropoutModel,
+    LatencyModel,
+    LognormalLatency,
+    NeverDropout,
+    ParetoLatency,
+    TraceLatency,
+    available_runtime_models,
+    register_dropout,
+    register_latency,
+    resolve_dropout,
+    resolve_latency,
+)
+from repro_torch.federated.runtime.scheduler import Event, VirtualScheduler
+from repro_torch.federated.runtime.staleness import (
+    AsyncAggregator,
+    AsyncUpdate,
+    FedBuffAggregator,
+    HierarchicalAsyncAggregator,
+    polynomial_staleness_weight,
+    staleness_weights,
+)
+
+__all__ = [
+    "AsyncFederation",
+    "AsyncFederationConfig",
+    "AsyncAggregator",
+    "AsyncUpdate",
+    "FedBuffAggregator",
+    "HierarchicalAsyncAggregator",
+    "polynomial_staleness_weight",
+    "staleness_weights",
+    "Event",
+    "VirtualScheduler",
+    "LatencyModel",
+    "DropoutModel",
+    "ConstantLatency",
+    "LognormalLatency",
+    "ParetoLatency",
+    "TraceLatency",
+    "NeverDropout",
+    "BernoulliDropout",
+    "available_runtime_models",
+    "register_latency",
+    "register_dropout",
+    "resolve_latency",
+    "resolve_dropout",
+]

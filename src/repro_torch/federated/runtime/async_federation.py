@@ -1,0 +1,465 @@
+"""``AsyncFederation`` — the event-driven twin of ``Federation``.
+
+The port of the JAX package's ``federated/runtime/async_federation.py``.
+The synchronous facade runs a fixed round program behind a barrier: select,
+train everyone, aggregate, repeat.  This facade replaces the barrier with
+the virtual-clock scheduler: every *task* (one client for ``fedbuff``, one
+regional sub-federation for ``hierarchical-async``) is dispatched with the
+current global params, takes its latency model's virtual time, and lands
+in the server buffer when it completes; buffered aggregators decide when
+the buffer flushes into a new parameter version.  Completed tasks wait for
+the next flush before redispatching (dropped tasks retry immediately), so
+a flush boundary is exactly a parameter-version boundary.
+
+The engine hot path is untouched: each task executes through the same
+``Federation._train_group`` primitive the synchronous round program uses —
+one ``CohortTrainer.train_cohort`` call per task under the vectorized
+engine (a one-client cohort for ``fedbuff``), the per-client trainer under
+the sequential one.  The runtime only reorders *which* cohort chunks train
+against *which* parameter version.
+
+Seeded replay and the RNG contract
+----------------------------------
+An async run is a pure function of the seed.  Three streams advance in
+*dispatch order*, which the deterministic scheduler fixes:
+
+* the scheduler's own stream (``VirtualScheduler.rng``): every member's
+  latency, then every member's dropout, at dispatch — byte for byte the
+  reference's, so virtual times, event order and dropped tasks equal it;
+* the batch-plan generator ``default_rng(seed)``, consumed by the task's
+  schedule or plan, client-major;
+* the dropout-generator stream ``default_rng([seed, 2])`` (the synchronous
+  facade's): each dispatch draws one seed per *surviving* member
+  (``cohort.client_generators``) and trains that member with a
+  ``torch.Generator`` seeded with it.
+
+So the degenerate configuration (``fedbuff:K`` with ``K`` = all
+participants and a zero-spread latency model) consumes the same plans and
+the same generator seeds as a synchronous flat FedAvg round — the 1e-5
+parity gate — because ``client_generators`` drawn one at a time equals one
+draw of ``n``.
+
+Timeline bookkeeping lands where the synchronous records already live:
+each flush appends a :class:`~repro_torch.federated.api.RoundRecord` whose
+``virtual_time`` / ``staleness`` fields are populated, and
+``FederatedRunResult.summary()`` totals them alongside the host wall clock,
+so recruited-vs-all comparisons can quote *simulated time-to-target-loss*.
+
+Not ported yet: the flush snapshots (``snapshot_hook=``, ``resume=``,
+``AsyncFederationSnapshot``; ROADMAP Queue 1 item 5) and the observability
+hooks (``tracer=``, ``metrics=``, ``profiler=``; item 8).  They raise.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.data.pipeline import ClientDataset, cohort_steps_per_epoch
+from repro_torch.federated.api import (
+    Aggregator,
+    FederatedRunResult,
+    Federation,
+    FederationConfig,
+    RoundRecord,
+    resolve_aggregator,
+)
+from repro_torch.federated.cohort import client_generators
+from repro_torch.federated.fedavg import params_nbytes
+from repro_torch.federated.runtime.latency import (
+    DropoutModel,
+    LatencyModel,
+    resolve_dropout,
+    resolve_latency,
+)
+from repro_torch.federated.runtime.scheduler import VirtualScheduler
+from repro_torch.federated.runtime.staleness import AsyncAggregator, AsyncUpdate
+from repro_torch.optim.adamw import AdamW
+from repro_torch.privacy.accountant import RdpAccountant
+from repro_torch.tree import PyTree, tree_leaves, tree_map
+
+# Event kinds on the virtual timeline.
+COMPLETE = "complete"   # a dispatched task finished (payload: _Completion)
+FLUSH = "flush"         # the buffer crosses the aggregator's threshold
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"AsyncFederation {what} is not ported yet (ROADMAP Queue 1 item {item})"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncFederationConfig(FederationConfig):
+    """Declarative async federation: ``FederationConfig`` + the time axis.
+
+    Inherited fields keep their meaning, with two async readings:
+    ``rounds`` budgets *flushes* (server parameter versions — the async
+    unit of progress), and ``selection`` is unused (the dispatch model —
+    every task retrains as soon as the version it waits for exists — takes
+    the place of per-round sampling).  ``aggregator`` must resolve to a
+    buffered aggregator (``"fedbuff:K"`` / ``"hierarchical-async:R"`` or
+    an ``AsyncAggregator`` instance).
+    """
+
+    aggregator: str | Aggregator = "fedbuff"
+    # Virtual-time models, resolvable from spec strings like the policies.
+    latency: str | LatencyModel = "constant"
+    dropout: str | float | DropoutModel = "never"
+    # Max tasks training concurrently (FedBuff's M_max); None = no cap.
+    concurrency: int | None = None
+    # Early stops: flush-loss target and a virtual-clock ceiling.  Both
+    # None means the run uses its full ``rounds`` flush budget.
+    target_loss: float | None = None
+    max_virtual_time: float | None = None
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if int(self.rounds) < 1:
+            raise ValueError(f"need rounds >= 1 flush budget, got {self.rounds}")
+        if self.concurrency is not None and int(self.concurrency) < 1:
+            raise ValueError(f"concurrency must be >= 1, got {self.concurrency}")
+        if self.max_virtual_time is not None and not (self.max_virtual_time > 0):
+            raise ValueError(
+                f"max_virtual_time must be > 0, got {self.max_virtual_time}"
+            )
+
+
+@dataclasses.dataclass
+class _Completion:
+    """COMPLETE event payload: which task finished, and with what."""
+
+    group_index: int
+    update: AsyncUpdate | None  # None = the task dropped out (no result)
+
+
+class AsyncFederation:
+    """Runs buffered-async federated training on the virtual clock.
+
+    ``AsyncFederation(config, clients, loss_fn, optimizer, device=None)``
+    resolves the buffered aggregator and the latency/dropout models up front
+    (unknown specs fail here, not mid-run) and delegates recruitment and all
+    training to an inner synchronous :class:`Federation` so the two facades
+    share one engine surface.  ``device`` defaults to the card.
+    """
+
+    def __init__(
+        self,
+        config: AsyncFederationConfig,
+        clients: Sequence[ClientDataset],
+        loss_fn: Callable[..., Any],
+        optimizer: AdamW,
+        device: str | torch.device | None = None,
+        tracer: Any = None,
+        metrics: Any = None,
+        profiler: Any = None,
+    ) -> None:
+        if not isinstance(config, AsyncFederationConfig):
+            raise TypeError(
+                f"AsyncFederation needs an AsyncFederationConfig, "
+                f"got {type(config).__name__}"
+            )
+        for what, given in (("tracer=", tracer), ("metrics=", metrics),
+                            ("profiler=", profiler)):
+            if given is not None:
+                raise _unported(f"{what} (repro.obs)", 8)
+        self.config = config
+        self.aggregator = resolve_aggregator(config.aggregator)
+        if not isinstance(self.aggregator, AsyncAggregator):
+            raise ValueError(
+                f"aggregator {config.aggregator!r} is synchronous; the async "
+                "runtime needs a buffered aggregator ('fedbuff:K', "
+                "'hierarchical-async:R', or an AsyncAggregator instance) — "
+                "or run it with the synchronous Federation facade"
+            )
+        self.latency_model = resolve_latency(config.latency)
+        self.dropout_model = resolve_dropout(config.dropout)
+        # The inner facade carries recruitment + both engines; its own
+        # aggregator stage is fixed to the reduced hot path because every
+        # async task *is* one FedAvg-reduced engine group.
+        self._fed = Federation(
+            FederationConfig(
+                rounds=config.rounds,
+                local_epochs=config.local_epochs,
+                batch_size=config.batch_size,
+                recruitment=config.recruitment,
+                selection="uniform",
+                aggregator="fedavg",
+                seed=config.seed,
+                engine=config.engine,
+                cohort_chunk=config.cohort_chunk,
+                donate_buffers=config.donate_buffers,
+                staging=config.staging,
+                prefetch=config.prefetch,
+                resident_budget_bytes=config.resident_budget_bytes,
+                privacy=config.privacy,
+            ),
+            clients,
+            loss_fn,
+            optimizer,
+            device=device,
+        )
+        self.device = self._fed.device
+        self.last_run_stats: dict[str, Any] | None = None
+
+    @property
+    def cohort_trainer(self):
+        return self._fed.cohort_trainer
+
+    @property
+    def trainer(self):
+        return self._fed.trainer
+
+    def build_federation(self):
+        return self._fed.build_federation()
+
+    # ------------------------------------------------------------------
+    # the event loop
+    # ------------------------------------------------------------------
+
+    def run(
+        self,
+        init_params: PyTree,
+        progress: Callable[[RoundRecord], None] | None = None,
+        snapshot_hook: Callable[..., None] | None = None,
+        resume: Any = None,
+    ) -> FederatedRunResult:
+        """Run the event loop; ``progress`` receives each flush's record."""
+        if snapshot_hook is not None:
+            raise _unported("snapshot_hook= (flush snapshots)", 5)
+        if resume is not None:
+            raise _unported("resume= (flush snapshots)", 5)
+        cfg = self.config
+        fed = self._fed
+        device = self.device
+        cuda = device.type == "cuda"
+        rng = np.random.default_rng(cfg.seed)               # the batch-plan stream
+        generator_rng = np.random.default_rng([cfg.seed, 2])  # dropout generators
+        sched = VirtualScheduler(seed=cfg.seed)
+
+        federation_ids, recruitment = fed.build_federation()
+        members = {int(i): fed.all_clients[int(i)] for i in federation_ids}
+        groups = self.aggregator.task_groups(federation_ids)
+        flat = np.sort(np.concatenate([np.asarray(g) for g in groups]))
+        if not np.array_equal(flat, np.sort(np.asarray(federation_ids))):
+            raise ValueError("aggregator task groups must partition the federation")
+        self.aggregator.prepare(len(groups))
+        if fed.effective_engine == "vectorized" and cfg.staging == "resident":
+            # One upload for the whole federation; every task then stages
+            # only its int32 index plan against the resident arrays.
+            fed.cohort_trainer.attach_device_cohort(list(members.values()))
+        # Pin the step axis federation-wide so every task shares one
+        # schedule length whatever group mix the timeline produces.
+        spe = cohort_steps_per_epoch(
+            [c.n_train for c in members.values()], cfg.batch_size
+        )
+        total_weight = float(sum(c.n_train for c in members.values()))
+        n_tensors = len(tree_leaves(init_params))
+        model_nbytes = params_nbytes(init_params)
+
+        # DP runs carry one Rényi accountant across the whole event loop;
+        # each flush composes its participant fraction and stamps the
+        # record with the cumulative epsilon.
+        accountant = (
+            RdpAccountant(fed.dp.noise_multiplier, delta=fed.dp.delta)
+            if fed.dp is not None
+            else None
+        )
+        params = tree_map(lambda p: p.detach().to(device), init_params)
+        version = 0
+        buffer: list[AsyncUpdate] = []
+        # Two waiting states: ``ready`` tasks have not yet trained against
+        # the current parameter version and dispatch as soon as a
+        # concurrency slot frees (FedBuff's M_max semantics — a completion
+        # immediately funds the next dispatch, so a cap below the
+        # federation size never starves the tail of the task list);
+        # ``idle`` tasks have reported against the current version and
+        # wait for the next flush.
+        ready: collections.deque[int] = collections.deque(range(len(groups)))
+        idle: list[int] = []
+        in_flight = 0
+        flush_pending = False
+        history: list[RoundRecord] = []
+        stats = {"tasks": 0, "dropped": 0, "forced_flushes": 0, "steps_trained": 0}
+        # Consecutive fully-dropped completions since the last successful
+        # one.  Under dropout=1.0 no update can ever reach the server, so
+        # with no virtual-time ceiling the retry loop would spin forever;
+        # the drought threshold turns that into a loud error.  (At any
+        # p < 1 a run of this length has probability p**threshold —
+        # vanishingly small for every non-degenerate model.)
+        drought, drought_limit = 0, max(100, 20 * len(groups))
+        t_start = time.perf_counter()
+        t_last_flush = t_start
+
+        def dispatch(group_index: int) -> None:
+            """Train one task eagerly and schedule its completion.
+
+            Draw order is fixed per dispatch — every member's latency, then
+            every member's dropout, then the survivors' generator seeds and
+            training — so every stream advances identically on replay.
+            """
+            nonlocal in_flight
+            group = groups[group_index]
+            latency = max(
+                self.latency_model.sample(int(cid), members[int(cid)].n_train, sched.rng)
+                for cid in group
+            )
+            survivors = np.asarray(
+                [cid for cid in group if not self.dropout_model.drops(int(cid), sched.rng)]
+            )
+            update = None
+            if len(survivors):
+                generators = client_generators(generator_rng, len(survivors), device)
+                task_params, losses, steps = fed._train_group(
+                    params, survivors, rng, generators, spe
+                )
+                stats["steps_trained"] += steps
+                update = AsyncUpdate(
+                    client_ids=survivors,
+                    params=task_params,
+                    anchor=params,
+                    weight=float(sum(members[int(c)].n_train for c in survivors)),
+                    version=version,
+                    losses=np.asarray(losses, dtype=np.float32),
+                    local_steps=steps,
+                )
+            stats["tasks"] += 1
+            stats["dropped"] += len(group) - len(survivors)
+            in_flight += 1
+            sched.after(latency, COMPLETE, _Completion(group_index, update))
+
+        def dispatch_ready() -> None:
+            """Dispatch ready tasks in queue order, respecting concurrency."""
+            while ready and (cfg.concurrency is None or in_flight < cfg.concurrency):
+                dispatch(ready.popleft())
+
+        def flush() -> bool:
+            """Fold the buffer into a new param version; True = keep going."""
+            nonlocal params, version, buffer, t_last_flush
+            updates, buffer = buffer, []
+            staleness = self.aggregator.staleness_of(updates, version)
+            params = self.aggregator.combine(params, updates, version, total_weight)
+            version += 1
+            participant_ids = sorted(
+                {int(c) for u in updates for c in np.asarray(u.client_ids)}
+            )
+            losses = np.concatenate([u.losses for u in updates])
+            k = sum(len(u.client_ids) for u in updates)
+            epsilon = None
+            if accountant is not None:
+                accountant.step(len(participant_ids) / federation_ids.size)
+                epsilon = accountant.epsilon()
+            if cuda:
+                torch.cuda.synchronize(device)  # the combine is done too
+            now_host = time.perf_counter()
+            record = RoundRecord(
+                round_index=version - 1,
+                participant_ids=participant_ids,
+                mean_local_loss=float(np.nanmean(losses)) if len(losses) else float("nan"),
+                local_steps=sum(u.local_steps for u in updates),
+                params_down=k * n_tensors,
+                params_up=k * n_tensors,
+                bytes_transferred=2 * k * model_nbytes,
+                wall_time_s=now_host - t_last_flush,
+                virtual_time=sched.now,
+                staleness=float(staleness.mean()) if len(staleness) else 0.0,
+                epsilon=epsilon,
+            )
+            t_last_flush = now_host
+            history.append(record)
+            if progress is not None:
+                progress(record)
+            if version >= cfg.rounds:
+                return False
+            if cfg.target_loss is not None and record.mean_local_loss <= cfg.target_loss:
+                return False
+            return True
+
+        dispatch_ready()
+        while True:
+            if sched.empty:
+                if buffer and version < cfg.rounds:
+                    # Every task has reported but the buffer never crossed
+                    # the threshold (e.g. fedbuff:K over a federation of
+                    # fewer than K tasks): flush what there is rather than
+                    # deadlock — the semi-synchronous degenerate case.
+                    stats["forced_flushes"] += 1
+                    sched.schedule(sched.now, FLUSH)
+                    flush_pending = True
+                    continue
+                break
+            if (
+                cfg.max_virtual_time is not None
+                and sched.peek_time() > cfg.max_virtual_time
+            ):
+                break
+            event = sched.pop()
+            if event.kind == COMPLETE:
+                in_flight -= 1
+                done: _Completion = event.payload
+                if done.update is None:
+                    # Dropped: the client retries immediately — it never
+                    # blocks the buffer, so it cannot deadlock a flush.
+                    # (in_flight just fell below any concurrency cap, so the
+                    # retry always has a slot.)
+                    drought += 1
+                    if drought > drought_limit and cfg.max_virtual_time is None:
+                        raise RuntimeError(
+                            f"{drought} consecutive tasks dropped with no "
+                            "update reaching the server; the dropout model "
+                            "admits no progress — lower the dropout "
+                            "probability or set max_virtual_time to bound "
+                            "the simulation"
+                        )
+                    dispatch(done.group_index)
+                    continue
+                drought = 0
+                buffer.append(done.update)
+                idle.append(done.group_index)
+                # The completion freed a concurrency slot: fund the next
+                # not-yet-trained task with it right away.
+                dispatch_ready()
+                if self.aggregator.ready(len(buffer)) and not flush_pending:
+                    # Flush at the next event boundary (same time, later
+                    # seq): simultaneous completions land in one flush.
+                    sched.schedule(sched.now, FLUSH)
+                    flush_pending = True
+            elif event.kind == FLUSH:
+                flush_pending = False
+                if not buffer:
+                    continue
+                if not flush():
+                    break
+                # The new version exists: everyone who reported against the
+                # old one becomes ready again, behind any task still waiting
+                # for its first slot.
+                idle.sort()
+                ready.extend(idle)
+                idle.clear()
+                dispatch_ready()
+            else:  # pragma: no cover - no other kinds are scheduled
+                raise RuntimeError(f"unknown event kind {event.kind!r}")
+
+        if cuda:
+            torch.cuda.synchronize(device)
+        self.last_run_stats = {
+            **stats,
+            "virtual_time": sched.now,
+            "flushes": version,
+            "events": sched.processed,
+            "unflushed_updates": len(buffer),
+            "groups": len(groups),
+        }
+        return FederatedRunResult(
+            params=params,
+            history=history,
+            recruitment=recruitment,
+            federation_ids=federation_ids,
+            total_wall_time_s=time.perf_counter() - t_start,
+            total_local_steps=sum(r.local_steps for r in history),
+        )

@@ -114,12 +114,12 @@ def test_available_policies_are_the_references_less_the_unported_tiers():
     ours, theirs = api.available_policies(), jax_api.available_policies()
     assert ours["recruitment"] == theirs["recruitment"]
     assert ours["selection"] == theirs["selection"]
-    # fedbuff and hierarchical-async register with the reference's async
-    # runtime; krum and secagg-fedavg with the privacy tier, ported.
-    assert set(theirs["aggregator"]) - set(ours["aggregator"]) == {
-        "fedbuff", "hierarchical-async"}
+    # Every tier is ported: krum and secagg-fedavg register with the privacy
+    # tier, fedbuff and hierarchical-async with the async runtime.
+    assert ours["aggregator"] == theirs["aggregator"]
     assert set(ours["aggregator"]) == {
-        "fedavg", "hierarchical", "trimmed-mean", "krum", "secagg-fedavg"}
+        "fedavg", "hierarchical", "trimmed-mean", "krum", "secagg-fedavg",
+        "fedbuff", "hierarchical-async"}
     assert api.AGGREGATION_MODES == jax_api.AGGREGATION_MODES
     # A user's aggregator that names no mode gets every client's params.
     assert api.Aggregator.mode == jax_api.Aggregator.mode == "stacked"
@@ -194,7 +194,10 @@ def test_grouped_aggregators_must_partition_the_participants(cohorts):
             return [ids, ids[:1]]
 
     class Unknown(api.Aggregator):
-        mode = "buffered"
+        mode = "streamed"
+
+    class Buffered(api.Aggregator):
+        mode = "buffered"  # the async runtime's mode, as in the reference
 
     cfg = gru.GRUConfig(hidden_dim=4)
     params0 = gru.init_gru(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -205,4 +208,7 @@ def test_grouped_aggregators_must_partition_the_participants(cohorts):
         fed.run(params0)
     with pytest.raises(ValueError, match="not in"):
         api.Federation(api.FederationConfig(aggregator=Unknown()), cohort,
+                       gru.make_loss_fn(cfg), AdamW(), device="cpu")
+    with pytest.raises(ValueError, match="AsyncFederation"):
+        api.Federation(api.FederationConfig(aggregator=Buffered()), cohort,
                        gru.make_loss_fn(cfg), AdamW(), device="cpu")

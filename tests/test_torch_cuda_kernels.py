@@ -23,6 +23,10 @@ trains to rebuild staging's bits, chunks of one client included.
 DP-SGD: the per-example step (C·B clients of batch 1 on the kernels'
 client axis) on the card against the CPU (noise 0, dropout 0; 1e-5), and
 the two engines' DP rounds on the card with noise and dropout (1e-5).
+
+The async runtime: ``fedbuff`` at a full buffer with constant latency
+(one-client tasks) against a synchronous FedAvg round on the card, both
+engines (losses 1e-5, params 1e-4).
 """
 
 import numpy as np
@@ -511,3 +515,34 @@ def test_dp_engines_agree_on_the_card(cuda):
                              np.asarray([o[2] for o in outs], np.float32))
     assert np.abs(losses - np.asarray([o[1] for o in outs])).max() <= 1e-5
     assert max(max_err(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want))) <= 1e-5
+
+
+@pytest.mark.parametrize("engine", ["vectorized", "sequential"])
+def test_fedbuff_full_buffer_matches_sync_fedavg_on_the_card(cuda, engine):
+    """The async parity gate on the card: ``fedbuff:K`` at K = all clients
+    with constant latency trains one-client tasks against the flush's params
+    and equals a synchronous FedAvg round (losses 1e-5, params 1e-4; a C=1
+    task takes other last bits than the C=5 round), every staleness 0."""
+    from repro_torch.federated.api import Federation, FederationConfig
+    from repro_torch.federated.runtime import AsyncFederation, AsyncFederationConfig
+    from repro_torch.models import gru
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves
+
+    clients = dp_clients(np.random.default_rng(2), (40, 200, 130, 77, 260))
+    cfg = gru.GRUConfig(dropout=0.05)
+    params = gru.init_gru(torch.Generator().manual_seed(0), cfg, cuda)
+    base = dict(rounds=2, local_epochs=2, batch_size=128, seed=0, engine=engine)
+    sync = Federation(FederationConfig(**base), clients, gru.make_loss_fn(cfg), AdamW(),
+                      device=cuda).run(params)
+    before = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
+    asyn = AsyncFederation(
+        AsyncFederationConfig(**base, aggregator=f"fedbuff:{len(clients)}", latency="constant"),
+        clients, gru.make_loss_fn(cfg), AdamW(), device=cuda).run(params)
+    assert kernel.gru_scan.launches > before[0] and kernel.gru_scan_bwd.launches > before[1]
+    assert [r.staleness for r in asyn.history] == [0.0, 0.0]
+    assert [r.participant_ids for r in asyn.history] == [r.participant_ids for r in sync.history]
+    assert max(abs(a.mean_local_loss - s.mean_local_loss)
+               for a, s in zip(asyn.history, sync.history)) <= 1e-5
+    assert max(max_err(a, b) for a, b in zip(tree_leaves(asyn.params),
+                                             tree_leaves(sync.params))) <= 1e-4

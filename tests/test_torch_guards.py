@@ -241,14 +241,18 @@ def test_privacy_and_runtime_modules_pull_in_no_jax_and_no_repro():
                if m.startswith(("repro_torch.privacy", "repro_torch.federated.runtime"))]
     assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
             "repro_torch.privacy.secagg", "repro_torch.privacy.adversary",
-            "repro_torch.federated.runtime.latency"} <= set(modules)
+            "repro_torch.federated.runtime.latency", "repro_torch.federated.runtime.scheduler",
+            "repro_torch.federated.runtime.staleness",
+            "repro_torch.federated.runtime.async_federation"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "import repro_torch.privacy as p\n"
         "assert p.SecAggFedAvg and p.KrumAggregator and p.apply_scenario\n"
         "from repro_torch.federated.api import available_policies\n"
-        "assert {'krum', 'secagg-fedavg'} <= set(available_policies()['aggregator'])\n"
+        "assert {'krum', 'secagg-fedavg', 'fedbuff', 'hierarchical-async'} <= "
+        "set(available_policies()['aggregator'])\n"
+        "from repro_torch.federated.runtime import AsyncFederation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
