@@ -127,6 +127,26 @@ exit code and no result line:
              (sizes, flushes, tasks, dropped tasks, each flush's virtual
              time) equal to ``BENCH_async.json``'s; then one profiled flush
              of the recruited federation: the device's idle share.
+21. control plane — ``launch/federation_service.py`` at full width:
+             (a) ``job_spec_for("federated-arc", ExperimentConfig(rounds=3))``
+             submitted uninterrupted (A); through the CLI in a subprocess
+             with ``--preempt-after 1`` (exit 75), then ``resume`` through
+             the CLI (exit 0) (B); in a subprocess killed with SIGKILL once
+             its first snapshot has landed, then resumed (C);
+             ``diff_runs(B, A)`` and ``diff_runs(C, A)`` empty, each run's
+             largest final-param difference from A (at most 1e-5) and
+             whether it is bit for bit; the snapshot's bytes on disk, its
+             save and load times, a round's time with and without the
+             checkpoint; (b) the recruited 35 under ``fedbuff:0.25``,
+             ``lognormal:0.6`` and client dropout 0.05, 4 flushes of 1 epoch,
+             preempted at flush 2 and resumed: virtual times, staleness,
+             participants, tasks and dropped tasks exactly the uninterrupted
+             run's, params within 1e-5; (c) (a)'s job with DP (clip 1, noise
+             1), 2 rounds, cut after round 1: the epsilons exactly the
+             uninterrupted run's, params within 1e-5; (d)
+             ``run_service_overhead(device="cuda")`` at its defaults (not
+             gated: host timing noise).  Every run launches both GRU kernels;
+             the subprocesses report their counts.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -136,6 +156,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -153,6 +176,7 @@ PARITY_TOL = 1e-4
 ENGINE_LOSS_TOL = 1e-5       # the engines' round losses (phase 4)
 CHUNK_TOL = 1e-6             # chunked, prefetched, hierarchical against one chunk (phases 4, 16)
 DP_PARITY_TOL = 1e-5         # DP card against CPU; degenerate DP against none (phase 19)
+RESUME_TOL = 1e-5            # a resumed job's final params against the uninterrupted one's (phase 21)
 ARC_MSLE_TOL = 1e-4          # the engines' test MSLE on federated-arc (phase 13)
 MAX_RESIDENT_STAGED = 10_000_000   # bytes a resident arc round may stage (phase 13)
 SSD_TOL = 1e-4               # times max(1, max|ref|): sums of up to L*N and L*P products in another order
@@ -278,6 +302,10 @@ def main() -> int:
 
     # -- 20. the async runtime at full width -----------------------------------
     for kernel, n in run_async_phase(torch, K, cohort).items():
+        launches[kernel] += n
+
+    # -- 21. the control plane: submit, preempt, kill, resume ------------------
+    for kernel, n in run_control_plane_phase(torch, K).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -2291,6 +2319,304 @@ def profile_async_flush(torch, K, cohort, recruited) -> None:
          top_device_us={name[:80]: us for name, us in top})
     del fed
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 21: snapshots and the control plane
+# ---------------------------------------------------------------------------
+
+# A child that runs the job service's CLI and reports its GRU launches as the
+# last line of its standard error.
+CLI_CHILD = """
+import json, sys
+from repro_torch.kernels.gru_scan import kernel as K
+from repro_torch.launch.federation_service import main
+rc = main(sys.argv[1:])
+print(json.dumps({"gru_scan": K.gru_scan.launches, "gru_scan_bwd": K.gru_scan_bwd.launches}),
+      file=sys.stderr, flush=True)
+sys.exit(rc)
+"""
+# A child that submits a job and prints its GRU launches after every record.
+COUNTING_CHILD = """
+import json, sys
+from repro_torch.kernels.gru_scan import kernel as K
+from repro_torch.launch.federation_service import submit_job
+
+def report(record):
+    print(json.dumps({"round": record.round_index, "gru_scan": K.gru_scan.launches,
+                      "gru_scan_bwd": K.gru_scan_bwd.launches}), flush=True)
+
+submit_job(json.loads(sys.argv[1]), sys.argv[2], subscribers=[report], device="cuda")
+"""
+
+
+def child_env() -> dict:
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def run_cli_child(*argv) -> tuple[int, dict[str, int], float]:
+    """The CLI in a subprocess: its exit code, GRU launches and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_CHILD, *argv], env=child_env(),
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stderr.strip().splitlines()
+    require(bool(lines) and lines[-1].startswith("{"),
+            f"CLI child {argv[:1]} reported no counts: {proc.stderr[-2000:]}")
+    return proc.returncode, json.loads(lines[-1]), seconds
+
+
+def kill_after_first_snapshot(spec: dict, run_dir: Path) -> tuple[dict[str, int], int, float]:
+    """Submit ``spec`` in a subprocess and SIGKILL it as soon as its first
+    snapshot's manifest exists: the launches it reported by then, the
+    records it had streamed, and the seconds it ran."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", COUNTING_CHILD, json.dumps(spec),
+                             str(run_dir)], env=child_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        while not (run_dir / "checkpoint" / "snapshot.json").exists():
+            if proc.poll() is not None:  # read stderr only once the child is gone
+                require(False, f"the job to kill ended first: {proc.stderr.read()[-2000:]}")
+            require(time.perf_counter() - t0 < 600, "no snapshot within 600 s")
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGKILL)
+    finally:
+        out, _ = proc.communicate(timeout=120)
+    require(proc.returncode == -signal.SIGKILL, f"the killed job exited {proc.returncode}")
+    reports = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    require(bool(reports), "the killed job reported no record")
+    last = reports[-1]
+    return ({k: last[k] for k in ("gru_scan", "gru_scan_bwd")}, len(reports),
+            time.perf_counter() - t0)
+
+
+def final_arrays(run_dir: Path) -> dict:
+    import numpy as np
+
+    with np.load(run_dir / "final" / "arrays.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def resume_fields(run_dir: Path, reference: Path) -> dict:
+    """A resumed run against the uninterrupted one: ``diff_runs``, the
+    largest final-param difference and whether the params are the same bits."""
+    import numpy as np
+
+    from repro_torch.launch.federation_service import diff_runs
+
+    a, b = final_arrays(run_dir), final_arrays(reference)
+    return dict(diff_runs=diff_runs(str(run_dir), str(reference)),
+                max_param_diff=max(float(np.max(np.abs(a[k] - b[k]))) for k in a),
+                bitwise=all(a[k].tobytes() == b[k].tobytes() for k in a))
+
+
+def run_control_plane_phase(torch, K) -> dict[str, int]:
+    """Phase 21: (a) the sync arc job uninterrupted, preempted through the
+    CLI and resumed, killed and resumed; the snapshot's size and times;
+    (b) an async job preempted and resumed; (c) a DP job cut and resumed;
+    (d) the service overhead."""
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.experiments.paper import (
+        ExperimentConfig,
+        build_cohort,
+        job_spec_for,
+        policies_for,
+        run_service_overhead,
+    )
+    from repro_torch.federated.api import FederationSnapshot
+    from repro_torch.launch.federation_service import (
+        EX_TEMPFAIL,
+        JobPreempted,
+        read_records,
+        resume_job,
+        status_job,
+        submit_job,
+    )
+    from repro_torch.models.gru import GRUConfig, init_gru
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "control_plane"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+
+    def counted(what, counts):
+        require(counts["gru_scan"] > 0 and counts["gru_scan_bwd"] > 0,
+                f"{what} launched a GRU kernel no time: {counts}")
+        for k in total:
+            total[k] += counts[k]
+        return counts
+
+    def in_process(what, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        reset_gru_counts(K)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds = time.perf_counter() - t0
+        return out, counted(what, gru_counts(K)), seconds
+
+    def records(run_dir):
+        return read_records(str(run_dir / "records.jsonl"))
+
+    # (a) the sync arc job, four ways
+    exp = ExperimentConfig(rounds=3)
+    spec = job_spec_for("federated-arc", exp, seed=0)
+    sizes = {c.client_id: c.n_train for c in build_client_datasets(build_cohort(exp, seed=0))}
+    run_a, run_b, run_c = (work / name for name in ("A", "B", "C"))
+    emitted = []
+    result_a, counts_a, seconds_a = in_process(
+        "A", submit_job, spec, str(run_a), device="cuda",
+        subscribers=[lambda r: emitted.append(time.perf_counter())])
+    recs_a = records(run_a)
+    check_launches("control plane A", counts_a,
+                   schedule_steps(recs_a, sizes, exp.batch_size, exp.local_epochs), 0)
+    torch.cuda.empty_cache()
+    spec_path = work / "arc.json"
+    spec_path.write_text(json.dumps(spec))
+    rc1, counts_b1, seconds_b1 = run_cli_child(
+        "submit", "--spec", str(spec_path), "--run-dir", str(run_b), "--preempt-after", "1",
+        "--quiet", "--device", "cuda")
+    require(rc1 == EX_TEMPFAIL, f"the preempted CLI submit exited {rc1}, not {EX_TEMPFAIL}")
+    status_b = status_job(str(run_b))
+    require(status_b["status"] == "preempted" and status_b["checkpoint_round"] == 1,
+            f"B after preemption: {status_b}")
+    rc2, counts_b2, seconds_b2 = run_cli_child("resume", "--run-dir", str(run_b), "--quiet",
+                                               "--device", "cuda")
+    require(rc2 == 0, f"the CLI resume exited {rc2}")
+    recs_b = records(run_b)
+    check_launches("control plane B (submit)", counted("B submit", counts_b1),
+                   schedule_steps(recs_b[:1], sizes, exp.batch_size, exp.local_epochs), 0)
+    check_launches("control plane B (resume)", counted("B resume", counts_b2),
+                   schedule_steps(recs_b[1:], sizes, exp.batch_size, exp.local_epochs), 0)
+    counts_c1, streamed, seconds_c1 = kill_after_first_snapshot(spec, run_c)
+    counted("C before the kill", counts_c1)
+    status_c = status_job(str(run_c))
+    require(status_c["status"] == "submitted", f"C after the kill: {status_c}")
+    result_c, counts_c2, seconds_c2 = in_process("C resume", resume_job, str(run_c),
+                                                 device="cuda")
+    require(1 <= result_c["resumed_from"] < exp.rounds, f"C resumed from {result_c}")
+    fields = {}
+    for name, run_dir in (("B", run_b), ("C", run_c)):
+        fields[name] = resume_fields(run_dir, run_a)
+        require(fields[name]["diff_runs"] == [],
+                f"{name} differs from the uninterrupted run: {fields[name]['diff_runs']}")
+        require(fields[name]["max_param_diff"] <= RESUME_TOL,
+                f"{name}'s params differ by {fields[name]['max_param_diff']}")
+
+    # the snapshot: bytes on disk, save and load times
+    ckpt = run_a / "checkpoint"
+    snap_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    like = init_gru(torch.Generator().manual_seed(0), GRUConfig(), "cuda")
+    load_ms, save_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = FederationSnapshot.load(str(ckpt), like)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        snap.save(str(work / "snapshot_copy"), extra_state={"spec_hash": "timing"})
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    round_s = [r.round_time_s for r in recs_a]
+    # record to record: a round plus the previous round's snapshot and streams
+    with_checkpoint_s = [b - a for a, b in zip(emitted, emitted[1:])]
+    emit(phase="control_plane_sync", setting="federated-arc", rounds=exp.rounds,
+         spec_hash=result_a["spec_hash"], federation_size=result_a["summary"]["federation_size"],
+         seconds={"A": seconds_a, "B_submit": seconds_b1, "B_resume": seconds_b2,
+                  "C_until_killed": seconds_c1, "C_resume": seconds_c2},
+         cli_exit_codes=[rc1, rc2], records_streamed_before_kill=streamed,
+         resumed_from={"B": status_b["checkpoint_round"], "C": result_c["resumed_from"]},
+         round_times_s=round_s, record_to_record_s=with_checkpoint_s,
+         mean_local_loss=[r.mean_local_loss for r in recs_a],
+         resumed=fields, launches={"A": counts_a, "B_submit": counts_b1, "B_resume": counts_b2,
+                                   "C_until_killed": counts_c1, "C_resume": counts_c2})
+    emit(phase="control_plane_snapshot", bytes_on_disk=snap_bytes,
+         files={f.name: f.stat().st_size for f in ckpt.iterdir()},
+         save_ms=save_ms, load_ms=load_ms, save_ms_min=min(save_ms), load_ms_min=min(load_ms),
+         save_share_of_round=min(save_ms) / 1e3 / (sum(round_s) / len(round_s)))
+    torch.cuda.empty_cache()
+
+    # (b) an async job on the recruited federation, preempted at flush 2
+    async_spec = {
+        "name": "arc-async", "mode": "async", "rounds": 4, "local_epochs": 1,
+        "batch_size": exp.batch_size, "seed": 0,
+        "recruitment": policies_for("federated-arc", exp)["recruitment"],
+        "aggregator": "fedbuff:0.25", "latency": "lognormal:0.6", "dropout": "bernoulli:0.05",
+        "data": {"scale": exp.cohort_scale, "seed": 0},
+        "optimizer": {"learning_rate": exp.learning_rate, "weight_decay": exp.weight_decay},
+    }
+    run_d, run_e = work / "async-full", work / "async-cut"
+    result_d, counts_d, seconds_d = in_process("async full", submit_job, async_spec,
+                                               str(run_d), device="cuda")
+
+    def preempted(spec_, run_dir, at):
+        try:
+            submit_job(spec_, str(run_dir), device="cuda", preempt_after=at)
+        except JobPreempted:
+            return status_job(str(run_dir))
+        require(False, f"{run_dir.name} was not preempted at {at}")
+
+    status_e, counts_e1, seconds_e1 = in_process("async cut", preempted, async_spec, run_e, 2)
+    require(status_e["status"] == "preempted" and status_e["checkpoint_round"] == 2,
+            f"the async job after preemption: {status_e}")
+    result_e, counts_e2, seconds_e2 = in_process("async resume", resume_job, str(run_e),
+                                                 device="cuda")
+    recs_d, recs_e = records(run_d), records(run_e)
+
+    def timeline(recs):
+        return [(r.round_index, r.virtual_time, r.staleness, r.participant_ids) for r in recs]
+
+    tallies = {name: {k: out["summary"]["metrics"]["counters"].get(k, 0)
+                      for k in ("async.tasks", "async.dropped")}
+               for name, out in (("full", result_d), ("resumed", result_e))}
+    async_fields_ = resume_fields(run_e, run_d)
+    emit(phase="control_plane_async", federation_size=result_d["summary"]["federation_size"],
+         aggregator="fedbuff:0.25", latency="lognormal:0.6", dropout=0.05, flushes=len(recs_d),
+         virtual_times=[r.virtual_time for r in recs_d], staleness=[r.staleness for r in recs_d],
+         participants=[len(r.participant_ids) for r in recs_d], tallies=tallies,
+         timeline_equal=timeline(recs_e) == timeline(recs_d), resumed=async_fields_,
+         flush_times_s=[r.round_time_s for r in recs_d],
+         seconds={"full": seconds_d, "cut": seconds_e1, "resume": seconds_e2},
+         launches={"full": counts_d, "cut": counts_e1, "resume": counts_e2})
+    require(timeline(recs_e) == timeline(recs_d),
+            "the resumed async job's timeline differs from the uninterrupted one's")
+    require(tallies["full"] == tallies["resumed"], f"async tallies differ: {tallies}")
+    require(async_fields_["diff_runs"] == [], f"async: {async_fields_['diff_runs']}")
+    require(async_fields_["max_param_diff"] <= RESUME_TOL,
+            f"async params differ by {async_fields_['max_param_diff']}")
+    torch.cuda.empty_cache()
+
+    # (c) the arc job under DP, 2 rounds, cut after round 1
+    dp_spec = {**spec, "name": "federated-arc-dp", "rounds": 2,
+               "privacy": {"clip_norm": 1.0, "noise_multiplier": 1.0}}
+    run_f, run_g = work / "dp-full", work / "dp-cut"
+    _, counts_f, seconds_f = in_process("DP full", submit_job, dp_spec, str(run_f),
+                                        device="cuda")
+    _, counts_g1, seconds_g1 = in_process("DP cut", preempted, dp_spec, run_g, 1)
+    _, counts_g2, seconds_g2 = in_process("DP resume", resume_job, str(run_g), device="cuda")
+    eps = {name: [r.epsilon for r in records(d)] for name, d in (("full", run_f),
+                                                                   ("resumed", run_g))}
+    dp_fields = resume_fields(run_g, run_f)
+    emit(phase="control_plane_dp", setting="federated-arc", privacy=dp_spec["privacy"],
+         epsilons=eps, resumed=dp_fields,
+         round_times_s=[r.round_time_s for r in records(run_f)],
+         seconds={"full": seconds_f, "cut": seconds_g1, "resume": seconds_g2},
+         launches={"full": counts_f, "cut": counts_g1, "resume": counts_g2})
+    require(eps["full"] == eps["resumed"] and all(e > 0 for e in eps["full"]),
+            f"DP epsilons differ across the resume: {eps}")
+    require(dp_fields["diff_runs"] == [], f"DP: {dp_fields['diff_runs']}")
+    require(dp_fields["max_param_diff"] <= RESUME_TOL,
+            f"DP params differ by {dp_fields['max_param_diff']}")
+    torch.cuda.empty_cache()
+
+    # (d) the control plane's overhead against a direct run (not gated)
+    report, counts_h, seconds_h = in_process("service overhead", run_service_overhead,
+                                             device="cuda", verbose=False)
+    emit(phase="service_overhead", **report, seconds=seconds_h, launches=counts_h)
+    shutil.rmtree(work, ignore_errors=True)
+    emit(phase="control_plane_seconds", seconds=time.perf_counter() - t_phase)
+    return total
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ runs the five settings at 189 clients on both engines,
 ``run_privacy_frontier`` the privacy tier's utility and robustness
 frontiers, and ``run_async_comparison`` recruited against all-clients
 federations on the async runtime's virtual clock (``time_to_target``).
+``job_spec_for`` renders a setting as a control-plane job spec,
+``run_settings_as_jobs`` submits settings through the control plane and
+``run_service_overhead`` times the control plane against a direct run.
 """
 
 from __future__ import annotations
@@ -818,4 +821,192 @@ def run_async_comparison(
                     "on the virtual clock",
                     flush=True,
                 )
+    return report
+
+
+def job_spec_for(setting: str, exp: ExperimentConfig, seed: int = 0) -> dict[str, Any]:
+    """One section-6 setting -> a control-plane job spec (a submit file).
+
+    The declarative twin of :func:`run_setting`: the same ``policies_for``
+    translation table rendered as the JSON the
+    :mod:`repro_torch.launch.federation_service` CLI accepts, so every paper
+    setting can run as a submitted job with checkpoint/resume and a
+    streamed record file.  ``central`` is pooled training, not a federation
+    — it has no job-spec form.  The port's ``ExperimentConfig`` has no
+    ``mesh`` and no ``use_pallas``, so the spec carries the reference's
+    defaults for them (``null``, ``false``) and equals (and hashes as) the
+    reference's for the same settings; ``exp.device`` and ``exp.privacy``
+    are not part of it, as in the reference.
+    """
+    if setting == "central":
+        raise ValueError("'central' is pooled training, not a federated job")
+    if setting not in MODEL_SETTINGS:
+        raise ValueError(f"unknown setting {setting}; choose from {MODEL_SETTINGS}")
+    policies = policies_for(setting, exp)
+    if not all(isinstance(v, str) for v in policies.values()):
+        raise ValueError(
+            "job specs are JSON: policy overrides must be spec strings, "
+            "not instances"
+        )
+    return {
+        "name": setting,
+        "mode": "sync",
+        "rounds": exp.rounds,
+        "local_epochs": exp.local_epochs,
+        "batch_size": exp.batch_size,
+        "seed": seed,
+        **policies,
+        "engine": exp.engine,
+        "cohort_chunk": exp.cohort_chunk,
+        "mesh": None,
+        "staging": exp.staging,
+        "prefetch": exp.prefetch,
+        "donate_buffers": exp.donate_buffers,
+        "data": {"scale": exp.cohort_scale, "seed": seed},
+        "model": {"use_pallas": False},
+        "optimizer": {
+            "learning_rate": exp.learning_rate,
+            "weight_decay": exp.weight_decay,
+        },
+    }
+
+
+def run_settings_as_jobs(
+    exp: ExperimentConfig,
+    run_root: str,
+    *,
+    settings: tuple[str, ...] = ("federated-ac", "federated-src"),
+    seed: int = 0,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """Submit section-6 settings through the control plane, on ``device``
+    (``None``: ``exp.device``, whose ``None`` is the card).
+
+    Each setting becomes one run directory under ``run_root`` (job.json,
+    records.jsonl, metrics.jsonl, checkpoint/, final/, result.json).
+    Test-split metric evaluation stays with :func:`run_setting`.
+    """
+    import os
+
+    from repro_torch.launch.federation_service import submit_job
+
+    dev = resolve_device(device if device is not None else exp.device)
+    results: dict[str, Any] = {}
+    for setting in settings:
+        spec = job_spec_for(setting, exp, seed=seed)
+        out = submit_job(spec, os.path.join(run_root, setting), device=dev)
+        if verbose:
+            s = out["summary"]
+            print(
+                f"  [job {setting}] rounds={s['rounds']} "
+                f"federation={s['federation_size']} "
+                f"tau={s['total_wall_time_s']:.1f}s",
+                flush=True,
+            )
+        results[setting] = out
+    return results
+
+
+def run_service_overhead(
+    *,
+    rounds: int = 6,
+    local_epochs: int = 1,
+    batch_size: int = 8,
+    seed: int = 0,
+    scale: float = 0.02,
+    checkpoint_every: int = 2,
+    repeats: int = 3,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """The control-plane tax: a submitted job vs direct ``Federation.run``.
+
+    Both paths execute the identical workload — ``build_workload`` on the
+    same normalized spec, then the same facade run on ``device`` (``None``
+    is the card) — but the submitted job also pays validation and spec
+    hashing, job.json, the per-round JSONL record and metrics streams,
+    snapshots at ``checkpoint_every`` and the final-params save.  The
+    reference's budget for that envelope is 2% over the direct run.
+
+    Each path's *floor* over alternating end-to-end repeats (the first
+    repeat of each excluded: it pays first-call costs) isolates the
+    systematic cost from additive timing noise; per-repeat totals ship in
+    the report so the probe's own resolution is visible.
+    """
+    import tempfile
+    import time
+
+    from repro_torch.launch.federation_service import (
+        build_workload,
+        federation_config_from_spec,
+        submit_job,
+        validate_job_spec,
+    )
+
+    dev = resolve_device(device)
+    spec = validate_job_spec(
+        {
+            "name": "service-overhead",
+            "mode": "sync",
+            "rounds": rounds,
+            "local_epochs": local_epochs,
+            "batch_size": batch_size,
+            "seed": seed,
+            "recruitment": "all",
+            "selection": "uniform",
+            "checkpoint_every": checkpoint_every,
+            "data": {"scale": scale, "seed": seed, "split_mode": "stratified"},
+            "model": {"hidden_dim": 8, "num_layers": 1},
+        }
+    )
+
+    def direct_total() -> float:
+        t0 = time.perf_counter()
+        workload = build_workload(spec, dev)
+        federation = Federation(
+            federation_config_from_spec(spec),
+            workload.clients,
+            workload.loss_fn,
+            workload.optimizer,
+            device=dev,
+        )
+        federation.run(workload.init_params)  # synchronizes the card each round
+        return time.perf_counter() - t0
+
+    def service_total() -> float:
+        with tempfile.TemporaryDirectory() as run_dir:
+            t0 = time.perf_counter()
+            submit_job(spec, run_dir, device=dev)
+            return time.perf_counter() - t0
+
+    # Alternate the paths so a throttling window cannot hit only one.
+    direct_totals, service_totals = [], []
+    for _ in range(max(repeats, 1) + 1):
+        direct_totals.append(direct_total())
+        service_totals.append(service_total())
+    direct = float(np.min(direct_totals[1:]))
+    service = float(np.min(service_totals[1:]))
+    overhead = service / direct - 1.0
+    report = {
+        "bench": "service_overhead",
+        "device": str(dev),
+        "rounds": rounds,
+        "batch_size": batch_size,
+        "checkpoint_every": checkpoint_every,
+        "repeats": repeats,
+        "direct_total_s": direct,
+        "service_total_s": service,
+        "direct_totals": direct_totals,
+        "service_totals": service_totals,
+        "overhead_frac": overhead,
+        "budget_frac": 0.02,
+        "within_budget": bool(overhead <= 0.02),
+    }
+    if verbose:
+        print(
+            f"  [service] direct={direct:.4f}s submitted={service:.4f}s "
+            f"overhead={100 * overhead:+.2f}% (budget 2%)",
+            flush=True,
+        )
     return report

@@ -36,7 +36,17 @@ order match it), and the dropout generators come from
 ``default_rng([seed, 2])``: each round draws one seed per participant, in
 participant order, and seeds a ``torch.Generator`` on the training device
 with it (``cohort.client_generators``).  Both engines train client ``i`` of
-a round with the same generator, so they draw identical masks.
+a round with the same generator, so they draw identical masks.  A run
+resumed from a :class:`FederationSnapshot` (params, round index, both
+streams' states, the record history and the selection policy's adaptive
+state) continues exactly where the interrupted one left off.
+
+Observability: each run folds its records and the cohort engine's
+``last_round_stats`` into a ``repro_torch.obs.MetricsRegistry``
+(``Federation(metrics=)``; the final snapshot is
+``FederatedRunResult.metrics``).  The reference's span tracer and round
+profiler (``tracer=``, ``profiler=``) and its ``jit.*`` compile counters
+wait for ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -69,12 +79,13 @@ from repro_torch.federated.fedavg import (
     trimmed_mean_stacked,
 )
 from repro_torch.federated.selection import round_robin_clients, select_clients
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.optim.adamw import AdamW
 from repro_torch.privacy.accountant import RdpAccountant
 from repro_torch.privacy.dp import DPConfig, resolve_dp
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
-ENGINES = ("vectorized", "sequential")
+ENGINES = ("sequential", "vectorized")  # the reference's order, which its error messages print
 AGGREGATION_MODES = ("reduced", "grouped", "stacked")
 
 
@@ -118,6 +129,18 @@ class SelectionPolicy:
         raise NotImplementedError
 
     def observe(self, participant_ids: np.ndarray, losses: np.ndarray) -> None:
+        pass
+
+    def state_dict(self) -> dict:
+        """JSON-serializable adaptive state for checkpoint/resume.
+
+        Stateless policies (the default) return ``{}``; adaptive ones
+        (e.g. loss-weighted) must round-trip everything ``observe``
+        accumulated, or a resumed run diverges from the uninterrupted one.
+        """
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
         pass
 
 
@@ -412,6 +435,12 @@ class LossWeightedSelection(SelectionPolicy):
             if np.isfinite(loss):
                 self._loss[int(cid)] = float(loss)
 
+    def state_dict(self) -> dict:
+        return {"loss": {str(cid): loss for cid, loss in self._loss.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._loss = {int(cid): float(v) for cid, v in state.get("loss", {}).items()}
+
     def select(self, round_index, federation_ids, rng) -> np.ndarray:
         ids = np.asarray(federation_ids)
         count = _round_count(self.fraction, self.count, len(ids))
@@ -517,10 +546,20 @@ class RoundRecord:
         return self.wall_time_s
 
     def to_state(self) -> dict:
-        """JSON-serializable form, with the reference's field names."""
+        """JSON-serializable form — one JSONL line of the record stream,
+        with the reference's field names."""
         state = dataclasses.asdict(self)
         state["round_time_s"] = state.pop("wall_time_s")
         return state
+
+    @classmethod
+    def from_state(cls, state: dict) -> "RoundRecord":
+        """The inverse of :meth:`to_state`; the legacy ``wall_time_s`` key
+        is accepted too."""
+        state = dict(state)
+        if "round_time_s" in state:
+            state["wall_time_s"] = state.pop("round_time_s")
+        return cls(**state)
 
 
 @dataclasses.dataclass
@@ -531,7 +570,8 @@ class FederatedRunResult:
     federation_ids: np.ndarray
     total_wall_time_s: float
     total_local_steps: int
-    # The reference's metrics-registry snapshot; the registry is not ported yet.
+    # The run's final metrics snapshot (repro_torch.obs.MetricsRegistry):
+    # staging/pool counters, comms bytes, DP epsilon, round times and losses.
     metrics: dict[str, Any] | None = None
 
     def summary(self) -> dict[str, Any]:
@@ -570,6 +610,93 @@ class FederatedRunResult:
             ),
             "metrics": self.metrics,
         }
+
+
+# ---------------------------------------------------------------------------
+# checkpoint / resume
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FederationSnapshot:
+    """Everything ``Federation.run`` needs to continue from a round boundary.
+
+    Captured by the ``snapshot_hook`` after each round's record lands (and
+    after ``progress``) and fed back through ``Federation.run(...,
+    resume=snapshot)``: the resumed run restores the params exactly (npz
+    round trips are bit-exact), both numpy streams, the record history and
+    any adaptive selection-policy state, so it consumes the batches and
+    dropout generators the uninterrupted run would have.  Recruitment is not
+    snapshotted: it derives from the seed and is re-run on resume.
+
+    One field differs from the reference's snapshot: in place of
+    ``jax_key_data`` (the raw data of the reference's jax key chain) it
+    holds ``generator_rng_state``, the ``bit_generator.state`` of the
+    dropout-generator stream ``default_rng([seed, 2])``, from which each
+    round draws its participants' ``torch.Generator`` seeds.
+    """
+
+    round_index: int              # the next round to run
+    params: PyTree
+    np_rng_state: dict            # batch-plan generator bit_generator.state
+    generator_rng_state: dict     # dropout-generator stream bit_generator.state
+    history: list[RoundRecord]
+    selection_state: dict
+
+    def save(self, directory: str, extra_state: dict | None = None) -> None:
+        """Persist atomically via ``repro_torch.checkpoint.store`` (overwrites)."""
+        from repro_torch.checkpoint.store import save_federation_snapshot
+
+        state = {
+            "kind": "sync",
+            "round_index": int(self.round_index),
+            "np_rng_state": self.np_rng_state,
+            "generator_rng_state": self.generator_rng_state,
+            "history": [r.to_state() for r in self.history],
+            "selection_state": self.selection_state,
+        }
+        state.update(extra_state or {})
+        save_federation_snapshot(directory, trees={"params": self.params}, state=state)
+
+    @classmethod
+    def load(cls, directory: str, like_params: PyTree) -> "FederationSnapshot":
+        """The snapshot in ``directory``; params take ``like_params``'s
+        dtypes and devices."""
+        from repro_torch.checkpoint.store import load_federation_snapshot
+
+        trees, _, state = load_federation_snapshot(directory, like_params)
+        if state.get("kind") != "sync":
+            raise ValueError(
+                f"snapshot in {directory} is {state.get('kind')!r}, not a "
+                "synchronous federation snapshot"
+            )
+        return cls(
+            round_index=int(state["round_index"]),
+            params=trees["params"],
+            np_rng_state=state["np_rng_state"],
+            generator_rng_state=generator_rng_state(state, directory),
+            history=[RoundRecord.from_state(r) for r in state["history"]],
+            selection_state=state.get("selection_state", {}),
+        )
+
+
+def generator_rng_state(state: dict, directory: str) -> dict:
+    """A snapshot's dropout-generator stream state; a snapshot of the JAX
+    package carries its jax key data instead, and the port cannot continue
+    that run (its dropout and noise streams are jax's)."""
+    if "generator_rng_state" not in state:
+        raise ValueError(
+            f"snapshot in {directory} holds no generator_rng_state (a snapshot "
+            "written by the JAX package holds jax key data instead); the port "
+            "cannot resume it"
+        )
+    return state["generator_rng_state"]
+
+
+def _unported_hook(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} (repro.obs) is not ported yet (ROADMAP Queue 1 item 8)"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +751,9 @@ class Federation:
 
     ``Federation(config, clients, loss_fn, optimizer, device=None)`` resolves
     the three policy stages up front (unknown spec strings fail here, not
-    mid-run).  ``device`` defaults to the card.
+    mid-run).  ``device`` defaults to the card.  ``metrics`` is the registry
+    each round is folded into (a new one when ``None``); ``tracer`` and
+    ``profiler`` raise (ROADMAP Queue 1 item 8).
     """
 
     def __init__(
@@ -634,8 +763,15 @@ class Federation:
         loss_fn: Callable[..., Any],
         optimizer: AdamW,
         device: str | torch.device | None = None,
+        tracer: Any = None,
+        metrics: MetricsRegistry | None = None,
+        profiler: Any = None,
     ) -> None:
+        for what, given in (("tracer=", tracer), ("profiler=", profiler)):
+            if given is not None:
+                raise _unported_hook(f"Federation {what}")
         self.config = config
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.recruitment_policy = resolve_recruitment(config.recruitment)
         self.selection_policy = resolve_selection(config.selection)
         self.aggregator = resolve_aggregator(config.aggregator)
@@ -770,14 +906,76 @@ class Federation:
         )
         return self.aggregator.aggregate(stack_trees(client_params), weights), losses, steps
 
+    # -- observability --------------------------------------------------------
+
+    def _absorb_round_metrics(self, record: RoundRecord) -> None:
+        """Fold a finished round into the metrics registry.
+
+        The record's comms accounting and loss, and the cohort engine's
+        ``last_round_stats`` (staged bytes, prefetched plans, pool uploads
+        and evictions), become the typed counters, gauges and histograms
+        the control plane streams as ``metrics.jsonl``, under the
+        reference's names — except the engine's peak, which is the card's
+        allocator peak here (``staging.peak_device_bytes``, set on the card
+        only) where the reference estimates live bytes
+        (``staging.peak_live_bytes``).
+        """
+        m = self.metrics
+        m.counter("rounds.completed").inc()
+        m.counter("comms.params_down").inc(record.params_down)
+        m.counter("comms.params_up").inc(record.params_up)
+        m.counter("comms.bytes_down").inc(record.bytes_transferred // 2)
+        m.counter("comms.bytes_up").inc(
+            record.bytes_transferred - record.bytes_transferred // 2
+        )
+        m.counter("train.local_steps").inc(record.local_steps)
+        m.histogram("round.time_s").observe(record.wall_time_s)
+        if np.isfinite(record.mean_local_loss):
+            m.histogram("round.loss").observe(record.mean_local_loss)
+        if record.epsilon is not None:
+            m.gauge("privacy.epsilon").set(record.epsilon)
+        if record.staleness is not None:
+            m.histogram("async.staleness").observe(record.staleness)
+        if record.virtual_time is not None:
+            m.gauge("async.virtual_time").set(record.virtual_time)
+        stats = self.cohort_trainer.last_round_stats
+        if stats:
+            m.counter("staging.bytes_staged").inc(stats.get("bytes_staged", 0))
+            m.counter("staging.plans_prefetched").inc(stats.get("plans_prefetched", 0))
+            m.counter("staging.chunks").inc(stats.get("chunks", 0))
+            m.gauge("staging.bytes_resident").set(stats.get("bytes_resident", 0))
+            if stats.get("peak_device_bytes") is not None:
+                m.gauge("staging.peak_device_bytes").set(stats["peak_device_bytes"])
+            if stats.get("pool"):
+                m.counter("pool.uploads").inc(stats.get("pool_uploads", 0))
+                m.counter("pool.evictions").inc(stats.get("pool_evictions", 0))
+                m.counter("pool.hits").inc(stats.get("pool_hits", 0))
+                m.counter("pool.bytes_uploaded").inc(stats.get("pool_bytes_uploaded", 0))
+
     # -- the round program ---------------------------------------------------
 
     def run(
         self,
         init_params: PyTree,
         progress: Callable[[RoundRecord], None] | None = None,
+        snapshot_hook: Callable[[FederationSnapshot], None] | None = None,
+        resume: FederationSnapshot | None = None,
     ) -> FederatedRunResult:
-        """Run the round program; ``progress`` receives each record as it lands."""
+        """Run the round program (optionally resuming a snapshotted run).
+
+        ``progress`` receives each :class:`RoundRecord` as it lands.
+        ``snapshot_hook`` receives a :class:`FederationSnapshot` after every
+        round, after ``progress``; the hook decides whether and where to
+        persist it (it may also raise to preempt the run — nothing after
+        the snapshot is lost).  ``resume`` continues a run from such a
+        snapshot: recruitment runs again, resident staging attaches again
+        (its time falls in no round), the restored streams make the
+        continuation consume the batches and generators the uninterrupted
+        run would have, and a DP run's accountant replays the completed
+        rounds' sampling rates.  ``total_wall_time_s`` counts only the
+        resumed segment; ``history`` and ``total_local_steps`` span the
+        whole run.
+        """
         cfg = self.config
         rng = np.random.default_rng(cfg.seed)
         generator_rng = np.random.default_rng([cfg.seed, 2])
@@ -796,9 +994,7 @@ class Federation:
             [self.all_clients[int(i)].n_train for i in federation_ids], cfg.batch_size
         )
         # One Rényi accountant per run: stepped once per round at that round's
-        # client sampling rate, read for every RoundRecord.  (Replaying the
-        # completed rounds on resume waits for snapshots, ROADMAP Queue 1
-        # item 5.)
+        # client sampling rate, read for every RoundRecord.
         accountant = (
             RdpAccountant(self.dp.noise_multiplier, delta=self.dp.delta)
             if self.dp is not None
@@ -806,13 +1002,32 @@ class Federation:
         )
         params = tree_map(lambda p: p.detach().to(self.device), init_params)
         history: list[RoundRecord] = []
+        start_round = 0
+        if resume is not None:
+            if not (0 <= int(resume.round_index) <= cfg.rounds):
+                raise ValueError(
+                    f"snapshot round_index {resume.round_index} outside the "
+                    f"configured {cfg.rounds}-round budget"
+                )
+            params = tree_map(lambda p: p.detach().to(self.device), resume.params)
+            start_round = int(resume.round_index)
+            rng.bit_generator.state = resume.np_rng_state
+            generator_rng.bit_generator.state = resume.generator_rng_state
+            history = list(resume.history)
+            self.selection_policy.load_state_dict(resume.selection_state)
+            if accountant is not None:
+                # Privacy loss composes over the whole run: replay the
+                # completed rounds' sampling rates so the resumed segment's
+                # epsilons continue the original accounting.
+                for past in history:
+                    accountant.step(len(past.participant_ids) / federation_ids.size)
         # Communication accounting: each participant receives the full param
         # tree and returns one of the same shape.
         n_tensors = len(tree_leaves(init_params))
         model_nbytes = params_nbytes(init_params)
         t_start = time.perf_counter()
 
-        for rnd in range(cfg.rounds):
+        for rnd in range(start_round, cfg.rounds):
             t_round = time.perf_counter()
             participants = np.asarray(self.selection_policy.select(rnd, federation_ids, rng))
             if not (
@@ -848,8 +1063,20 @@ class Federation:
                 epsilon=epsilon,
             )
             history.append(record)
+            self._absorb_round_metrics(record)
             if progress is not None:
                 progress(record)
+            if snapshot_hook is not None:
+                snapshot_hook(
+                    FederationSnapshot(
+                        round_index=rnd + 1,
+                        params=params,
+                        np_rng_state=rng.bit_generator.state,
+                        generator_rng_state=generator_rng.bit_generator.state,
+                        history=list(history),
+                        selection_state=self.selection_policy.state_dict(),
+                    )
+                )
 
         return FederatedRunResult(
             params=params,
@@ -858,4 +1085,5 @@ class Federation:
             federation_ids=federation_ids,
             total_wall_time_s=time.perf_counter() - t_start,
             total_local_steps=sum(r.local_steps for r in history),
+            metrics=self.metrics.snapshot(),
         )

@@ -6,15 +6,17 @@ package registers the buffered aggregators (``"fedbuff:K"``,
 also loads them on its first use) and exposes the latency/dropout model
 registries (``"constant"``, ``"lognormal:0.5"``, ``"pareto:1.5"``,
 ``"trace"``, ``"bernoulli:0.1"``).  The entry point is
-:class:`AsyncFederation` driven by an :class:`AsyncFederationConfig`.  The
-reference's flush snapshot types (``AsyncFederationSnapshot``,
-``PendingEvent``) wait for the port of ``checkpoint/`` (ROADMAP Queue 1
-item 5).
+:class:`AsyncFederation` driven by an :class:`AsyncFederationConfig`;
+:class:`AsyncFederationSnapshot` is its checkpoint/resume image (the
+control plane in :mod:`repro_torch.launch.federation_service` persists one at
+every flush boundary).
 """
 
 from repro_torch.federated.runtime.async_federation import (
     AsyncFederation,
     AsyncFederationConfig,
+    AsyncFederationSnapshot,
+    PendingEvent,
 )
 from repro_torch.federated.runtime.latency import (
     BernoulliDropout,
@@ -44,6 +46,8 @@ from repro_torch.federated.runtime.staleness import (
 __all__ = [
     "AsyncFederation",
     "AsyncFederationConfig",
+    "AsyncFederationSnapshot",
+    "PendingEvent",
     "AsyncAggregator",
     "AsyncUpdate",
     "FedBuffAggregator",

@@ -45,9 +45,15 @@ each flush appends a :class:`~repro_torch.federated.api.RoundRecord` whose
 ``FederatedRunResult.summary()`` totals them alongside the host wall clock,
 so recruited-vs-all comparisons can quote *simulated time-to-target-loss*.
 
-Not ported yet: the flush snapshots (``snapshot_hook=``, ``resume=``,
-``AsyncFederationSnapshot``; ROADMAP Queue 1 item 5) and the observability
-hooks (``tracer=``, ``metrics=``, ``profiler=``; item 8).  They raise.
+Checkpoint/resume: ``run(snapshot_hook=)`` receives an
+:class:`AsyncFederationSnapshot` after every non-final flush and
+``run(resume=)`` continues from one — the scheduler's clock and stream, the
+pending events with their trained updates, the buffer and the task queues,
+the latency model's drawn rates, both numpy streams, the stats and the
+history — so the remaining timeline replays exactly.  Each flush is folded
+into the shared ``repro_torch.obs.MetricsRegistry`` (``metrics=``).  The
+reference's tracer and profiler (``tracer=``, ``profiler=``) wait for
+ROADMAP Queue 1 item 8 and raise.
 """
 
 from __future__ import annotations
@@ -67,6 +73,8 @@ from repro_torch.federated.api import (
     Federation,
     FederationConfig,
     RoundRecord,
+    _unported_hook,
+    generator_rng_state,
     resolve_aggregator,
 )
 from repro_torch.federated.cohort import client_generators
@@ -77,8 +85,9 @@ from repro_torch.federated.runtime.latency import (
     resolve_dropout,
     resolve_latency,
 )
-from repro_torch.federated.runtime.scheduler import VirtualScheduler
+from repro_torch.federated.runtime.scheduler import Event, VirtualScheduler
 from repro_torch.federated.runtime.staleness import AsyncAggregator, AsyncUpdate
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.optim.adamw import AdamW
 from repro_torch.privacy.accountant import RdpAccountant
 from repro_torch.tree import PyTree, tree_leaves, tree_map
@@ -86,12 +95,6 @@ from repro_torch.tree import PyTree, tree_leaves, tree_map
 # Event kinds on the virtual timeline.
 COMPLETE = "complete"   # a dispatched task finished (payload: _Completion)
 FLUSH = "flush"         # the buffer crosses the aggregator's threshold
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"AsyncFederation {what} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +141,183 @@ class _Completion:
     update: AsyncUpdate | None  # None = the task dropped out (no result)
 
 
+# ---------------------------------------------------------------------------
+# checkpoint / resume
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PendingEvent:
+    """A serializable image of one not-yet-popped scheduler event.
+
+    ``group_index``/``update`` unpack the COMPLETE payload (``update`` is
+    ``None`` for dropped tasks *and* for non-COMPLETE kinds); ``seq`` is
+    preserved so restored simultaneity resolves exactly as scheduled.
+    """
+
+    time: float
+    seq: int
+    kind: str
+    group_index: int | None
+    update: AsyncUpdate | None
+
+
+def _pack_update(
+    prefix: str, update: AsyncUpdate, trees: dict, arrays: dict
+) -> dict:
+    """Split one AsyncUpdate into (scalar dict, named trees, named arrays)."""
+    trees[f"{prefix}.params"] = update.params
+    trees[f"{prefix}.anchor"] = update.anchor
+    arrays[f"{prefix}.losses"] = np.asarray(update.losses, dtype=np.float32)
+    arrays[f"{prefix}.client_ids"] = np.asarray(update.client_ids, dtype=np.int64)
+    return {
+        "ref": prefix,
+        "weight": float(update.weight),
+        "version": int(update.version),
+        "local_steps": int(update.local_steps),
+    }
+
+
+def _unpack_update(entry: dict, trees: dict, arrays: dict) -> AsyncUpdate:
+    prefix = entry["ref"]
+    return AsyncUpdate(
+        client_ids=np.asarray(arrays[f"{prefix}.client_ids"]),
+        params=trees[f"{prefix}.params"],
+        anchor=trees[f"{prefix}.anchor"],
+        weight=float(entry["weight"]),
+        version=int(entry["version"]),
+        losses=np.asarray(arrays[f"{prefix}.losses"], dtype=np.float32),
+        local_steps=int(entry["local_steps"]),
+    )
+
+
+@dataclasses.dataclass
+class AsyncFederationSnapshot:
+    """Everything ``AsyncFederation.run`` needs to continue from a flush.
+
+    Captured by the ``snapshot_hook`` right after a flush's record lands
+    and the idle tasks are requeued (the point where the loop's next action
+    — dispatching ready tasks — is the same whether the run continues or
+    resumes).  Pending completions on the event heap carry fully trained
+    updates (their params/anchors are saved by value), so a resumed run
+    never retrains work that was already in flight; it only replays the
+    timeline forward from restored streams.
+
+    As in :class:`~repro_torch.federated.api.FederationSnapshot`, the
+    reference's ``jax_key_data`` is replaced by ``generator_rng_state``, the
+    state of the dropout-generator stream ``default_rng([seed, 2])``.
+    """
+
+    version: int                  # server parameter versions flushed so far
+    params: PyTree
+    np_rng_state: dict            # batch-plan generator state
+    generator_rng_state: dict     # dropout-generator stream state
+    sched_state: dict             # virtual clock / seq / processed / stream
+    events: list[PendingEvent]    # the un-popped event heap
+    buffer: list[AsyncUpdate]     # completions awaiting the next flush
+    ready: list[int]              # task groups waiting for a dispatch slot
+    idle: list[int]               # task groups waiting for the next flush
+    in_flight: int
+    drought: int
+    flush_pending: bool
+    latency_state: dict           # drawn persistent per-client rates
+    stats: dict
+    history: list[RoundRecord]
+
+    @property
+    def round_index(self) -> int:
+        """Flush count — the async analogue of the sync snapshot's field."""
+        return self.version
+
+    def save(self, directory: str, extra_state: dict | None = None) -> None:
+        """Persist atomically via ``repro_torch.checkpoint.store`` (overwrites)."""
+        from repro_torch.checkpoint.store import save_federation_snapshot
+
+        trees: dict[str, Any] = {"params": self.params}
+        arrays: dict[str, np.ndarray] = {}
+        events_state = []
+        for i, event in enumerate(self.events):
+            entry: dict[str, Any] = {
+                "time": event.time,
+                "seq": event.seq,
+                "kind": event.kind,
+                "group_index": event.group_index,
+                "update": None,
+            }
+            if event.update is not None:
+                entry["update"] = _pack_update(f"event{i}", event.update, trees, arrays)
+            events_state.append(entry)
+        buffer_state = [
+            _pack_update(f"buffer{i}", u, trees, arrays) for i, u in enumerate(self.buffer)
+        ]
+        state = {
+            "kind": "async",
+            "version": int(self.version),
+            "np_rng_state": self.np_rng_state,
+            "generator_rng_state": self.generator_rng_state,
+            "sched": self.sched_state,
+            "events": events_state,
+            "buffer": buffer_state,
+            "ready": [int(i) for i in self.ready],
+            "idle": [int(i) for i in self.idle],
+            "in_flight": int(self.in_flight),
+            "drought": int(self.drought),
+            "flush_pending": bool(self.flush_pending),
+            "latency_state": self.latency_state,
+            "stats": self.stats,
+            "history": [r.to_state() for r in self.history],
+        }
+        state.update(extra_state or {})
+        save_federation_snapshot(directory, trees=trees, arrays=arrays, state=state)
+
+    @classmethod
+    def load(cls, directory: str, like_params: PyTree) -> "AsyncFederationSnapshot":
+        """The snapshot in ``directory``; every tree takes ``like_params``'s
+        dtypes and devices."""
+        from repro_torch.checkpoint.store import load_federation_snapshot
+
+        trees, arrays, state = load_federation_snapshot(directory, like_params)
+        if state.get("kind") != "async":
+            raise ValueError(
+                f"snapshot in {directory} is {state.get('kind')!r}, not an "
+                "async federation snapshot"
+            )
+        generator_state = generator_rng_state(state, directory)
+        events = []
+        for entry in state["events"]:
+            update = (
+                _unpack_update(entry["update"], trees, arrays)
+                if entry["update"] is not None
+                else None
+            )
+            events.append(
+                PendingEvent(
+                    time=float(entry["time"]),
+                    seq=int(entry["seq"]),
+                    kind=entry["kind"],
+                    group_index=entry["group_index"],
+                    update=update,
+                )
+            )
+        return cls(
+            version=int(state["version"]),
+            params=trees["params"],
+            np_rng_state=state["np_rng_state"],
+            generator_rng_state=generator_state,
+            sched_state=state["sched"],
+            events=events,
+            buffer=[_unpack_update(e, trees, arrays) for e in state["buffer"]],
+            ready=[int(i) for i in state["ready"]],
+            idle=[int(i) for i in state["idle"]],
+            in_flight=int(state["in_flight"]),
+            drought=int(state["drought"]),
+            flush_pending=bool(state["flush_pending"]),
+            latency_state=state.get("latency_state", {}),
+            stats=dict(state.get("stats", {})),
+            history=[RoundRecord.from_state(r) for r in state["history"]],
+        )
+
+
 class AsyncFederation:
     """Runs buffered-async federated training on the virtual clock.
 
@@ -145,7 +325,9 @@ class AsyncFederation:
     resolves the buffered aggregator and the latency/dropout models up front
     (unknown specs fail here, not mid-run) and delegates recruitment and all
     training to an inner synchronous :class:`Federation` so the two facades
-    share one engine surface.  ``device`` defaults to the card.
+    share one engine surface (and one metrics registry, ``metrics``).
+    ``device`` defaults to the card; ``tracer`` and ``profiler`` raise
+    (ROADMAP Queue 1 item 8).
     """
 
     def __init__(
@@ -156,7 +338,7 @@ class AsyncFederation:
         optimizer: AdamW,
         device: str | torch.device | None = None,
         tracer: Any = None,
-        metrics: Any = None,
+        metrics: MetricsRegistry | None = None,
         profiler: Any = None,
     ) -> None:
         if not isinstance(config, AsyncFederationConfig):
@@ -164,10 +346,9 @@ class AsyncFederation:
                 f"AsyncFederation needs an AsyncFederationConfig, "
                 f"got {type(config).__name__}"
             )
-        for what, given in (("tracer=", tracer), ("metrics=", metrics),
-                            ("profiler=", profiler)):
+        for what, given in (("tracer=", tracer), ("profiler=", profiler)):
             if given is not None:
-                raise _unported(f"{what} (repro.obs)", 8)
+                raise _unported_hook(f"AsyncFederation {what}")
         self.config = config
         self.aggregator = resolve_aggregator(config.aggregator)
         if not isinstance(self.aggregator, AsyncAggregator):
@@ -203,8 +384,10 @@ class AsyncFederation:
             loss_fn,
             optimizer,
             device=device,
+            metrics=metrics,
         )
         self.device = self._fed.device
+        self.metrics = self._fed.metrics
         self.last_run_stats: dict[str, Any] | None = None
 
     @property
@@ -226,14 +409,19 @@ class AsyncFederation:
         self,
         init_params: PyTree,
         progress: Callable[[RoundRecord], None] | None = None,
-        snapshot_hook: Callable[..., None] | None = None,
-        resume: Any = None,
+        snapshot_hook: Callable[[AsyncFederationSnapshot], None] | None = None,
+        resume: AsyncFederationSnapshot | None = None,
     ) -> FederatedRunResult:
-        """Run the event loop; ``progress`` receives each flush's record."""
-        if snapshot_hook is not None:
-            raise _unported("snapshot_hook= (flush snapshots)", 5)
-        if resume is not None:
-            raise _unported("resume= (flush snapshots)", 5)
+        """Run the event loop; optionally checkpoint at every flush.
+
+        ``progress`` receives each flush's record.  ``snapshot_hook`` (if
+        given) is called with a fresh :class:`AsyncFederationSnapshot` after
+        each non-final flush, at the cut where resuming and continuing are
+        indistinguishable.  ``resume`` restores such a snapshot: streams,
+        clock, queues and in-flight completions are reinstated and the
+        remaining timeline replays exactly.  Recruitment runs again and
+        resident staging attaches again on resume.
+        """
         cfg = self.config
         fed = self._fed
         device = self.device
@@ -293,8 +481,89 @@ class AsyncFederation:
         # p < 1 a run of this length has probability p**threshold —
         # vanishingly small for every non-degenerate model.)
         drought, drought_limit = 0, max(100, 20 * len(groups))
+        if resume is not None:
+            if not (0 <= int(resume.version) < int(cfg.rounds)):
+                raise ValueError(
+                    f"cannot resume at flush {resume.version} of a run with "
+                    f"rounds={cfg.rounds} (already complete or corrupt)"
+                )
+            params = tree_map(lambda p: p.detach().to(device), resume.params)
+            version = int(resume.version)
+            rng.bit_generator.state = resume.np_rng_state
+            generator_rng.bit_generator.state = resume.generator_rng_state
+            sched.restore(
+                resume.sched_state,
+                [
+                    Event(
+                        time=pe.time,
+                        seq=pe.seq,
+                        kind=pe.kind,
+                        payload=_Completion(pe.group_index, pe.update)
+                        if pe.kind == COMPLETE
+                        else None,
+                    )
+                    for pe in resume.events
+                ],
+            )
+            buffer = list(resume.buffer)
+            ready = collections.deque(int(i) for i in resume.ready)
+            idle = [int(i) for i in resume.idle]
+            in_flight = int(resume.in_flight)
+            drought = int(resume.drought)
+            flush_pending = bool(resume.flush_pending)
+            self.latency_model.load_state_dict(resume.latency_state)
+            stats = {**stats, **resume.stats}
+            history = list(resume.history)
+            if accountant is not None:
+                # Privacy loss composes across the resume cut: replay the
+                # completed flushes' sampling rates before continuing.
+                for past in history:
+                    accountant.step(len(past.participant_ids) / federation_ids.size)
         t_start = time.perf_counter()
         t_last_flush = t_start
+        # Per-flush metric deltas: the stats dict is cumulative (and resume
+        # restores it alongside the registry, which already folded the
+        # pre-preemption values), so only the change since the last flush
+        # is incremented into the counters.
+        prev_stats = dict(stats)
+
+        def absorb_async_metrics() -> None:
+            m = self.metrics
+            for key in ("tasks", "dropped", "forced_flushes"):
+                delta = stats[key] - prev_stats.get(key, 0)
+                if delta:
+                    m.counter(f"async.{key}").inc(delta)
+                prev_stats[key] = stats[key]
+            m.gauge("async.in_flight").set(in_flight)
+            m.gauge("async.buffered_updates").set(len(buffer))
+
+        def make_snapshot() -> AsyncFederationSnapshot:
+            return AsyncFederationSnapshot(
+                version=version,
+                params=params,
+                np_rng_state=rng.bit_generator.state,
+                generator_rng_state=generator_rng.bit_generator.state,
+                sched_state=sched.state_dict(),
+                events=[
+                    PendingEvent(
+                        time=e.time,
+                        seq=e.seq,
+                        kind=e.kind,
+                        group_index=e.payload.group_index if e.kind == COMPLETE else None,
+                        update=e.payload.update if e.kind == COMPLETE else None,
+                    )
+                    for e in sched.pending()
+                ],
+                buffer=list(buffer),
+                ready=list(ready),
+                idle=list(idle),
+                in_flight=in_flight,
+                drought=drought,
+                flush_pending=flush_pending,
+                latency_state=self.latency_model.state_dict(),
+                stats=dict(stats),
+                history=list(history),
+            )
 
         def dispatch(group_index: int) -> None:
             """Train one task eagerly and schedule its completion.
@@ -372,6 +641,8 @@ class AsyncFederation:
             )
             t_last_flush = now_host
             history.append(record)
+            absorb_async_metrics()
+            fed._absorb_round_metrics(record)
             if progress is not None:
                 progress(record)
             if version >= cfg.rounds:
@@ -441,12 +712,21 @@ class AsyncFederation:
                 idle.sort()
                 ready.extend(idle)
                 idle.clear()
+                if snapshot_hook is not None:
+                    # The cut point: buffer just flushed, idle requeued,
+                    # nothing dispatched yet — resuming from here and
+                    # continuing are the same next action.
+                    snapshot_hook(make_snapshot())
                 dispatch_ready()
             else:  # pragma: no cover - no other kinds are scheduled
                 raise RuntimeError(f"unknown event kind {event.kind!r}")
 
         if cuda:
             torch.cuda.synchronize(device)
+        # Tail work since the last flush (dispatches that never flushed)
+        # still lands in the counters before the final snapshot.
+        absorb_async_metrics()
+        self.metrics.gauge("async.virtual_time").set(sched.now)
         self.last_run_stats = {
             **stats,
             "virtual_time": sched.now,
@@ -462,4 +742,5 @@ class AsyncFederation:
             federation_ids=federation_ids,
             total_wall_time_s=time.perf_counter() - t_start,
             total_local_steps=sum(r.local_steps for r in history),
+            metrics=self.metrics.snapshot(),
         )

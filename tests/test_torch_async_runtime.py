@@ -65,6 +65,7 @@ from repro_torch.federated.runtime import (  # noqa: E402
 )
 from repro_torch.federated.runtime import staleness  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
+from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -712,7 +713,8 @@ def test_round_record_timing_fields(setup):
     assert a["mean_staleness"] == pytest.approx(np.average(
         [r.staleness for r in asyn.history],
         weights=[len(r.participant_ids) for r in asyn.history]))
-    assert a["total_round_time_s"] >= 0 and a["metrics"] is None
+    assert a["total_round_time_s"] >= 0 and a["metrics"] == asyn.metrics
+    assert a["metrics"]["counters"]["rounds.completed"] == 2
     n_tensors = len(tree_leaves(params0))
     for r in asyn.history:
         assert r.params_down == r.params_up == len(r.participant_ids) * n_tensors
@@ -751,16 +753,26 @@ def test_recruitment_composes_with_async_runtime(setup):
 
 
 def test_unported_hooks_raise(setup):
-    """Flush snapshots wait for ROADMAP Queue 1 item 5, the observability
-    hooks for item 8: asked for, they raise rather than run without."""
+    """The observability hooks not ported yet (the tracer and the profiler,
+    ROADMAP Queue 1 item 8) raise rather than run without.  The flush
+    snapshots (item 5) and the metrics registry are ported: the snapshot
+    hook runs after every non-final flush, a resume from its snapshot
+    replays the run, and ``metrics=`` is the registry the flushes fill."""
     clients, loss_fn, params0 = setup
-    cfg = AsyncFederationConfig(rounds=1, local_epochs=1, batch_size=4, aggregator="fedbuff:2")
+    cfg = AsyncFederationConfig(rounds=2, local_epochs=1, batch_size=4, aggregator="fedbuff:2")
     fed = AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fed.run(params0, snapshot_hook=lambda snap: None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fed.run(params0, resume=object())
-    for hook in ("tracer", "metrics", "profiler"):
+    snaps = []
+    full = fed.run(params0, snapshot_hook=snaps.append)
+    assert [s.round_index for s in snaps] == [1]
+    resumed = AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu").run(
+        params0, resume=snaps[0])
+    assert timeline(resumed.history) == timeline(full.history)
+    assert same_bits(resumed.params, full.params)
+    registry = MetricsRegistry()
+    out = AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu", metrics=registry).run(
+        params0)
+    assert out.metrics == registry.snapshot() and out.metrics["counters"]["rounds.completed"] == 2
+    for hook in ("tracer", "profiler"):
         with pytest.raises(NotImplementedError, match="item 8"):
             AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu", **{hook: object()})
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -27,6 +27,9 @@ the two engines' DP rounds on the card with noise and dropout (1e-5).
 The async runtime: ``fedbuff`` at a full buffer with constant latency
 (one-client tasks) against a synchronous FedAvg round on the card, both
 engines (losses 1e-5, params 1e-4).
+
+The control plane: a small sync and a small async job preempted and
+resumed on the card give the uninterrupted run dir (``diff_runs`` empty).
 """
 
 import numpy as np
@@ -546,3 +549,36 @@ def test_fedbuff_full_buffer_matches_sync_fedavg_on_the_card(cuda, engine):
                for a, s in zip(asyn.history, sync.history)) <= 1e-5
     assert max(max_err(a, b) for a, b in zip(tree_leaves(asyn.params),
                                              tree_leaves(sync.params))) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_a_job_cut_and_resumed_on_the_card_is_the_uninterrupted_job(cuda, tmp_path, mode):
+    """The control plane on the card: a small job (16 hospitals, GRU N=8)
+    preempted after its first snapshot and resumed gives the uninterrupted
+    run dir (``diff_runs`` empty: participants and virtual times exact,
+    losses and final params within 1e-5), through both GRU kernels."""
+    from repro_torch.launch.federation_service import (
+        JobPreempted,
+        diff_runs,
+        resume_job,
+        status_job,
+        submit_job,
+    )
+
+    spec = {"name": f"card-{mode}", "mode": mode, "rounds": 3, "local_epochs": 1,
+            "batch_size": 16, "seed": 1, "recruitment": "all",
+            "data": {"scale": 0.01, "num_hospitals": 16, "split_mode": "stratified"},
+            "model": {"hidden_dim": 8, "num_layers": 2}}
+    if mode == "sync":
+        spec["selection"] = "loss-weighted:6"
+    else:
+        spec.update(aggregator="fedbuff:4", latency="lognormal:0.6", dropout="bernoulli:0.1")
+    full, cut = str(tmp_path / "full"), str(tmp_path / "cut")
+    before = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
+    submit_job(spec, full, device=cuda)
+    with pytest.raises(JobPreempted):
+        submit_job(spec, cut, device=cuda, preempt_after=1)
+    assert status_job(cut)["status"] == "preempted"
+    assert resume_job(cut, device=cuda)["resumed_from"] == 1
+    assert kernel.gru_scan.launches > before[0] and kernel.gru_scan_bwd.launches > before[1]
+    assert diff_runs(cut, full) == []

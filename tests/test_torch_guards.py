@@ -216,7 +216,7 @@ def test_resolve_device_takes_the_cpu_only_when_asked():
         resolve_device("meta")
 
 
-def test_unported_options_say_so():
+def test_unported_options_say_so(tmp_path):
     from repro_torch.federated.api import FederationConfig, resolve_recruitment, resolve_selection
     from repro_torch.federated.client import LocalTrainer
     from repro_torch.federated.cohort import CohortTrainer
@@ -234,6 +234,17 @@ def test_unported_options_say_so():
         resolve_recruitment("nu-gredy")
     with pytest.raises(ValueError, match="did you mean 'round-robin'"):
         resolve_selection("round-robbin:2")
+    # the control plane: a mesh over several GPUs (item 9) and the span
+    # trace or profiled rounds (item 8) raise, before any training
+    from repro_torch.launch.federation_service import submit_job, validate_job_spec
+
+    with pytest.raises(NotImplementedError, match="item 9"):
+        validate_job_spec({"mode": "sync", "mesh": "auto"})
+    for section in ({}, {"trace": False, "jax_profile_rounds": 1}):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            submit_job({"mode": "sync", "observability": section}, str(tmp_path / "run"),
+                       device="cpu")
+    assert not (tmp_path / "run").exists()
 
 
 def test_privacy_and_runtime_modules_pull_in_no_jax_and_no_repro():
@@ -259,6 +270,34 @@ def test_privacy_and_runtime_modules_pull_in_no_jax_and_no_repro():
         "sys.exit(1 if bad else 0)\n"
     )
     for first in modules:  # whichever module loads first, no import cycle bites
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import {first}\n" + code], capture_output=True, text=True,
+            timeout=120, env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"},
+        )
+        assert proc.returncode == 0, first + proc.stdout + proc.stderr
+
+
+def test_control_plane_modules_pull_in_no_jax_and_no_repro():
+    """The checkpoint store, the metrics registry, the job service and the
+    legacy server shims import neither JAX nor the reference, whichever of
+    them loads first."""
+    modules = ["repro_torch.checkpoint.store", "repro_torch.launch.federation_service",
+               "repro_torch.federated.server", "repro_torch.obs", "repro_torch.obs.metrics",
+               "repro_torch.obs.profile", "repro_torch.launch"]
+    assert set(modules) <= set(port_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "from repro_torch.launch import submit_job, registry_table\n"
+        "from repro_torch.federated import FederatedServer\n"
+        "from repro_torch.federated.runtime import AsyncFederationSnapshot\n"
+        "registry_table()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    for first in modules:
         proc = subprocess.run(
             [sys.executable, "-c", f"import {first}\n" + code], capture_output=True, text=True,
             timeout=120, env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"},
