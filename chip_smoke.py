@@ -147,6 +147,26 @@ exit code and no result line:
              ``run_service_overhead(device="cuda")`` at its defaults (not
              gated: host timing noise).  Every run launches both GRU kernels;
              the subprocesses report their counts.
+22. observability — ``repro_torch.obs`` at full width: (a) federated-arc
+             (35 recruited, 4 local epochs, resident, 2 rounds) with a
+             ``Tracer`` and without, from one init: params bit for bit,
+             launches equal, round spans equal to ``round_time_s`` exactly,
+             the phases' span counts, ``trace.json`` loads, no event
+             dropped; (b) the recruited 35 under ``fedbuff:0.25``,
+             ``lognormal:0.6``, dropout 0.05, 2 flushes of 1 epoch, traced:
+             flush spans equal to the records on both clocks, a task span a
+             task, flow starts equal to flow ends; (c) the arc job (3
+             rounds) with ``"observability": {"trace": true,
+             "jax_profile_rounds": 1}`` through the CLI, preempted after
+             round 1 (exit 75) and resumed (exit 0): ``trace.json`` holds
+             the resumed rounds, ``metrics.jsonl`` follows ``records.jsonl``,
+             ``python -m repro_torch.obs report`` renders it, each child's
+             ``torch_profile/`` trace holds both GRU kernels' device events
+             and its profiler no error, ``jit.*`` counts each child's
+             library load, the final params are an untraced job's bit for
+             bit; (d) ``run_obs_overhead`` (3 async flushes, not 10) and
+             ``run_facade_overhead``, the async run's per-phase host time
+             from its trace (not gated: host timing noise).
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -306,6 +326,10 @@ def main() -> int:
 
     # -- 21. the control plane: submit, preempt, kill, resume ------------------
     for kernel, n in run_control_plane_phase(torch, K).items():
+        launches[kernel] += n
+
+    # -- 22. observability: traces, profiled rounds, jit.* ---------------------
+    for kernel, n in run_observability_phase(torch, K, cohort).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -1526,9 +1550,10 @@ def profile_training(torch, train_step) -> None:
 # ---------------------------------------------------------------------------
 
 
-def arc_federation(torch, cohort, exp, **config):
+def arc_federation(torch, cohort, exp, tracer=None, **config):
     """federated-arc on the full cohort at full width: the paper's model and
-    optimizer, every recruited client in every round, seed 0."""
+    optimizer, every recruited client in every round, seed 0; ``tracer``
+    records its spans."""
     from repro_torch.data.pipeline import build_client_datasets
     from repro_torch.experiments.paper import policies_for
     from repro_torch.federated.api import Federation, FederationConfig
@@ -1540,7 +1565,7 @@ def arc_federation(torch, cohort, exp, **config):
         FederationConfig(rounds=exp.rounds, local_epochs=exp.local_epochs,
                          batch_size=exp.batch_size, seed=0, **config),
         build_client_datasets(cohort), make_loss_fn(GRUConfig()),
-        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda",
+        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda", tracer=tracer,
     )
 
 
@@ -2096,9 +2121,10 @@ ASYNC_TIMELINE_FIELDS = ("federation_size", "recruited", "buffer_size", "flushes
                          "dropped", "virtual_time", "mean_staleness")
 
 
-def async_federation(torch, cohort, exp, **config):
+def async_federation(torch, cohort, exp, tracer=None, **config):
     """An ``AsyncFederation`` on the full cohort at full width: the paper's
-    model (dropout 0.05) and optimizer, seed 0, on the card."""
+    model (dropout 0.05) and optimizer, seed 0, on the card; ``tracer``
+    records its spans."""
     from repro_torch.data.pipeline import build_client_datasets
     from repro_torch.federated.runtime import AsyncFederation, AsyncFederationConfig
     from repro_torch.models.gru import GRUConfig, make_loss_fn
@@ -2108,7 +2134,7 @@ def async_federation(torch, cohort, exp, **config):
         AsyncFederationConfig(rounds=exp.rounds, local_epochs=exp.local_epochs,
                               batch_size=exp.batch_size, seed=0, **config),
         build_client_datasets(cohort), make_loss_fn(GRUConfig()),
-        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda",
+        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda", tracer=tracer,
     )
 
 
@@ -2354,10 +2380,11 @@ def child_env() -> dict:
     return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
 
-def run_cli_child(*argv) -> tuple[int, dict[str, int], float]:
-    """The CLI in a subprocess: its exit code, GRU launches and seconds."""
+def run_cli_child(*argv, child: str = CLI_CHILD) -> tuple[int, dict[str, int], float]:
+    """The CLI in a subprocess: its exit code, GRU launches (and whatever
+    else ``child`` reports on its last line) and seconds."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CLI_CHILD, *argv], env=child_env(),
+    proc = subprocess.run([sys.executable, "-c", child, *argv], env=child_env(),
                           capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
     lines = proc.stderr.strip().splitlines()
@@ -2616,6 +2643,282 @@ def run_control_plane_phase(torch, K) -> dict[str, int]:
     emit(phase="service_overhead", **report, seconds=seconds_h, launches=counts_h)
     shutil.rmtree(work, ignore_errors=True)
     emit(phase="control_plane_seconds", seconds=time.perf_counter() - t_phase)
+    return total
+
+
+
+# ---------------------------------------------------------------------------
+# phase 22
+# ---------------------------------------------------------------------------
+
+# The CLI child of phase 22: it also reports each RoundProfiler the job made
+# (its error and its trace), which the run dir does not record.
+OBS_CHILD = """
+import json, sys
+import repro_torch.obs.profile as P
+from repro_torch.kernels.gru_scan import kernel as K
+from repro_torch.launch.federation_service import main
+
+made = []
+
+class Recorded(P.RoundProfiler):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        made.append(self)
+
+P.RoundProfiler = Recorded
+rc = main(sys.argv[1:])
+print(json.dumps({"gru_scan": K.gru_scan.launches, "gru_scan_bwd": K.gru_scan_bwd.launches,
+                  "profilers": [{"error": None if p.error is None else repr(p.error),
+                                 "trace_path": p.trace_path} for p in made]}),
+      file=sys.stderr, flush=True)
+sys.exit(rc)
+"""
+# The device kernels of gru_scan's forward and of gru_scan_bwd's recurrence.
+GRU_DEVICE_KERNELS = ("gru_scan_fwd_kernel", "gru_bwd_recur_kernel")
+
+
+def same_bits(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+
+    return all(x.dtype == y.dtype and x.equal(y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def profiled_kernels(path: str) -> dict[str, int]:
+    """The device kernel events of a ``torch.profiler`` Chrome trace: all of
+    them, and those of each GRU kernel."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {"kernels": 0, **{name: 0 for name in GRU_DEVICE_KERNELS}}
+    for e in events:
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel":
+            counts["kernels"] += 1
+            for name in GRU_DEVICE_KERNELS:
+                if name in e.get("name", ""):
+                    counts[name] += 1
+    return counts
+
+
+def spread(floors: list[float]) -> float:
+    """How far apart a probe's repeats read: the largest floor over the least, less 1."""
+    return max(floors) / min(floors) - 1.0
+
+
+def run_observability_phase(torch, K, cohort) -> dict[str, int]:
+    """Phase 22: (a) a traced and an untraced arc run from one init; (b) a
+    traced async run; (c) a traced, profiled arc job through the CLI,
+    preempted and resumed; (d) the overhead probes.  (a)-(c) are gated.
+    (d) is printed, not gated: its budgets (tracer off 1% over the bare
+    loop, on 5% over off, the facade 2%) sit inside the host's noise on the
+    card, where host-clock times move ~30% between calls and the control
+    plane's 2% probe read +3.09% and -2.44% in two runs."""
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.experiments.paper import (
+        ExperimentConfig,
+        job_spec_for,
+        policies_for,
+        run_facade_overhead,
+        run_obs_overhead,
+    )
+    from repro_torch.launch.federation_service import EX_TEMPFAIL, read_records, submit_job
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.report import phase_breakdown
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "observability"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    sizes = {c.client_id: c.n_train for c in build_client_datasets(cohort)}
+
+    def add(counts):
+        require(counts["gru_scan"] > 0 and counts["gru_scan_bwd"] > 0,
+                f"a phase 22 run launched a GRU kernel no time: {counts}")
+        for k in total:
+            total[k] += counts[k]
+        return counts
+
+    # (a) federated-arc, traced and untraced, from one init
+    exp = ExperimentConfig(rounds=2, local_epochs=4)
+    tracer = Tracer()
+    runs = {}
+    for name, tr in (("traced", tracer), ("untraced", None)):
+        fed = arc_federation(torch, cohort, exp, tracer=tr)
+        t0 = time.perf_counter()
+        result, stats, counts = run_federation(torch, K, fed)
+        seconds = time.perf_counter() - t0
+        check_launches(f"observability arc ({name})", counts,
+                       sum(st["cohort_steps"] for st in stats), 0)
+        runs[name] = (result, add(counts), seconds)
+        del fed
+    torch.cuda.empty_cache()
+    traced, untraced = runs["traced"][0], runs["untraced"][0]
+    summary = tracer.summary()["host"]
+    span_counts = {name: int(row["count"]) for name, row in summary.items()}
+    round_spans = [s.dur for s in tracer.spans("round")]
+    trace_path = work / "arc_trace.json"
+    tracer.export_chrome(str(trace_path))
+    doc = json.loads(trace_path.read_text())
+    bitwise = same_bits(traced.params, untraced.params)
+    emit(phase="obs_sync", setting="federated-arc", rounds=exp.rounds,
+         local_epochs=exp.local_epochs, events=len(tracer.events()), dropped=tracer.dropped,
+         span_counts=span_counts,
+         span_seconds={name: row["total_s"] for name, row in summary.items()},
+         round_times_s={k: [r.round_time_s for r in v[0].history] for k, v in runs.items()},
+         round_span_s=round_spans, trace_bytes=trace_path.stat().st_size,
+         trace_events=len(doc["traceEvents"]), bitwise=bitwise,
+         max_param_diff=param_diff(traced.params, untraced.params),
+         launches={k: v[1] for k, v in runs.items()},
+         seconds={k: v[2] for k, v in runs.items()})
+    require(bitwise, "the traced arc run's params differ from the untraced run's")
+    require(runs["traced"][1] == runs["untraced"][1],
+            f"the tracer changed the launches: {runs['traced'][1]} vs {runs['untraced'][1]}")
+    require(round_spans == [r.round_time_s for r in traced.history],
+            "the round spans differ from the records' round_time_s")
+    want = {"select": exp.rounds, "train": exp.rounds, "round": exp.rounds, "stage": exp.rounds}
+    require(span_counts == want, f"span counts {span_counts}, predicted {want}")
+    require(tracer.dropped == 0, f"the tracer dropped {tracer.dropped} events")
+    del traced, untraced, runs, doc
+
+    # (b) the recruited 35 on the async runtime, traced
+    exp_b = ExperimentConfig(rounds=2, local_epochs=1)
+    recruited = policies_for("federated-arc", ExperimentConfig())["recruitment"]
+    atracer = Tracer()
+    fed = async_federation(torch, cohort, exp_b, tracer=atracer, recruitment=recruited,
+                           aggregator="fedbuff:0.25", latency="lognormal:0.6", dropout=0.05)
+    result, seconds, counts = run_async(torch, K, fed)
+    stats = fed.last_run_stats
+    check_launches("observability async", add(counts), stats["steps_trained"], 0)
+    host_flushes = atracer.spans("flush", clock="host")
+    marks = [e for e in atracer.events() if e.name == "flush" and e.clock == "virtual"
+             and e.phase == "i" and e.track == "server"]
+    tasks = atracer.spans("task", clock="virtual")
+    flows = [e.phase for e in atracer.events() if e.flow_id is not None]
+    history = result.history
+    emit(phase="obs_async", federation="recruited", aggregator="fedbuff:0.25",
+         latency="lognormal:0.6", dropout=0.05, **async_fields(fed, result, seconds),
+         events=len(atracer.events()), dropped_events=atracer.dropped,
+         span_counts={k: int(v["count"]) for k, v in atracer.summary()["host"].items()},
+         virtual_span_counts={k: int(v["count"])
+                              for k, v in atracer.summary().get("virtual", {}).items()},
+         task_spans=len(tasks), flow_starts=flows.count("s"), flow_ends=flows.count("f"),
+         scheduler_instants=sum(e.track == "scheduler" for e in atracer.events()),
+         flush_span_s=[s.dur for s in host_flushes], launches=counts)
+    require([s.dur for s in host_flushes] == [r.round_time_s for r in history],
+            "the host flush spans differ from the records' round_time_s")
+    require([s.args["virtual_time"] for s in host_flushes] == [r.virtual_time for r in history]
+            and [m.ts for m in marks] == [r.virtual_time for r in history],
+            "the flush spans differ from the records' virtual_time")
+    require(len(tasks) == stats["tasks"], f"{len(tasks)} task spans for {stats['tasks']} tasks")
+    require(flows.count("s") == flows.count("f") == len(tasks),
+            f"flow starts {flows.count('s')}, ends {flows.count('f')}, tasks {len(tasks)}")
+    require(atracer.dropped == 0, f"the async tracer dropped {atracer.dropped} events")
+    del fed, result, history
+    torch.cuda.empty_cache()
+
+    # (c) the arc job, traced and profiled, through the CLI: cut, resumed
+    exp_c = ExperimentConfig(rounds=3)
+    spec = job_spec_for("federated-arc", exp_c, seed=0)
+    traced_spec = {**spec, "observability": {"trace": True, "jax_profile_rounds": 1}}
+    spec_path = work / "arc-obs.json"
+    spec_path.write_text(json.dumps(traced_spec))
+    run_dir = work / "traced"
+    rc1, child1, seconds1 = run_cli_child(
+        "submit", "--spec", str(spec_path), "--run-dir", str(run_dir), "--preempt-after", "1",
+        "--quiet", "--device", "cuda", child=OBS_CHILD)
+    require(rc1 == EX_TEMPFAIL, f"the traced CLI submit exited {rc1}, not {EX_TEMPFAIL}")
+    rc2, child2, seconds2 = run_cli_child("resume", "--run-dir", str(run_dir), "--quiet",
+                                          "--device", "cuda", child=OBS_CHILD)
+    require(rc2 == 0, f"the traced CLI resume exited {rc2}")
+    recs = read_records(str(run_dir / "records.jsonl"))
+    require([r.round_index for r in recs] == [0, 1, 2], f"records {[r.round_index for r in recs]}")
+    steps = [schedule_steps([r], sizes, exp_c.batch_size, exp_c.local_epochs) for r in recs]
+    counts1 = {k: child1[k] for k in total}
+    counts2 = {k: child2[k] for k in total}
+    check_launches("observability job (submit)", add(counts1), steps[0], 0)
+    check_launches("observability job (resume)", add(counts2), sum(steps[1:]), 0)
+    lines = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()
+             if line.strip()]
+    jdoc = json.loads((run_dir / "trace.json").read_text())
+    job_rounds = [e for e in jdoc["traceEvents"] if e["name"] == "round" and e["ph"] == "X"]
+    report_proc = subprocess.run([sys.executable, "-m", "repro_torch.obs", "report",
+                                  str(run_dir)], env=child_env(), capture_output=True,
+                                 text=True, timeout=300)
+    profilers = child1["profilers"] + child2["profilers"]
+    profiled = {Path(p["trace_path"]).name: profiled_kernels(p["trace_path"])
+                for p in profilers if p["trace_path"]}
+    jit = [{"round_index": line["round_index"],
+            "jit.compiles": line["counters"].get("jit.compiles", 0),
+            "jit.compile_time_s": line["counters"].get("jit.compile_time_s", 0.0),
+            "jit.round_compiles": line["gauges"].get("jit.round_compiles")} for line in lines]
+    plain_dir = work / "plain"
+    torch.cuda.synchronize()
+    reset_gru_counts(K)
+    submit_job(spec, str(plain_dir), device="cuda")
+    check_launches("observability job (untraced)", add(gru_counts(K)), sum(steps), 0)
+    a, b = final_arrays(run_dir), final_arrays(plain_dir)
+    job_bitwise = all(a[k].tobytes() == b[k].tobytes() for k in a) and sorted(a) == sorted(b)
+    emit(phase="obs_job", setting="federated-arc", rounds=exp_c.rounds,
+         cli_exit_codes=[rc1, rc2], seconds={"submit": seconds1, "resume": seconds2},
+         records=[r.round_index for r in recs], metrics_lines=[x["round_index"] for x in jit],
+         jit=jit, trace_round_spans=[e["args"]["round"] for e in job_rounds],
+         trace_events=len(jdoc["traceEvents"]), profilers=profilers, profiled=profiled,
+         profiled_steps={"rounds_0": steps[0], "rounds_1": steps[1]},
+         report_exit_code=report_proc.returncode, report_lines=len(report_proc.stdout.splitlines()),
+         bitwise_vs_untraced=job_bitwise, launches={"submit": counts1, "resume": counts2})
+    print(report_proc.stdout, flush=True)
+    require([x["round_index"] for x in jit] == [r.round_index for r in recs]
+            and [line["counters"]["rounds.completed"] for line in lines] == [1, 2, 3],
+            f"metrics.jsonl is not in lockstep with records.jsonl: {jit}")
+    require([e["args"]["round"] for e in job_rounds] == [1, 2],
+            f"trace.json holds rounds {[e['args']['round'] for e in job_rounds]}, not [1, 2]")
+    require([e["dur"] for e in job_rounds] == [r.round_time_s * 1e6 for r in recs[1:]],
+            "the job's round spans differ from its records")
+    require(report_proc.returncode == 0 and "per-phase time" in report_proc.stdout,
+            f"the report CLI exited {report_proc.returncode}: {report_proc.stderr[-2000:]}")
+    require(len(profilers) == 2 and all(p["error"] is None and p["trace_path"]
+                                        for p in profilers),
+            f"the children's profilers: {profilers}")
+    require(sorted(profiled) == ["rounds_0.pt.trace.json", "rounds_1.pt.trace.json"]
+            and all(c[name] > 0 for c in profiled.values() for name in GRU_DEVICE_KERNELS),
+            f"the profiled rounds lack the GRU kernels' device events: {profiled}")
+    require(jit[0]["jit.compiles"] >= 1 and jit[0]["jit.round_compiles"] >= 1,
+            f"the submitting child counted no library load: {jit[0]}")
+    require(jit[1]["jit.round_compiles"] >= 1 and jit[2]["jit.round_compiles"] == 0,
+            f"the resumed child's jit.round_compiles: {jit[1:]}")
+    require(job_bitwise, "the traced, profiled, resumed job's params differ from an "
+            "untraced job's")
+
+    # (d) the overhead probes (not gated).  Cut: 3 async flushes, not 10.
+    # Under constant latency every flush re-dispatches all 189 clients
+    # (~1.5 s a flush on the card), so 10 flushes cost ~60 s of the phase.
+    torch.cuda.synchronize()
+    reset_gru_counts(K)
+    t0 = time.perf_counter()
+    sample = work / "obs_async_trace.json"
+    obs = run_obs_overhead(repeats=2, flushes=3, verbose=False, device="cuda",
+                           trace_path=str(sample))
+    obs_seconds = time.perf_counter() - t0
+    obs_counts = add(gru_counts(K))
+    # The last async run's host and virtual phases, from its own trace.
+    sample_phases = phase_breakdown(json.loads(sample.read_text())["traceEvents"])
+    emit(phase="obs_overhead", **obs, floor_spread_frac={k: spread(v)
+                                                          for k, v in obs["floors"].items()},
+         sample_phases=sample_phases, seconds=obs_seconds, launches=obs_counts)
+    reset_gru_counts(K)
+    t0 = time.perf_counter()
+    facade = run_facade_overhead(repeats=2, verbose=False, device="cuda")
+    facade_seconds = time.perf_counter() - t0
+    facade_counts = add(gru_counts(K))
+    emit(phase="facade_overhead", **facade,
+         floor_spread_frac={"bare": spread(facade["bare_floors"]),
+                            "facade": spread(facade["facade_floors"])},
+         seconds=facade_seconds, launches=facade_counts)
+    require(obs_counts["gru_scan"] == obs_counts["gru_scan_bwd"]
+            and facade_counts["gru_scan"] == facade_counts["gru_scan_bwd"],
+            f"a one-layer probe's launches: {obs_counts}, {facade_counts}")
+    shutil.rmtree(work, ignore_errors=True)
+    emit(phase="observability_seconds", seconds=time.perf_counter() - t_phase)
     return total
 
 

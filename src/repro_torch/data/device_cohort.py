@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.data.pipeline import ClientDataset, cohort_steps_per_epoch
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import resolve_tracer
 
 _ALIGN = 64
 
@@ -155,6 +156,11 @@ class DeviceCohort:
     _free: list = dataclasses.field(default_factory=list, repr=False)
     # Host seconds ``build_device_cohort`` took, the device's copies included.
     attach_seconds: float = 0.0
+    # Observability: pool uploads record a "pool_upload" span (None = no-op).
+    tracer: Any = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self) -> None:
+        self.tracer = resolve_tracer(self.tracer)
 
     @property
     def pad_index(self) -> int:
@@ -219,40 +225,41 @@ class DeviceCohort:
         if not missing:
             return 0
 
-        target_rows: list[int] = []
-        for _ in missing:
-            if self._free:
-                target_rows.append(self._free.pop())
-                continue
-            victim = next(cid for cid in self._lru if cid not in wanted)
-            row = self._lru.pop(victim)
-            del self.rows[victim]
-            self.evictions += 1
-            target_rows.append(row)
+        with self.tracer.span("pool_upload", track="pool", missing=len(missing)):
+            target_rows: list[int] = []
+            for _ in missing:
+                if self._free:
+                    target_rows.append(self._free.pop())
+                    continue
+                victim = next(cid for cid in self._lru if cid not in wanted)
+                row = self._lru.pop(victim)
+                del self.rows[victim]
+                self.evictions += 1
+                target_rows.append(row)
 
-        # Whole padded rows, so a reused row's stale tail is zeroed too.
-        m, width = len(missing), self.pad_index + 1
-        layout = Layout({
-            "x": ((m, width, *self.x.shape[2:]), _np_dtype(self.x.dtype)),
-            "y": ((m, width), _np_dtype(self.y.dtype)),
-            "rows": ((m,), np.int64),
-        })
-        host = host_buffer(layout.nbytes, self.x.device)
-        views = layout.host_views(host.numpy())
-        views["x"][...] = 0
-        views["y"][...] = 0
-        for i, c in enumerate(missing):
-            views["x"][i, : c.n_train] = c.train.x
-            views["y"][i, : c.n_train] = c.train.y
-            self._lru[c.client_id] = target_rows[i]
-            self.rows[c.client_id] = target_rows[i]
-        views["rows"][...] = target_rows
-        staged = layout.device_views(upload(host, self.x.device))
-        self.x.index_copy_(0, staged["rows"], staged["x"])
-        self.y.index_copy_(0, staged["rows"], staged["y"])
-        _finish_copies(self.x.device)
-        self.uploads += m
-        self.bytes_uploaded += views["x"].nbytes + views["y"].nbytes
+            # Whole padded rows, so a reused row's stale tail is zeroed too.
+            m, width = len(missing), self.pad_index + 1
+            layout = Layout({
+                "x": ((m, width, *self.x.shape[2:]), _np_dtype(self.x.dtype)),
+                "y": ((m, width), _np_dtype(self.y.dtype)),
+                "rows": ((m,), np.int64),
+            })
+            host = host_buffer(layout.nbytes, self.x.device)
+            views = layout.host_views(host.numpy())
+            views["x"][...] = 0
+            views["y"][...] = 0
+            for i, c in enumerate(missing):
+                views["x"][i, : c.n_train] = c.train.x
+                views["y"][i, : c.n_train] = c.train.y
+                self._lru[c.client_id] = target_rows[i]
+                self.rows[c.client_id] = target_rows[i]
+            views["rows"][...] = target_rows
+            staged = layout.device_views(upload(host, self.x.device))
+            self.x.index_copy_(0, staged["rows"], staged["x"])
+            self.y.index_copy_(0, staged["rows"], staged["y"])
+            _finish_copies(self.x.device)
+            self.uploads += m
+            self.bytes_uploaded += views["x"].nbytes + views["y"].nbytes
         return m
 
 
@@ -281,17 +288,14 @@ def build_device_cohort(
     of a ``CohortPlan``.  ``resident_budget_bytes`` bounds device memory:
     when the whole cohort would exceed it, only a pool of
     ``budget // row_bytes`` rows is allocated and rows are uploaded per
-    round (LRU eviction) by ``ensure_resident``.  ``device`` defaults to
-    the card.
+    round (LRU eviction) by ``ensure_resident``, each upload a
+    ``pool_upload`` span of ``tracer`` (None = no-op).  ``device`` defaults
+    to the card.
     """
     if mesh is not None:
         raise NotImplementedError(
             "build_device_cohort mesh= (rows sharded over several GPUs) is not "
             "ported yet (ROADMAP Queue 1 item 9)"
-        )
-    if tracer is not None:
-        raise NotImplementedError(
-            "build_device_cohort tracer= (repro.obs) is not ported yet (ROADMAP Queue 1 item 8)"
         )
     if not clients:
         raise ValueError("empty cohort")
@@ -334,6 +338,7 @@ def build_device_cohort(
             pool_rows=pool_rows,
             _free=list(range(pool_rows - 1, -1, -1)),
             attach_seconds=time.perf_counter() - t0,
+            tracer=tracer,
         )
 
     # The real samples packed back to back: one pinned buffer, one copy, then
@@ -363,7 +368,7 @@ def build_device_cohort(
     _finish_copies(dev)
     return DeviceCohort(
         x=dx, y=dy, rows=rows, nbytes=full_bytes, _sources=sources,
-        attach_seconds=time.perf_counter() - t0,
+        attach_seconds=time.perf_counter() - t0, tracer=tracer,
     )
 
 

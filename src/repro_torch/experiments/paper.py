@@ -13,6 +13,8 @@ federated setting is a (recruitment, selection, aggregator) triple of
 specs for the ``Federation`` facade (``policies_for``).  ``run_paper_scale``
 runs the five settings at 189 clients on both engines,
 ``run_staging_comparison`` the vectorized engine's staging variants,
+``run_facade_overhead`` and ``run_obs_overhead`` the facade's and the
+observability tier's cost over the bare cohort loop,
 ``run_privacy_frontier`` the privacy tier's utility and robustness
 frontiers, and ``run_async_comparison`` recruited against all-clients
 federations on the async runtime's virtual clock (``time_to_target``).
@@ -24,13 +26,19 @@ federations on the async runtime's virtual clock (``time_to_target``).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core.recruitment import DATA_GREEDY, QUALITY_GREEDY
-from repro_torch.data.pipeline import ArrayDataset, build_client_datasets, global_dataset
+from repro_torch.data.pipeline import (
+    ArrayDataset,
+    build_client_datasets,
+    cohort_steps_per_epoch,
+    global_dataset,
+)
 from repro_torch.data.synth_eicu import NUM_HOSPITALS, Cohort, CohortConfig, generate_cohort
 from repro_torch.device import resolve_device
 from repro_torch.federated.api import Federation, FederationConfig
@@ -494,6 +502,271 @@ def run_staging_comparison(
     return report
 
 
+def _bare_rounds(
+    clients, loss_fn, params0, *, rounds: int, local_epochs: int, batch_size: int,
+    seed: int, dev: torch.device,
+) -> list[float]:
+    """The bare hot loop: one ``client_generators`` draw and one resident
+    ``train_cohort`` over every client per round, no policy, record or
+    accounting; the card is synchronized each round, as ``Federation.run``
+    does.  Returns each round's seconds."""
+    trainer = CohortTrainer(
+        loss_fn=loss_fn,
+        optimizer=AdamW(learning_rate=5e-3, weight_decay=5e-3),
+        batch_size=batch_size,
+        local_epochs=local_epochs,
+        staging="resident",
+        device=dev,
+    )
+    trainer.attach_device_cohort(clients)
+    rng = np.random.default_rng(seed)
+    generator_rng = np.random.default_rng([seed, 2])
+    spe = cohort_steps_per_epoch([c.n_train for c in clients], batch_size)
+    params, times = params0, []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        generators = client_generators(generator_rng, len(clients), dev)
+        params, _, _ = trainer.train_cohort(params, clients, rng, generators, steps_per_epoch=spe)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def _floor(times: list[float]) -> float:
+    """The least steady-state round (the first round pays first-call costs)."""
+    return float(np.min(times[1:] if len(times) > 1 else times))
+
+
+def _overhead_workload(total_stays: int, seed: int, dev: torch.device):
+    """The overhead probes' workload: the 189-client cohort of
+    ``total_stays``, a GRU of hidden 8 and one layer."""
+    cohort_cfg = paper_scale_cohort_config(total_stays=total_stays)
+    clients = build_client_datasets(generate_cohort(cohort_cfg, seed=seed))
+    model_cfg = GRUConfig(hidden_dim=8, num_layers=1)
+    params0 = init_gru(torch.Generator().manual_seed(seed), model_cfg, dev)
+    return clients, make_loss_fn(model_cfg), params0
+
+
+def run_facade_overhead(
+    *,
+    rounds: int = 9,
+    local_epochs: int = 1,
+    batch_size: int = 8,
+    seed: int = 0,
+    total_stays: int = 189 * 16,
+    repeats: int = 3,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """The facade tax: ``Federation.run`` against the bare hot loop.
+
+    Both drive the identical workload (the full 189-client federation, all
+    participants every round, resident staging, one ``client_generators``
+    draw and one ``train_cohort`` per round), but the bare loop has no
+    policy dispatch, no selection call, no comm accounting and no
+    ``RoundRecord``.  The reference's budget for the round program is 2%
+    over that floor.
+
+    A 2% budget is below round-to-round host noise, so the estimator is
+    the *floor*: the least steady-state round over ``repeats`` alternating
+    bare/facade runs.  The per-repeat floors (``bare_floors`` /
+    ``facade_floors``) are in the report: their spread is the probe's own
+    resolution, and an ``overhead_frac`` inside it, negative values
+    included, reads as "no overhead resolvable".  ``device`` defaults to
+    the card.
+    """
+    dev = resolve_device(device)
+    clients, loss_fn, params0 = _overhead_workload(total_stays, seed, dev)
+
+    def facade_rounds() -> list[float]:
+        federation = Federation(
+            FederationConfig(
+                rounds=rounds, local_epochs=local_epochs, batch_size=batch_size,
+                recruitment="all", selection="uniform", aggregator="fedavg", seed=seed,
+            ),
+            clients,
+            loss_fn,
+            AdamW(learning_rate=5e-3, weight_decay=5e-3),
+            device=dev,
+        )
+        return [r.wall_time_s for r in federation.run(params0).history]
+
+    # Alternate the two paths so a throttling window cannot hit only one.
+    bare_floors, facade_floors = [], []
+    for _ in range(max(repeats, 1)):
+        bare_floors.append(_floor(_bare_rounds(
+            clients, loss_fn, params0, rounds=rounds, local_epochs=local_epochs,
+            batch_size=batch_size, seed=seed, dev=dev)))
+        facade_floors.append(_floor(facade_rounds()))
+    bare, facade = min(bare_floors), min(facade_floors)
+    overhead = facade / bare - 1.0
+    report = {
+        "bench": "facade_overhead",
+        "device": str(dev),
+        "num_clients": len(clients),
+        "rounds": rounds,
+        "batch_size": batch_size,
+        "repeats": repeats,
+        "bare_round_s": bare,
+        "facade_round_s": facade,
+        "bare_floors": bare_floors,
+        "facade_floors": facade_floors,
+        "overhead_frac": overhead,
+        "budget_frac": 0.02,
+        "within_budget": bool(overhead <= 0.02),
+    }
+    if verbose:
+        print(
+            f"  [facade] bare={bare:.4f}s facade={facade:.4f}s "
+            f"overhead={100 * overhead:+.2f}% (budget 2%)",
+            flush=True,
+        )
+    return report
+
+
+def run_obs_overhead(
+    *,
+    rounds: int = 10,
+    flushes: int = 10,
+    local_epochs: int = 1,
+    batch_size: int = 8,
+    seed: int = 0,
+    total_stays: int = 189 * 16,
+    buffer_size: int = 32,
+    repeats: int = 3,
+    trace_capacity: int = 262144,
+    trace_path: str | None = None,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """The observability tax: tracer off and tracer on against the bare loop.
+
+    Three sync variants drive the identical 189-client workload (the bare
+    hot loop of :func:`run_facade_overhead`, ``Federation.run`` with the
+    default null tracer, and ``Federation.run`` with a live
+    :class:`repro_torch.obs.trace.Tracer`), plus an off/on pair through the
+    async virtual-clock engine (fedbuff, constant latency, no dropout, so
+    every flush is the same unit of work).  The reference's budgets:
+    instrumented-off <= 1% over the bare loop and tracer-on <= 5% over
+    tracer-off in both engines.  The async off path reuses the sync path's
+    null-tracer primitives, so its off budget rides the sync probe.
+
+    The estimator is :func:`run_facade_overhead`'s floor over alternating
+    repeats.  ``trace_path``, when given, is where the last async tracer's
+    Chrome trace is written.  ``device`` defaults to the card.
+    """
+    from repro_torch.obs.trace import Tracer
+
+    dev = resolve_device(device)
+    clients, loss_fn, params0 = _overhead_workload(total_stays, seed, dev)
+
+    def optimizer() -> AdamW:
+        return AdamW(learning_rate=5e-3, weight_decay=5e-3)
+
+    def sync_rounds(tracer: Tracer | None) -> list[float]:
+        federation = Federation(
+            FederationConfig(
+                rounds=rounds, local_epochs=local_epochs, batch_size=batch_size,
+                recruitment="all", selection="uniform", aggregator="fedavg", seed=seed,
+            ),
+            clients,
+            loss_fn,
+            optimizer(),
+            device=dev,
+            tracer=tracer,
+        )
+        return [r.wall_time_s for r in federation.run(params0).history]
+
+    def async_flushes(tracer: Tracer | None) -> list[float]:
+        federation = AsyncFederation(
+            AsyncFederationConfig(
+                rounds=flushes, local_epochs=local_epochs, batch_size=batch_size,
+                recruitment="all", aggregator=f"fedbuff:{buffer_size}",
+                latency="constant", dropout="never", seed=seed,
+            ),
+            clients,
+            loss_fn,
+            optimizer(),
+            device=dev,
+            tracer=tracer,
+        )
+        return [r.wall_time_s for r in federation.run(params0).history]
+
+    # Alternate every variant inside each repeat so a throttling window
+    # cannot hit only one path.
+    floors: dict[str, list[float]] = {
+        "bare": [], "sync_off": [], "sync_on": [], "async_off": [], "async_on": [],
+    }
+    trace_stats: dict[str, Any] = {}
+    last_async_tracer: Tracer | None = None
+    for _ in range(max(repeats, 1)):
+        floors["bare"].append(_floor(_bare_rounds(
+            clients, loss_fn, params0, rounds=rounds, local_epochs=local_epochs,
+            batch_size=batch_size, seed=seed, dev=dev)))
+        floors["sync_off"].append(_floor(sync_rounds(None)))
+        sync_tracer = Tracer(capacity=trace_capacity)
+        floors["sync_on"].append(_floor(sync_rounds(sync_tracer)))
+        floors["async_off"].append(_floor(async_flushes(None)))
+        async_tracer = Tracer(capacity=trace_capacity)
+        floors["async_on"].append(_floor(async_flushes(async_tracer)))
+        trace_stats = {
+            "sync_events": len(sync_tracer.events()),
+            "async_events": len(async_tracer.events()),
+            "sync_dropped": sync_tracer.dropped,
+            "async_dropped": async_tracer.dropped,
+        }
+        last_async_tracer = async_tracer
+    best = {name: min(values) for name, values in floors.items()}
+    sync_off = best["sync_off"] / best["bare"] - 1.0
+    sync_on = best["sync_on"] / best["sync_off"] - 1.0
+    async_on = best["async_on"] / best["async_off"] - 1.0
+    budget_off, budget_on = 0.01, 0.05
+    report = {
+        "bench": "obs_overhead",
+        "device": str(dev),
+        "num_clients": len(clients),
+        "rounds": rounds,
+        "flushes": flushes,
+        "batch_size": batch_size,
+        "repeats": repeats,
+        "floors": floors,
+        "sync": {
+            "bare_round_s": best["bare"],
+            "off_round_s": best["sync_off"],
+            "on_round_s": best["sync_on"],
+            "overhead_off_frac": sync_off,
+            "overhead_on_frac": sync_on,
+        },
+        "async": {
+            "off_flush_s": best["async_off"],
+            "on_flush_s": best["async_on"],
+            "overhead_on_frac": async_on,
+        },
+        "trace": trace_stats,
+        "budget_off_frac": budget_off,
+        "budget_on_frac": budget_on,
+        "within_budget": bool(
+            sync_off <= budget_off and sync_on <= budget_on and async_on <= budget_on
+        ),
+    }
+    if trace_path is not None and last_async_tracer is not None:
+        report["trace"]["sample_path"] = last_async_tracer.export_chrome(trace_path)
+    if verbose:
+        print(
+            f"  [obs sync] bare={best['bare']:.4f}s off={best['sync_off']:.4f}s "
+            f"on={best['sync_on']:.4f}s off_overhead={100 * sync_off:+.2f}% "
+            f"on_overhead={100 * sync_on:+.2f}% (budgets 1%/5%)",
+            flush=True,
+        )
+        print(
+            f"  [obs async] off={best['async_off']:.4f}s on={best['async_on']:.4f}s "
+            f"on_overhead={100 * async_on:+.2f}% (budget 5%)",
+            flush=True,
+        )
+    return report
+
+
 def run_seeds(
     setting: str, exp: ExperimentConfig, seeds: list[int], verbose: bool = True
 ) -> dict[str, Any]:
@@ -935,7 +1208,6 @@ def run_service_overhead(
     the report so the probe's own resolution is visible.
     """
     import tempfile
-    import time
 
     from repro_torch.launch.federation_service import (
         build_workload,

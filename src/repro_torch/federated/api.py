@@ -44,9 +44,13 @@ state) continues exactly where the interrupted one left off.
 Observability: each run folds its records and the cohort engine's
 ``last_round_stats`` into a ``repro_torch.obs.MetricsRegistry``
 (``Federation(metrics=)``; the final snapshot is
-``FederatedRunResult.metrics``).  The reference's span tracer and round
-profiler (``tracer=``, ``profiler=``) and its ``jit.*`` compile counters
-wait for ROADMAP Queue 1 item 8.
+``FederatedRunResult.metrics``), with the kernel libraries' build and load
+events as the ``jit.*`` metrics (``obs/profile.py::CompileWatcher``).
+``tracer=`` (a ``repro_torch.obs.Tracer``) records the reference's
+``select``, ``train``, ``aggregate``, ``checkpoint`` and ``round`` spans,
+the cohort engine's ``stage`` / ``prefetch_wait`` / ``pool_upload`` spans
+below them; ``profiler=`` (an ``obs.profile.RoundProfiler``) brackets each
+round.  Both are off by default, and off they add no device work.
 """
 
 from __future__ import annotations
@@ -80,6 +84,8 @@ from repro_torch.federated.fedavg import (
 )
 from repro_torch.federated.selection import round_robin_clients, select_clients
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import CompileWatcher
+from repro_torch.obs.trace import Tracer, resolve_tracer
 from repro_torch.optim.adamw import AdamW
 from repro_torch.privacy.accountant import RdpAccountant
 from repro_torch.privacy.dp import DPConfig, resolve_dp
@@ -693,12 +699,6 @@ def generator_rng_state(state: dict, directory: str) -> dict:
     return state["generator_rng_state"]
 
 
-def _unported_hook(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (repro.obs) is not ported yet (ROADMAP Queue 1 item 8)"
-    )
-
-
 # ---------------------------------------------------------------------------
 # the facade
 # ---------------------------------------------------------------------------
@@ -752,8 +752,9 @@ class Federation:
     ``Federation(config, clients, loss_fn, optimizer, device=None)`` resolves
     the three policy stages up front (unknown spec strings fail here, not
     mid-run).  ``device`` defaults to the card.  ``metrics`` is the registry
-    each round is folded into (a new one when ``None``); ``tracer`` and
-    ``profiler`` raise (ROADMAP Queue 1 item 8).
+    each round is folded into (a new one when ``None``); ``tracer`` records
+    the round program's spans (``None`` is the no-op tracer) and
+    ``profiler`` brackets each round (``RoundProfiler``, or ``None``).
     """
 
     def __init__(
@@ -763,15 +764,17 @@ class Federation:
         loss_fn: Callable[..., Any],
         optimizer: AdamW,
         device: str | torch.device | None = None,
-        tracer: Any = None,
+        tracer: Tracer | None = None,
         metrics: MetricsRegistry | None = None,
         profiler: Any = None,
     ) -> None:
-        for what, given in (("tracer=", tracer), ("profiler=", profiler)):
-            if given is not None:
-                raise _unported_hook(f"Federation {what}")
         self.config = config
+        # Observability: the null tracer keeps the uninstrumented hot path
+        # at a handful of no-op calls per round; the registry always exists
+        # so run summaries carry the staging/comms counters either way.
+        self.tracer = resolve_tracer(tracer)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.profiler = profiler
         self.recruitment_policy = resolve_recruitment(config.recruitment)
         self.selection_policy = resolve_selection(config.selection)
         self.aggregator = resolve_aggregator(config.aggregator)
@@ -808,6 +811,7 @@ class Federation:
             prefetch=config.prefetch,
             resident_budget_bytes=config.resident_budget_bytes,
             dp=self.dp,
+            tracer=self.tracer,
             device=self.device,
         )
 
@@ -892,9 +896,10 @@ class Federation:
                 group_w.append(sum(self.all_clients[int(c)].n_train for c in group))
                 losses.append(losses_g)
                 steps += steps_g
-            new_params = self.aggregator.aggregate(
-                stack_trees(group_params), np.asarray(group_w, dtype=np.float32)
-            )
+            with self.tracer.span("aggregate", groups=len(groups)):
+                new_params = self.aggregator.aggregate(
+                    stack_trees(group_params), np.asarray(group_w, dtype=np.float32)
+                )
             return new_params, np.concatenate(losses), steps
 
         # mode == "stacked": the aggregator needs every client's params, which
@@ -904,7 +909,9 @@ class Federation:
         client_params, weights, losses, steps = self._train_clients(
             params, cohort, rng, generators
         )
-        return self.aggregator.aggregate(stack_trees(client_params), weights), losses, steps
+        with self.tracer.span("aggregate", clients=len(participants)):
+            new_params = self.aggregator.aggregate(stack_trees(client_params), weights)
+        return new_params, losses, steps
 
     # -- observability --------------------------------------------------------
 
@@ -1025,58 +1032,83 @@ class Federation:
         # tree and returns one of the same shape.
         n_tensors = len(tree_leaves(init_params))
         model_nbytes = params_nbytes(init_params)
+        tracer = self.tracer
         t_start = time.perf_counter()
 
-        for rnd in range(start_round, cfg.rounds):
-            t_round = time.perf_counter()
-            participants = np.asarray(self.selection_policy.select(rnd, federation_ids, rng))
-            if not (
-                len(participants) > 0
-                and np.all(np.diff(participants) > 0)
-                and set(participants.tolist()) <= set(federation_ids.tolist())
-            ):
-                raise ValueError(
-                    "selection must return a non-empty, strictly sorted subset of the federation"
-                )
-            generators = client_generators(generator_rng, len(participants), self.device)
-            # The per-client loss readbacks inside wait for the clients' steps.
-            params, losses, steps = self._train_round(
-                params, participants, rng, generators, federation_spe
-            )
-            self.selection_policy.observe(participants, losses)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # the aggregate is done too
-            epsilon = None
-            if accountant is not None:
-                accountant.step(len(participants) / federation_ids.size)
-                epsilon = accountant.epsilon()
-            wall = time.perf_counter() - t_round
-            record = RoundRecord(
-                round_index=rnd,
-                participant_ids=[int(c) for c in participants],
-                mean_local_loss=float(np.nanmean(losses)) if len(losses) else float("nan"),
-                local_steps=steps,
-                params_down=len(participants) * n_tensors,
-                params_up=len(participants) * n_tensors,
-                bytes_transferred=2 * len(participants) * model_nbytes,
-                wall_time_s=wall,
-                epsilon=epsilon,
-            )
-            history.append(record)
-            self._absorb_round_metrics(record)
-            if progress is not None:
-                progress(record)
-            if snapshot_hook is not None:
-                snapshot_hook(
-                    FederationSnapshot(
-                        round_index=rnd + 1,
-                        params=params,
-                        np_rng_state=rng.bit_generator.state,
-                        generator_rng_state=generator_rng.bit_generator.state,
-                        history=list(history),
-                        selection_state=self.selection_policy.state_dict(),
+        with CompileWatcher(self.metrics) as watcher:
+            for rnd in range(start_round, cfg.rounds):
+                if self.profiler is not None:
+                    self.profiler.round_start(rnd)
+                t_round = time.perf_counter()
+                with tracer.span("select", round=rnd):
+                    participants = np.asarray(
+                        self.selection_policy.select(rnd, federation_ids, rng)
                     )
+                if not (
+                    len(participants) > 0
+                    and np.all(np.diff(participants) > 0)
+                    and set(participants.tolist()) <= set(federation_ids.tolist())
+                ):
+                    raise ValueError(
+                        "selection must return a non-empty, strictly sorted subset "
+                        "of the federation"
+                    )
+                with tracer.span("train", round=rnd, participants=len(participants)):
+                    generators = client_generators(
+                        generator_rng, len(participants), self.device
+                    )
+                    # The per-client loss readbacks inside wait for the
+                    # clients' steps.
+                    params, losses, steps = self._train_round(
+                        params, participants, rng, generators, federation_spe
+                    )
+                self.selection_policy.observe(participants, losses)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)  # the aggregate is done too
+                epsilon = None
+                if accountant is not None:
+                    accountant.step(len(participants) / federation_ids.size)
+                    epsilon = accountant.epsilon()
+                wall = time.perf_counter() - t_round
+                record = RoundRecord(
+                    round_index=rnd,
+                    participant_ids=[int(c) for c in participants],
+                    mean_local_loss=float(np.nanmean(losses)) if len(losses) else float("nan"),
+                    local_steps=steps,
+                    params_down=len(participants) * n_tensors,
+                    params_up=len(participants) * n_tensors,
+                    bytes_transferred=2 * len(participants) * model_nbytes,
+                    wall_time_s=wall,
+                    epsilon=epsilon,
                 )
+                # The round span reuses the record's own start and duration,
+                # so the trace reconciles exactly with round_time_s.
+                tracer.complete(
+                    "round",
+                    start=tracer.host_ts(t_round),
+                    dur=wall,
+                    round=rnd,
+                    participants=len(participants),
+                )
+                history.append(record)
+                watcher.poll()
+                self._absorb_round_metrics(record)
+                if progress is not None:
+                    progress(record)
+                if snapshot_hook is not None:
+                    with tracer.span("checkpoint", round=rnd):
+                        snapshot_hook(
+                            FederationSnapshot(
+                                round_index=rnd + 1,
+                                params=params,
+                                np_rng_state=rng.bit_generator.state,
+                                generator_rng_state=generator_rng.bit_generator.state,
+                                history=list(history),
+                                selection_state=self.selection_policy.state_dict(),
+                            )
+                        )
+                if self.profiler is not None:
+                    self.profiler.round_end(rnd)
 
         return FederatedRunResult(
             params=params,

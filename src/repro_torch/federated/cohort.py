@@ -92,6 +92,7 @@ from repro_torch.data.pipeline import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.federated.staging import StagingPipeline
+from repro_torch.obs.trace import resolve_tracer
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.privacy.dp import DPConfig, dp_value_and_grad, resolve_dp
 from repro_torch.tree import PyTree, tree_leaves, tree_map
@@ -198,7 +199,10 @@ class CohortTrainer:
     # keeps the unprotected step untouched.  Under DP a chunk of C clients
     # at batch B runs the GRU kernels on C·B per-example clients.
     dp: DPConfig | dict | None = None
-    # Tracing: a later slice of the port.
+    # Observability: a repro_torch.obs Tracer records per-chunk "stage" spans
+    # (on the staging thread when prefetching), the pipeline's
+    # "prefetch_wait" stalls and the device cohort's "pool_upload" spans.
+    # None resolves to the shared no-op tracer.
     tracer: Any = None
     # Where to train: None is the card; "cpu" runs the plain versions.
     device: str | torch.device | None = None
@@ -208,15 +212,12 @@ class CohortTrainer:
     def __post_init__(self) -> None:
         if self.staging not in STAGING_MODES:
             raise ValueError(f"unknown staging {self.staging!r}; choose from {STAGING_MODES}")
-        unported = (
-            (self.mesh is not None, "mesh= (the client axis over several GPUs)", 9),
-            (self.tracer is not None, "tracer= (repro.obs)", 8),
-        )
-        for asked, what, item in unported:
-            if asked:
-                raise NotImplementedError(
-                    f"CohortTrainer {what} is not ported yet (ROADMAP Queue 1 item {item})"
-                )
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "CohortTrainer mesh= (the client axis over several GPUs) is not "
+                "ported yet (ROADMAP Queue 1 item 9)"
+            )
+        self.tracer = resolve_tracer(self.tracer)
         self.dp = resolve_dp(self.dp)
         self._dp_grad = None if self.dp is None else dp_value_and_grad(self.loss_fn, self.dp)
         self.device = resolve_device(self.device)
@@ -245,7 +246,10 @@ class CohortTrainer:
         first resident round then attaches its own cohort.
         """
         self._device_cohort = build_device_cohort(
-            clients, resident_budget_bytes=self.resident_budget_bytes, device=self.device
+            clients,
+            resident_budget_bytes=self.resident_budget_bytes,
+            tracer=self.tracer,
+            device=self.device,
         )
         return self._device_cohort
 
@@ -506,13 +510,16 @@ class CohortTrainer:
         def stage(item: tuple[int, int]) -> _Chunk:
             index, start = item
             part = clients[start : start + chunk]
-            if resident:
-                return self._stage_plan(part, rng, spe, dcohort, index % 2, side)
-            return self._stage_rebuild(part, rng, spe)
+            # The span lands on whichever thread stages: inline here, or the
+            # StagingPipeline's producer when prefetching.
+            with self.tracer.span("stage", track="staging", chunk=int(start)):
+                if resident:
+                    return self._stage_plan(part, rng, spe, dcohort, index % 2, side)
+                return self._stage_rebuild(part, rng, spe)
 
         pipeline: StagingPipeline | None = None
         if prefetch:
-            pipeline = StagingPipeline(stage, list(enumerate(starts)))
+            pipeline = StagingPipeline(stage, list(enumerate(starts)), tracer=self.tracer)
             staged_chunks = iter(pipeline)
         else:
             staged_chunks = (stage(item) for item in enumerate(starts))

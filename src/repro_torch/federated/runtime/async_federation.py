@@ -52,8 +52,10 @@ pending events with their trained updates, the buffer and the task queues,
 the latency model's drawn rates, both numpy streams, the stats and the
 history — so the remaining timeline replays exactly.  Each flush is folded
 into the shared ``repro_torch.obs.MetricsRegistry`` (``metrics=``).  The
-reference's tracer and profiler (``tracer=``, ``profiler=``) wait for
-ROADMAP Queue 1 item 8 and raise.
+tracer and profiler (``tracer=``, ``profiler=``) are the sync facade's: the
+host ``dispatch``, ``flush`` and ``checkpoint`` spans, the virtual-clock
+``task`` spans on per-client tracks with a flow from the server, the
+virtual ``flush`` instants and the scheduler's per-event instants.
 """
 
 from __future__ import annotations
@@ -73,7 +75,6 @@ from repro_torch.federated.api import (
     Federation,
     FederationConfig,
     RoundRecord,
-    _unported_hook,
     generator_rng_state,
     resolve_aggregator,
 )
@@ -88,6 +89,8 @@ from repro_torch.federated.runtime.latency import (
 from repro_torch.federated.runtime.scheduler import Event, VirtualScheduler
 from repro_torch.federated.runtime.staleness import AsyncAggregator, AsyncUpdate
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import CompileWatcher
+from repro_torch.obs.trace import Tracer
 from repro_torch.optim.adamw import AdamW
 from repro_torch.privacy.accountant import RdpAccountant
 from repro_torch.tree import PyTree, tree_leaves, tree_map
@@ -325,9 +328,8 @@ class AsyncFederation:
     resolves the buffered aggregator and the latency/dropout models up front
     (unknown specs fail here, not mid-run) and delegates recruitment and all
     training to an inner synchronous :class:`Federation` so the two facades
-    share one engine surface (and one metrics registry, ``metrics``).
-    ``device`` defaults to the card; ``tracer`` and ``profiler`` raise
-    (ROADMAP Queue 1 item 8).
+    share one engine surface (and one metrics registry, tracer and
+    profiler).  ``device`` defaults to the card.
     """
 
     def __init__(
@@ -337,7 +339,7 @@ class AsyncFederation:
         loss_fn: Callable[..., Any],
         optimizer: AdamW,
         device: str | torch.device | None = None,
-        tracer: Any = None,
+        tracer: Tracer | None = None,
         metrics: MetricsRegistry | None = None,
         profiler: Any = None,
     ) -> None:
@@ -346,9 +348,6 @@ class AsyncFederation:
                 f"AsyncFederation needs an AsyncFederationConfig, "
                 f"got {type(config).__name__}"
             )
-        for what, given in (("tracer=", tracer), ("profiler=", profiler)):
-            if given is not None:
-                raise _unported_hook(f"AsyncFederation {what}")
         self.config = config
         self.aggregator = resolve_aggregator(config.aggregator)
         if not isinstance(self.aggregator, AsyncAggregator):
@@ -384,10 +383,16 @@ class AsyncFederation:
             loss_fn,
             optimizer,
             device=device,
+            tracer=tracer,
             metrics=metrics,
+            profiler=profiler,
         )
         self.device = self._fed.device
+        # One observability surface for both facades: the inner Federation
+        # resolved the null tracer and built the registry; share them.
+        self.tracer = self._fed.tracer
         self.metrics = self._fed.metrics
+        self.profiler = self._fed.profiler
         self.last_run_stats: dict[str, Any] | None = None
 
     @property
@@ -428,7 +433,7 @@ class AsyncFederation:
         cuda = device.type == "cuda"
         rng = np.random.default_rng(cfg.seed)               # the batch-plan stream
         generator_rng = np.random.default_rng([cfg.seed, 2])  # dropout generators
-        sched = VirtualScheduler(seed=cfg.seed)
+        sched = VirtualScheduler(seed=cfg.seed, tracer=self.tracer)
 
         federation_ids, recruitment = fed.build_federation()
         members = {int(i): fed.all_clients[int(i)] for i in federation_ids}
@@ -521,6 +526,7 @@ class AsyncFederation:
                     accountant.step(len(past.participant_ids) / federation_ids.size)
         t_start = time.perf_counter()
         t_last_flush = t_start
+        tracer = self.tracer
         # Per-flush metric deltas: the stats dict is cumulative (and resume
         # restores it alongside the registry, which already folded the
         # pre-preemption values), so only the change since the last flush
@@ -582,25 +588,47 @@ class AsyncFederation:
                 [cid for cid in group if not self.dropout_model.drops(int(cid), sched.rng)]
             )
             update = None
-            if len(survivors):
-                generators = client_generators(generator_rng, len(survivors), device)
-                task_params, losses, steps = fed._train_group(
-                    params, survivors, rng, generators, spe
-                )
-                stats["steps_trained"] += steps
-                update = AsyncUpdate(
-                    client_ids=survivors,
-                    params=task_params,
-                    anchor=params,
-                    weight=float(sum(members[int(c)].n_train for c in survivors)),
-                    version=version,
-                    losses=np.asarray(losses, dtype=np.float32),
-                    local_steps=steps,
-                )
+            with tracer.span("dispatch", group=group_index, latency=latency):
+                if len(survivors):
+                    generators = client_generators(generator_rng, len(survivors), device)
+                    task_params, losses, steps = fed._train_group(
+                        params, survivors, rng, generators, spe
+                    )
+                    stats["steps_trained"] += steps
+                    update = AsyncUpdate(
+                        client_ids=survivors,
+                        params=task_params,
+                        anchor=params,
+                        weight=float(sum(members[int(c)].n_train for c in survivors)),
+                        version=version,
+                        losses=np.asarray(losses, dtype=np.float32),
+                        local_steps=steps,
+                    )
             stats["tasks"] += 1
             stats["dropped"] += len(group) - len(survivors)
             in_flight += 1
             sched.after(latency, COMPLETE, _Completion(group_index, update))
+            if tracer.enabled:
+                # The task on the virtual clock: dispatched now, completing
+                # after its sampled latency, on its own per-client track,
+                # with a flow arrow from the server's dispatch point so
+                # straggler and dropout schedules read off the timeline.
+                track = f"client:{int(group[0])}" if len(group) == 1 else f"group:{group_index}"
+                fid = tracer.new_flow_id()
+                tracer.flow_start("task", fid, ts=sched.now, track="server")
+                tracer.complete(
+                    "task",
+                    start=sched.now,
+                    dur=latency,
+                    track=track,
+                    clock="virtual",
+                    group=group_index,
+                    clients=[int(c) for c in group],
+                    survivors=len(survivors),
+                    version=version,
+                    dropped=update is None,
+                )
+                tracer.flow_end("task", fid, ts=sched.now + latency, track=track)
 
         def dispatch_ready() -> None:
             """Dispatch ready tasks in queue order, respecting concurrency."""
@@ -639,10 +667,29 @@ class AsyncFederation:
                 staleness=float(staleness.mean()) if len(staleness) else 0.0,
                 epsilon=epsilon,
             )
+            # The flush span covers the whole inter-flush interval on the
+            # host clock (its duration is exactly round_time_s), plus an
+            # instant on the virtual timeline at the flush's event time.
+            tracer.complete(
+                "flush",
+                start=tracer.host_ts(t_last_flush),
+                dur=record.wall_time_s,
+                version=version - 1,
+                updates=len(updates),
+                virtual_time=sched.now,
+            )
+            tracer.instant(
+                "flush", ts=sched.now, clock="virtual",
+                version=version - 1, staleness=record.staleness,
+            )
             t_last_flush = now_host
             history.append(record)
+            watcher.poll()
             absorb_async_metrics()
             fed._absorb_round_metrics(record)
+            if self.profiler is not None:
+                self.profiler.round_end(version - 1)
+                self.profiler.round_start(version)
             if progress is not None:
                 progress(record)
             if version >= cfg.rounds:
@@ -651,75 +698,77 @@ class AsyncFederation:
                 return False
             return True
 
-        dispatch_ready()
-        while True:
-            if sched.empty:
-                if buffer and version < cfg.rounds:
-                    # Every task has reported but the buffer never crossed
-                    # the threshold (e.g. fedbuff:K over a federation of
-                    # fewer than K tasks): flush what there is rather than
-                    # deadlock — the semi-synchronous degenerate case.
-                    stats["forced_flushes"] += 1
-                    sched.schedule(sched.now, FLUSH)
-                    flush_pending = True
-                    continue
-                break
-            if (
-                cfg.max_virtual_time is not None
-                and sched.peek_time() > cfg.max_virtual_time
-            ):
-                break
-            event = sched.pop()
-            if event.kind == COMPLETE:
-                in_flight -= 1
-                done: _Completion = event.payload
-                if done.update is None:
-                    # Dropped: the client retries immediately — it never
-                    # blocks the buffer, so it cannot deadlock a flush.
-                    # (in_flight just fell below any concurrency cap, so the
-                    # retry always has a slot.)
-                    drought += 1
-                    if drought > drought_limit and cfg.max_virtual_time is None:
-                        raise RuntimeError(
-                            f"{drought} consecutive tasks dropped with no "
-                            "update reaching the server; the dropout model "
-                            "admits no progress — lower the dropout "
-                            "probability or set max_virtual_time to bound "
-                            "the simulation"
-                        )
-                    dispatch(done.group_index)
-                    continue
-                drought = 0
-                buffer.append(done.update)
-                idle.append(done.group_index)
-                # The completion freed a concurrency slot: fund the next
-                # not-yet-trained task with it right away.
-                dispatch_ready()
-                if self.aggregator.ready(len(buffer)) and not flush_pending:
-                    # Flush at the next event boundary (same time, later
-                    # seq): simultaneous completions land in one flush.
-                    sched.schedule(sched.now, FLUSH)
-                    flush_pending = True
-            elif event.kind == FLUSH:
-                flush_pending = False
-                if not buffer:
-                    continue
-                if not flush():
+        with CompileWatcher(self.metrics) as watcher:
+            dispatch_ready()
+            while True:
+                if sched.empty:
+                    if buffer and version < cfg.rounds:
+                        # Every task has reported but the buffer never crossed
+                        # the threshold (e.g. fedbuff:K over a federation of
+                        # fewer than K tasks): flush what there is rather than
+                        # deadlock — the semi-synchronous degenerate case.
+                        stats["forced_flushes"] += 1
+                        sched.schedule(sched.now, FLUSH)
+                        flush_pending = True
+                        continue
                     break
-                # The new version exists: everyone who reported against the
-                # old one becomes ready again, behind any task still waiting
-                # for its first slot.
-                idle.sort()
-                ready.extend(idle)
-                idle.clear()
-                if snapshot_hook is not None:
-                    # The cut point: buffer just flushed, idle requeued,
-                    # nothing dispatched yet — resuming from here and
-                    # continuing are the same next action.
-                    snapshot_hook(make_snapshot())
-                dispatch_ready()
-            else:  # pragma: no cover - no other kinds are scheduled
-                raise RuntimeError(f"unknown event kind {event.kind!r}")
+                if (
+                    cfg.max_virtual_time is not None
+                    and sched.peek_time() > cfg.max_virtual_time
+                ):
+                    break
+                event = sched.pop()
+                if event.kind == COMPLETE:
+                    in_flight -= 1
+                    done: _Completion = event.payload
+                    if done.update is None:
+                        # Dropped: the client retries immediately — it never
+                        # blocks the buffer, so it cannot deadlock a flush.
+                        # (in_flight just fell below any concurrency cap, so the
+                        # retry always has a slot.)
+                        drought += 1
+                        if drought > drought_limit and cfg.max_virtual_time is None:
+                            raise RuntimeError(
+                                f"{drought} consecutive tasks dropped with no "
+                                "update reaching the server; the dropout model "
+                                "admits no progress — lower the dropout "
+                                "probability or set max_virtual_time to bound "
+                                "the simulation"
+                            )
+                        dispatch(done.group_index)
+                        continue
+                    drought = 0
+                    buffer.append(done.update)
+                    idle.append(done.group_index)
+                    # The completion freed a concurrency slot: fund the next
+                    # not-yet-trained task with it right away.
+                    dispatch_ready()
+                    if self.aggregator.ready(len(buffer)) and not flush_pending:
+                        # Flush at the next event boundary (same time, later
+                        # seq): simultaneous completions land in one flush.
+                        sched.schedule(sched.now, FLUSH)
+                        flush_pending = True
+                elif event.kind == FLUSH:
+                    flush_pending = False
+                    if not buffer:
+                        continue
+                    if not flush():
+                        break
+                    # The new version exists: everyone who reported against the
+                    # old one becomes ready again, behind any task still waiting
+                    # for its first slot.
+                    idle.sort()
+                    ready.extend(idle)
+                    idle.clear()
+                    if snapshot_hook is not None:
+                        # The cut point: buffer just flushed, idle requeued,
+                        # nothing dispatched yet — resuming from here and
+                        # continuing are the same next action.
+                        with tracer.span("checkpoint", version=version):
+                            snapshot_hook(make_snapshot())
+                    dispatch_ready()
+                else:  # pragma: no cover - no other kinds are scheduled
+                    raise RuntimeError(f"unknown event kind {event.kind!r}")
 
         if cuda:
             torch.cuda.synchronize(device)
@@ -727,6 +776,8 @@ class AsyncFederation:
         # still lands in the counters before the final snapshot.
         absorb_async_metrics()
         self.metrics.gauge("async.virtual_time").set(sched.now)
+        if self.profiler is not None:
+            self.profiler.stop()
         self.last_run_stats = {
             **stats,
             "virtual_time": sched.now,

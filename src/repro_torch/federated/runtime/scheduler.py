@@ -2,9 +2,8 @@
 
 The port's copy of the JAX package's ``federated/runtime/scheduler.py``:
 numpy and ``heapq`` only, the same seeded stream, so the virtual clock,
-the event order and every latency and dropout draw equal the reference's.
-The one change: ``tracer=`` (the reference's per-event instant markers)
-waits for the port of ``repro.obs`` and raises until then.
+the event order and every latency and dropout draw equal the reference's,
+and so do the per-event instant markers of ``tracer=``.
 
 The async federation runtime replaces the synchronous round barrier with a
 simulated timeline: client tasks, completions, and aggregator flushes are
@@ -41,6 +40,8 @@ import heapq
 from typing import Any
 
 import numpy as np
+
+from repro_torch.obs.trace import resolve_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,11 +80,9 @@ class VirtualScheduler:
         # The run's latency/dropout stream, independent of the batch
         # scheduler's and the recruitment generator's streams.
         self.rng = np.random.default_rng([int(seed), 0x5EED])
-        if tracer is not None:
-            raise NotImplementedError(
-                "VirtualScheduler tracer= (repro.obs) is not ported yet "
-                "(ROADMAP Queue 1 item 8)"
-            )
+        # Observability: each popped event becomes an instant marker on the
+        # virtual-clock "scheduler" track (None = the shared no-op tracer).
+        self.tracer = resolve_tracer(tracer)
 
     def __len__(self) -> int:
         return len(self._heap)
@@ -123,6 +122,10 @@ class VirtualScheduler:
         _, _, event = heapq.heappop(self._heap)
         self.now = event.time
         self.processed += 1
+        self.tracer.instant(
+            event.kind, ts=event.time, track="scheduler", clock="virtual",
+            seq=event.seq,
+        )
         return event
 
     def pending(self) -> list[Event]:

@@ -21,6 +21,8 @@ import queue
 import threading
 from typing import Any, Callable, Iterator, Sequence
 
+from repro_torch.obs.trace import resolve_tracer
+
 _LOG = logging.getLogger(__name__)
 
 
@@ -36,6 +38,11 @@ class StagingPipeline:
 
     ``prefetched`` counts chunks that were already staged when the consumer
     asked for them (``last_round_stats["plans_prefetched"]``).
+
+    ``tracer`` (a ``repro_torch.obs`` tracer; None = no-op) records a
+    ``prefetch_wait`` span on the consumer whenever it blocks on a chunk
+    that is not staged yet: the pipeline's stall time, beside the
+    producer's ``stage`` spans in an exported trace.
     """
 
     def __init__(
@@ -45,10 +52,12 @@ class StagingPipeline:
         *,
         depth: int = 1,
         join_timeout: float = 5.0,
+        tracer: Any = None,
     ) -> None:
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self._stage_fn = stage_fn
+        self._tracer = resolve_tracer(tracer)
         self._items = list(items)
         self._join_timeout = join_timeout
         self._pending_exc: BaseException | None = None
@@ -88,7 +97,8 @@ class StagingPipeline:
                 staged, exc = self._queue.get_nowait()
                 hit = True
             except queue.Empty:
-                staged, exc = self._queue.get()
+                with self._tracer.span("prefetch_wait", track="staging"):
+                    staged, exc = self._queue.get()
                 hit = False
             self._slots.release()
             if exc is not None:

@@ -10,6 +10,12 @@ Kernels are CUDA C++ sources under ``repro_torch/csrc/``, compiled at first
 use with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface and loaded with ``ctypes``.  The library's name carries a hash of
 its source, so an edited source is rebuilt and a stale build never loads.
+
+The port has no jit: its compile events are these libraries' ``nvcc``
+builds and first loads in a process.  Each is counted with its host seconds
+in ``LIBRARY_EVENTS`` and handed to the listeners of
+``add_library_listener`` (``obs/profile.py::CompileWatcher`` turns them into
+the ``jit.*`` metrics).  Counting costs no device work.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -34,6 +42,27 @@ NVCC_FLAGS = (
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+# This process's library events (builds and first loads) and their seconds.
+# Builds may run on several threads at once, so the counts and the
+# listeners' own tallies are updated under one lock.
+LIBRARY_EVENTS: dict[str, float] = {"count": 0, "seconds": 0.0}
+_listeners: list[Callable[[float], None]] = []
+_events_lock = threading.Lock()
+
+
+def add_library_listener(listener: Callable[[float], None]) -> None:
+    """Call ``listener(seconds)`` at every library event from now on."""
+    with _events_lock:
+        _listeners.append(listener)
+
+
+def _library_event(seconds: float) -> None:
+    with _events_lock:
+        LIBRARY_EVENTS["count"] += 1
+        LIBRARY_EVENTS["seconds"] += seconds
+        for listener in _listeners:
+            listener(seconds)
 
 
 def route(*tensors: torch.Tensor) -> str:
@@ -74,6 +103,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -81,6 +111,7 @@ def build(name: str) -> Path:
         )
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
+    _library_event(time.perf_counter() - t0)
     return lib
 
 
@@ -92,11 +123,14 @@ def load_library(name: str, signatures: dict[str, tuple[list, type]]) -> ctypes.
     """
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(build(name)))
+            path = build(name)
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(str(path))
             for fn, (argtypes, restype) in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
+            _library_event(time.perf_counter() - t0)
         return _libs[name]
 
 

@@ -24,10 +24,10 @@ What differs from the reference:
   chooses nothing: the tensors' device routes every GRU call (the CUDA
   kernels on the card, their plain versions on the CPU).
 * ``mesh: "auto"`` raises ``NotImplementedError`` (the client axis over
-  several GPUs, ROADMAP Queue 1 item 9).  An ``observability`` section
-  that asks for a trace or for profiled rounds raises at submit, before
-  any training (the tracer and profiler, item 8); ``metrics.jsonl`` is
-  written for every run.
+  several GPUs, ROADMAP Queue 1 item 9).
+* ``observability.jax_profile_rounds`` (the key is the reference's, so
+  specs hash alike) profiles rounds with ``torch.profiler`` into
+  ``torch_profile/`` where the reference writes ``jax_profile/``.
 
 Not to be confused with :mod:`repro_torch.launch.serve`, the decode loop.
 "Serve" there means serving predictions; the control plane here serves
@@ -39,6 +39,8 @@ Each job owns a **run directory**:
       job.json         # normalized spec + its sha256 spec_hash
       records.jsonl    # the RoundRecord stream, one JSON line per round
       metrics.jsonl    # the metrics registry's snapshot, one line per record
+      trace.json       # the span trace (observability.trace; Chrome/Perfetto)
+      torch_profile/   # profiled rounds (observability.jax_profile_rounds)
       checkpoint/      # latest federation snapshot (atomic, overwritten)
       final/           # final parameter tree (repro_torch.checkpoint layout)
       result.json      # terminal status + run summary
@@ -83,6 +85,8 @@ EX_TEMPFAIL = 75
 JOB_FILE = "job.json"
 RECORDS_FILE = "records.jsonl"
 METRICS_FILE = "metrics.jsonl"
+TRACE_FILE = "trace.json"
+PROFILE_DIR = "torch_profile"
 CHECKPOINT_DIR = "checkpoint"
 FINAL_DIR = "final"
 RESULT_FILE = "result.json"
@@ -521,20 +525,6 @@ def _read_json(path: str) -> dict:
         return json.load(fh)
 
 
-def _check_ported(spec: dict) -> None:
-    """Refuse, before any training, what the port cannot run yet."""
-    from repro_torch.obs.profile import resolve_observability
-
-    # .get(): job.json files written before the observability tier existed.
-    obs = resolve_observability(spec.get("observability"))
-    if obs is not None and (obs.trace or obs.jax_profile_rounds > 0):
-        raise NotImplementedError(
-            "observability: the span trace and profiled rounds are not ported "
-            "yet (ROADMAP Queue 1 item 8); set observability to null or to "
-            '{"trace": false} (metrics.jsonl is written for every run)'
-        )
-
-
 def _run_job(
     job: dict,
     run_dir: str,
@@ -554,20 +544,31 @@ def _run_job(
     from repro_torch.federated.api import Federation
     from repro_torch.federated.runtime import AsyncFederation
     from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.profile import RoundProfiler, resolve_observability
+    from repro_torch.obs.trace import Tracer
 
     spec = job["spec"]
     spec_hash = job["spec_hash"]
     cfg = federation_config_from_spec(spec)
     ckpt_dir = os.path.join(run_dir, CHECKPOINT_DIR)
 
-    # The metrics registry always exists (metrics.jsonl is part of the
-    # run-dir contract).
+    # Observability: the metrics registry always exists (metrics.jsonl is
+    # part of the run-dir contract); the tracer and profiler only when the
+    # spec's observability section asks for them.  .get(): job.json files
+    # written before the observability tier existed resume uninstrumented.
+    obs = resolve_observability(spec.get("observability"))
     metrics = MetricsRegistry()
     if resume_snapshot is not None and has_federation_snapshot(ckpt_dir):
         # Continue the series: counters resume from the snapshot instead of
         # restarting at zero (the metrics.jsonl prefix was truncated to the
         # same snapshot by resume_job).
         metrics.load_snapshot(federation_snapshot_state(ckpt_dir).get("metrics"))
+    tracer = Tracer(capacity=obs.trace_capacity) if obs is not None and obs.trace else None
+    profiler = (
+        RoundProfiler(obs.jax_profile_rounds, os.path.join(run_dir, PROFILE_DIR), device)
+        if obs is not None and obs.jax_profile_rounds > 0
+        else None
+    )
 
     metrics_path = os.path.join(run_dir, METRICS_FILE)
     if resume_snapshot is None:
@@ -610,14 +611,24 @@ def _run_job(
         workload.loss_fn,
         workload.optimizer,
         device=device,
+        tracer=tracer,
         metrics=metrics,
+        profiler=profiler,
     )
-    result = federation.run(
-        workload.init_params,
-        progress=stream.emit,
-        snapshot_hook=snapshot_hook,
-        resume=resume_snapshot,
-    )
+    try:
+        result = federation.run(
+            workload.init_params,
+            progress=stream.emit,
+            snapshot_hook=snapshot_hook,
+            resume=resume_snapshot,
+        )
+    finally:
+        # Preempted runs keep their partial trace too: the ring holds
+        # whatever happened up to the cut.
+        if tracer is not None:
+            tracer.export_chrome(os.path.join(run_dir, TRACE_FILE))
+        if profiler is not None:
+            profiler.stop()
 
     save_pytree(
         os.path.join(run_dir, FINAL_DIR),
@@ -658,7 +669,6 @@ def submit_job(
     from repro_torch.device import resolve_device
 
     normalized = validate_job_spec(spec)
-    _check_ported(normalized)
     device = resolve_device(device)
     job = {"spec": normalized, "spec_hash": job_spec_hash(normalized)}
     os.makedirs(run_dir, exist_ok=True)
@@ -722,7 +732,6 @@ def resume_job(
             f"spec_hash {stored_hash[:12]}…; refusing to resume a different "
             "experiment's checkpoint"
         )
-    _check_ported(job["spec"])
     workload = build_workload(job["spec"], device)
     snapshot_cls = (
         FederationSnapshot if job["spec"]["mode"] == "sync" else AsyncFederationSnapshot

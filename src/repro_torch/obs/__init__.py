@@ -1,30 +1,48 @@
-"""Observability of the port: the metrics registry and the job spec's
-``observability`` section.
+"""Observability of the port: spans, metrics, and profiling hooks.
 
+The port of the JAX package's ``repro.obs``, threaded through the port's
+federated stack:
+
+- :mod:`repro_torch.obs.trace` — a bounded-ring span :class:`Tracer` with a
+  Chrome/Perfetto ``trace.json`` exporter (a copy of the reference's);
+  :data:`NULL_TRACER` is the default everywhere so the instrumented-off hot
+  path stays free.
 - :mod:`repro_torch.obs.metrics` — typed counters/gauges/histograms behind a
   :class:`MetricsRegistry` with a single ``snapshot()`` schema, streamed as
   ``metrics.jsonl`` by the control plane and carried inside federation
   snapshots so resume continues the series (a copy of the reference's).
 - :mod:`repro_torch.obs.profile` — the ``observability`` section's defaults
-  and validation.
+  and validation, optional ``torch.profiler`` capture around designated
+  rounds (:class:`RoundProfiler`) and the kernel libraries' build and load
+  events as ``jit.*`` metrics (:class:`CompileWatcher`).
 
-The reference's span tracer, round profiler, compile-event counters and
-report CLI wait for ROADMAP Queue 1 item 8.
+``python -m repro_torch.obs report <run_dir>`` renders a per-phase time
+breakdown and the top-k slowest clients from an exported trace.
 """
 
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.profile import (
     OBSERVABILITY_DEFAULTS,
+    CompileWatcher,
     ObservabilityConfig,
+    RoundProfiler,
     resolve_observability,
 )
+from repro_torch.obs.trace import NULL_TRACER, NullTracer, SpanEvent, Tracer, resolve_tracer
 
 __all__ = [
+    "CompileWatcher",
     "Counter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "NULL_TRACER",
+    "NullTracer",
     "OBSERVABILITY_DEFAULTS",
     "ObservabilityConfig",
+    "RoundProfiler",
+    "SpanEvent",
+    "Tracer",
     "resolve_observability",
+    "resolve_tracer",
 ]

@@ -28,6 +28,7 @@ client axis over several GPUs (ROADMAP Queue 1 item 9): the port has no
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -65,7 +66,7 @@ from repro_torch.federated.runtime import (  # noqa: E402
 )
 from repro_torch.federated.runtime import staleness  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
-from repro_torch.obs import MetricsRegistry  # noqa: E402
+from repro_torch.obs import MetricsRegistry, RoundProfiler, Tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -752,12 +753,13 @@ def test_recruitment_composes_with_async_runtime(setup):
     assert set(c for r in out.history for c in r.participant_ids) <= set(sync_ids.tolist())
 
 
-def test_unported_hooks_raise(setup):
-    """The observability hooks not ported yet (the tracer and the profiler,
-    ROADMAP Queue 1 item 8) raise rather than run without.  The flush
-    snapshots (item 5) and the metrics registry are ported: the snapshot
-    hook runs after every non-final flush, a resume from its snapshot
-    replays the run, and ``metrics=`` is the registry the flushes fill."""
+def test_unported_hooks_raise(setup, tmp_path):
+    """The hooks that once waited for a port now run: the flush snapshots
+    (the snapshot hook runs after every non-final flush and a resume from
+    its snapshot replays the run), ``metrics=`` (the registry the flushes
+    fill), ``tracer=`` (shared with the inner facade and the scheduler,
+    which marks every popped event) and ``profiler=`` (a ``RoundProfiler``
+    bracketing the flushes).  Traced and profiled, the run is the same bits."""
     clients, loss_fn, params0 = setup
     cfg = AsyncFederationConfig(rounds=2, local_epochs=1, batch_size=4, aggregator="fedbuff:2")
     fed = AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu")
@@ -772,11 +774,23 @@ def test_unported_hooks_raise(setup):
     out = AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu", metrics=registry).run(
         params0)
     assert out.metrics == registry.snapshot() and out.metrics["counters"]["rounds.completed"] == 2
-    for hook in ("tracer", "profiler"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu", **{hook: object()})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        VirtualScheduler(seed=0, tracer=object())
+    tracer = Tracer()
+    profiler = RoundProfiler(1, str(tmp_path / "profile"), device="cpu")
+    hooked = AsyncFederation(cfg, clients, loss_fn, opt(), device="cpu", tracer=tracer,
+                             profiler=profiler)
+    assert (hooked.tracer, hooked._fed.tracer, hooked.profiler) == (tracer, tracer, profiler)
+    traced = hooked.run(params0)
+    assert same_bits(traced.params, full.params) and profiler.error is None
+    assert [s.dur for s in tracer.spans("flush", clock="host")] == [
+        r.round_time_s for r in traced.history]
+    assert os.path.exists(profiler.trace_path)
+    sched = VirtualScheduler(seed=0, tracer=tracer)
+    sched.after(1.5, "complete")
+    before = len(tracer.events())
+    assert sched.pop().time == 1.5
+    mark = tracer.events()[before]
+    assert (mark.name, mark.ts, mark.track, mark.clock, mark.args) == (
+        "complete", 1.5, "scheduler", "virtual", {"seq": 0})
     assert fed.device == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -43,6 +43,7 @@ from repro_torch.experiments import paper  # noqa: E402
 from repro_torch.federated.api import Federation, FederationConfig  # noqa: E402
 from repro_torch.federated.cohort import MAX_CHUNK, CohortTrainer, client_generators  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamW, apply_updates  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -395,9 +396,15 @@ def test_errors(model):
         trainer().train_cohort(params0, many, rng, gens * len(many))
     with pytest.raises(ValueError, match="unknown staging"):
         trainer(staging="lazy")
-    for kw, item in ((dict(mesh="auto"), 9), (dict(tracer=object()), 8)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            trainer(**kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        trainer(mesh="auto")
+    # the tracer is ported: a traced trainer stages under a "stage" span
+    tracer = Tracer()
+    traced = trainer(tracer=tracer)
+    assert traced.tracer is tracer
+    traced.train_cohort(params0, clients, np.random.default_rng(6), gens)
+    assert [(s.name, s.track, s.args) for s in tracer.spans()] == [
+        ("stage", "staging", {"chunk": 0})]
     # DP-SGD is ported: the trainer takes a job-spec dict
     assert trainer(dp={"clip_norm": 1.0}).dp.clip_norm == 1.0
 

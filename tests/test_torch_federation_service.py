@@ -679,11 +679,24 @@ def test_a_job_killed_in_a_subprocess_resumes_to_the_uninterrupted_run(tmp_path)
 
 @pytest.mark.parametrize("section", [{}, {"trace": True}, {"trace": False, "jax_profile_rounds": 2}])
 def test_observability_that_asks_for_a_trace_or_a_profile_raises_at_submit(tmp_path, section):
+    """The span trace and profiled rounds are ported: a section that asks
+    for them runs, and the run dir holds ``trace.json`` (round spans equal
+    to the records) and ``torch_profile/`` (the first N rounds) as asked."""
     spec = dict(copy.deepcopy(SYNC_SPEC), observability=section)
     run_dir = tmp_path / "obs"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        submit(spec, run_dir)
-    assert not run_dir.exists()
+    out = submit(spec, run_dir)
+    assert out["status"] == "completed" and (run_dir / "metrics.jsonl").exists()
+    records = read_records(str(run_dir / "records.jsonl"))
+    if section.get("trace", True):
+        with open(run_dir / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        spans = [e for e in events if e["name"] == "round" and e["ph"] == "X"]
+        assert [e["dur"] for e in spans] == [r.round_time_s * 1e6 for r in records]
+    else:
+        assert not (run_dir / "trace.json").exists()
+    profiled = sorted(os.listdir(run_dir / "torch_profile")) if (
+        run_dir / "torch_profile").exists() else []
+    assert profiled == (["rounds_0.pt.trace.json"] if section.get("jax_profile_rounds") else [])
 
 
 def test_metrics_only_observability_runs(tmp_path):

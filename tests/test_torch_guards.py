@@ -50,7 +50,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     assert "repro_torch.experiments.paper" in modules
     assert {"repro_torch.models.zoo", "repro_torch.launch.serve",
             "repro_torch.launch.train", "repro_torch.data.device_cohort",
-            "repro_torch.federated.staging"} <= set(modules)
+            "repro_torch.federated.staging", "repro_torch.obs.trace", "repro_torch.obs.report",
+            "repro_torch.obs.profile", "repro_torch.obs.__main__"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -234,17 +235,21 @@ def test_unported_options_say_so(tmp_path):
         resolve_recruitment("nu-gredy")
     with pytest.raises(ValueError, match="did you mean 'round-robin'"):
         resolve_selection("round-robbin:2")
-    # the control plane: a mesh over several GPUs (item 9) and the span
-    # trace or profiled rounds (item 8) raise, before any training
+    # the control plane: a mesh over several GPUs (item 9) raises; the span
+    # trace and profiled rounds are ported and run
     from repro_torch.launch.federation_service import submit_job, validate_job_spec
 
     with pytest.raises(NotImplementedError, match="item 9"):
         validate_job_spec({"mode": "sync", "mesh": "auto"})
-    for section in ({}, {"trace": False, "jax_profile_rounds": 1}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            submit_job({"mode": "sync", "observability": section}, str(tmp_path / "run"),
-                       device="cpu")
-    assert not (tmp_path / "run").exists()
+    tiny = {"mode": "sync", "rounds": 1, "local_epochs": 1, "batch_size": 8,
+            "data": {"scale": 0.002, "num_hospitals": 4, "split_mode": "stratified"},
+            "model": {"hidden_dim": 2, "num_layers": 1}}
+    for i, (section, artifact) in enumerate((({}, "trace.json"),
+                                             ({"trace": False, "jax_profile_rounds": 1},
+                                              "torch_profile"))):
+        run_dir = tmp_path / f"run{i}"
+        out = submit_job({**tiny, "observability": section}, str(run_dir), device="cpu")
+        assert out["status"] == "completed" and (run_dir / artifact).exists()
 
 
 def test_privacy_and_runtime_modules_pull_in_no_jax_and_no_repro():
@@ -283,7 +288,8 @@ def test_control_plane_modules_pull_in_no_jax_and_no_repro():
     them loads first."""
     modules = ["repro_torch.checkpoint.store", "repro_torch.launch.federation_service",
                "repro_torch.federated.server", "repro_torch.obs", "repro_torch.obs.metrics",
-               "repro_torch.obs.profile", "repro_torch.launch"]
+               "repro_torch.obs.profile", "repro_torch.obs.trace", "repro_torch.obs.report",
+               "repro_torch.obs.__main__", "repro_torch.launch"]
     assert set(modules) <= set(port_modules())
     code = (
         "import importlib, sys\n"

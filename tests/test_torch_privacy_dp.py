@@ -45,6 +45,7 @@ from repro_torch.federated.client import LocalTrainer  # noqa: E402
 from repro_torch.federated.cohort import CohortTrainer  # noqa: E402
 from repro_torch.kernels.gru_scan.ops import gru_sequence  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.privacy import accountant, dp  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -396,9 +397,11 @@ def test_trainers_take_a_dp_config_or_a_dict():
         assert trainer.dp == dp.DPConfig(2.0, 0.5)
     with pytest.raises(ValueError, match="unknown"):
         CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", dp={"clip": 1.0})
-    for what in ("mesh", "tracer"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
-            CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", **{what: object()})
+    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+        CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", mesh=object())
+    # the tracer is ported: a DP trainer takes one beside its DP config
+    traced = CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", dp=spec, tracer=Tracer())
+    assert traced.dp == dp.DPConfig(2.0, 0.5) and traced.tracer.enabled
 
 
 # --------------------------------------------------------------------------

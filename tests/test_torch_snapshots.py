@@ -43,7 +43,7 @@ from repro_torch.federated.api import (  # noqa: E402
 )
 from repro_torch.federated.runtime import AsyncFederationSnapshot, PendingEvent  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
-from repro_torch.obs import MetricsRegistry  # noqa: E402
+from repro_torch.obs import MetricsRegistry, RoundProfiler, Tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -369,11 +369,29 @@ def test_async_metrics_count_tasks_and_continue_across_resume(setup):
         assert time_free(resumed.metrics) == time_free(m)
 
 
-def test_federation_tracer_and_profiler_raise(setup):
-    """The sync facade's tracer and profiler wait for ROADMAP Queue 1 item 8
-    (the async facade's: ``test_torch_async_runtime.py``)."""
-    clients, loss_fn, _ = setup
-    for hook in ("tracer", "profiler"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Federation(FederationConfig(), clients, loss_fn, opt(), device="cpu",
-                       **{hook: object()})
+def test_federation_tracer_and_profiler_raise(setup, tmp_path):
+    """The sync facade's tracer and profiler are ported (the async facade's:
+    ``test_torch_async_runtime.py``): with a snapshot hook and a resume the
+    traced, profiled run is the untraced one bit for bit, its checkpoint
+    spans follow the snapshots, and the resumed run traces and profiles
+    only its own rounds."""
+    clients, loss_fn, params0 = setup
+    config = FederationConfig(rounds=3, local_epochs=1, batch_size=4, seed=0)
+    plain = Federation(config, clients, loss_fn, opt(), device="cpu").run(params0)
+    tracer = Tracer()
+    profiler = RoundProfiler(1, str(tmp_path / "full"), device="cpu")
+    snaps = []
+    fed = Federation(config, clients, loss_fn, opt(), device="cpu", tracer=tracer,
+                     profiler=profiler)
+    assert (fed.tracer, fed.profiler, fed.cohort_trainer.tracer) == (tracer, profiler, tracer)
+    full = fed.run(params0, snapshot_hook=snaps.append)
+    assert same_bits(full.params, plain.params) and profiler.error is None
+    assert [s.args["round"] for s in tracer.spans("checkpoint")] == [0, 1, 2]
+    assert [s.dur for s in tracer.spans("round")] == [r.round_time_s for r in full.history]
+    resumed_tracer = Tracer()
+    resumed_profiler = RoundProfiler(1, str(tmp_path / "resumed"), device="cpu")
+    resumed = Federation(config, clients, loss_fn, opt(), device="cpu", tracer=resumed_tracer,
+                         profiler=resumed_profiler).run(params0, resume=snaps[0])
+    assert same_bits(resumed.params, full.params)
+    assert [s.args["round"] for s in resumed_tracer.spans("round")] == [1, 2]
+    assert resumed_profiler.trace_path.endswith("rounds_1.pt.trace.json")

@@ -44,6 +44,7 @@ from repro_torch.federated.api import Federation, FederationConfig  # noqa: E402
 from repro_torch.federated.cohort import CohortTrainer, client_generators  # noqa: E402
 from repro_torch.federated.staging import StagingPipeline  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -142,9 +143,17 @@ def test_device_cohort_holds_jax_arrays():
     assert got.ensure_resident(ours) == 0  # fully resident: a no-op
     with pytest.raises(ValueError, match="empty cohort"):
         dc_mod.build_device_cohort([], device="cpu")
-    for kw, item in ((dict(mesh=object()), 9), (dict(tracer=object()), 8)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            dc_mod.build_device_cohort(ours, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        dc_mod.build_device_cohort(ours, device="cpu", mesh=object())
+    # the tracer is ported: a pooled cohort's uploads are "pool_upload" spans
+    tracer = Tracer()
+    pooled = dc_mod.build_device_cohort(ours, device="cpu", tracer=tracer,
+                                        resident_budget_bytes=2 * row_bytes_of(ours))
+    assert pooled.is_pooled and pooled.tracer is tracer
+    assert pooled.ensure_resident(ours[:2]) == 2 and pooled.ensure_resident(ours[:2]) == 0
+    assert [(s.name, s.track, s.args) for s in tracer.spans()] == [
+        ("pool_upload", "pool", {"missing": 2})]
+    assert dc_mod.build_device_cohort(ours, device="cpu", tracer=tracer).tracer is tracer
 
 
 def test_the_pool_uploads_hits_and_evicts_as_jax():
