@@ -13,7 +13,8 @@ exit code and no result line:
 3. kernels — ``gru_scan`` and ``gru_scan_bwd`` on the card against their
              plain PyTorch versions at the main path's shapes and more
              (ragged batch, client axis, N = 2, 8, 33, 64, the ARC
-             cohort's 35 clients and all 189 clients in one launch), two
+             cohort's 35 clients, all 189 clients in one launch, and a
+             population round's 64 clients at B=4, T=4, N=4), two
              forward and two backward runs compared bit for bit, and each of
              the backward's two stage kernels against its plain twin; then
              times at one client, at 35 and at 189: per call, on the device
@@ -78,7 +79,7 @@ exit code and no result line:
              time, peak memory, exact launch counts; resident and rebuild
              params bit for bit equal, a resident round under 10 MB staged,
              the resident and sequential test MSLE within 1e-4.
-14. paper scale — ``run_paper_scale(rounds=3, local_epochs=1, batch_size=4)``:
+14. paper scale — ``run_paper_scale(rounds=2, local_epochs=1, batch_size=4)``:
              189 clients of ~23 stays, the five settings on both engines,
              round times, speedups and the donation probe.
 15. cohort profile — one vectorized federated-arc round under
@@ -164,9 +165,24 @@ exit code and no result line:
              ``torch_profile/`` trace holds both GRU kernels' device events
              and its profiler no error, ``jit.*`` counts each child's
              library load, the final params are an untraced job's bit for
-             bit; (d) ``run_obs_overhead`` (3 async flushes, not 10) and
+             bit; (d) ``run_obs_overhead`` (one repeat of 3 async flushes,
+             not 3 of 10) and
              ``run_facade_overhead``, the async run's per-phase host time
              from its trace (not gated: host timing noise).
+23. tables — (a) ``run_population_scale()`` at its defaults (10^3, 10^4
+             and 10^5 synthetic clients, 3 rounds of 64 out of a 256-row LRU
+             pool): its own assertions (exact-mode participant match,
+             sub-linear decision and round time, O(1) membership), each GRU
+             kernel once a batched step, one pooled round at 10^3 card
+             against CPU (params 1e-5); (b) ``run_table4`` and ``run_table5``
+             (seeds 0 and 1) and ``run_fig2`` (gamma_th 0.1 and 1.0, seed 0)
+             at the paper's width, 1 round x 1 epoch and 1 central epoch:
+             finite metrics, federation sizes equal to the CPU's
+             recruitment, launches equal to what the runs imply, both
+             tables printed; (c) ``recompute_elimination_report`` for the GRU
+             pair at (35, 128, 24, 32) and the SSD pair at the reduced
+             config: recompute eliminated, one backward launch and no
+             forward in the residual backward, none in the oracle's.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -332,6 +348,10 @@ def main() -> int:
     for kernel, n in run_observability_phase(torch, K, cohort).items():
         launches[kernel] += n
 
+    # -- 23. the population sweep, the paper's tables, the analysis ------------
+    for kernel, n in run_tables_phase(torch, K, SK).items():
+        launches[kernel] += n
+
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0, f"{row['name']} never launched on the main path")
@@ -358,6 +378,7 @@ CASES = (
     ("n33", None, 37, 5, 33),      # two units a lane, N not a multiple of 4
     ("cohort", 35, 128, 24, 32),   # the ARC federation's 35 recruited clients in one launch
     ("ac", 189, 128, 24, 32),      # all 189 clients (federated-ac) in one launch
+    ("population", 64, 4, 4, 4),   # a population round's 64 clients (phase 23)
 )
 COHORT = 35
 AC_COHORT = 189
@@ -1675,7 +1696,9 @@ def run_paper_scale_phase(torch, K) -> dict[str, int]:
 
     reset_gru_counts(K)
     t0 = time.perf_counter()
-    out = run_paper_scale(rounds=3, local_epochs=1, batch_size=4, verbose=False, device="cuda")
+    # Cut to 2 rounds (from 3) to keep the script inside its time limit; the
+    # steady-state round time is then round 1's.
+    out = run_paper_scale(rounds=2, local_epochs=1, batch_size=4, verbose=False, device="cuda")
     seconds = time.perf_counter() - t0
     counts = gru_counts(K)
     rows = {}
@@ -2889,14 +2912,16 @@ def run_observability_phase(torch, K, cohort) -> dict[str, int]:
     require(job_bitwise, "the traced, profiled, resumed job's params differ from an "
             "untraced job's")
 
-    # (d) the overhead probes (not gated).  Cut: 3 async flushes, not 10.
+    # (d) the overhead probes (not gated).  Cut: one repeat of 3 async
+    # flushes, not 3 of 10 (each repeat ~15 s), to keep the script inside its
+    # time limit.
     # Under constant latency every flush re-dispatches all 189 clients
     # (~1.5 s a flush on the card), so 10 flushes cost ~60 s of the phase.
     torch.cuda.synchronize()
     reset_gru_counts(K)
     t0 = time.perf_counter()
     sample = work / "obs_async_trace.json"
-    obs = run_obs_overhead(repeats=2, flushes=3, verbose=False, device="cuda",
+    obs = run_obs_overhead(repeats=1, flushes=3, verbose=False, device="cuda",
                            trace_path=str(sample))
     obs_seconds = time.perf_counter() - t0
     obs_counts = add(gru_counts(K))
@@ -2921,6 +2946,204 @@ def run_observability_phase(torch, K, cohort) -> dict[str, int]:
     emit(phase="observability_seconds", seconds=time.perf_counter() - t_phase)
     return total
 
+
+# ---------------------------------------------------------------------------
+# phase 23: the population sweep, the paper's tables, the recompute analysis
+# ---------------------------------------------------------------------------
+
+POP_PARITY_TOL = 1e-5        # a pooled population round, card against CPU (phase 23)
+TABLES_SEEDS = [0, 1]        # two seeds: Welch's test needs its degrees of freedom
+FIG2_GAMMA_THS = [0.1, 1.0]
+ANALYSIS_GRU = (COHORT, 128, 24, 32)        # C, B, T, N: the ARC cohort's batched step
+ANALYSIS_SSD = SSD_CASES[2][1:]             # B, NC, L, H, P, N: the reduced config
+
+
+def add_counts(total: dict[str, int], counts: dict[str, int]) -> None:
+    for kernel, n in counts.items():
+        total[kernel] = total.get(kernel, 0) + n
+
+
+def run_population_part(torch, K) -> dict[str, int]:
+    """(a) ``run_population_scale()`` at its defaults (10^3, 10^4, 10^5
+    clients, 3 rounds of 64 out of a 256-row pool): its own assertions are
+    the gates; each GRU kernel launches once a batched step (one layer); one
+    pooled round at 10^3 on the card against the CPU from one init."""
+    from repro_torch.experiments import population as pop
+    from repro_torch.models.gru import init_gru
+
+    torch.cuda.synchronize()
+    reset_gru_counts(K)
+    t0 = time.perf_counter()
+    report = pop.run_population_scale(device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = gru_counts(K)
+    steps = sum(sum(e["cohort_steps"]) for e in report["entries"])
+    fields = ("population", "recruitment_ingest_s", "recruitment_ingest_us_per_client",
+              "recruitment_decision_s", "recruitment_exact_s", "membership_ns_per_lookup",
+              "round_time_s", "round_times_s", "cohort_steps", "streaming_mode",
+              "num_recruited_streaming", "num_recruited_exact", "participant_match",
+              "pool_rows", "pool_uploads_total", "pool_evictions_total", "pool_bytes_resident",
+              "last_round_pool_uploads", "slice_chunks_last_round")
+    emit(phase="population", seconds=seconds, launches=counts,
+         entries=[{k: e.get(k) for k in fields} for e in report["entries"]],
+         **{k: report[k] for k in ("population_ratio", "recruitment_decision_ratio",
+                                   "round_time_ratio", "membership_ns_ratio",
+                                   "recruitment_sublinear", "round_sublinear")})
+    want = {"gru_scan": pop.MODEL.num_layers * steps, "gru_scan_bwd": pop.MODEL.num_layers * steps}
+    require(counts == want, f"population launches {counts}, the rounds' batched steps give {want}")
+    require(report["populations"] == [1_000, 10_000, 100_000]
+            and all(e["pool_rows"] == 256 for e in report["entries"]),
+            f"population sweep {report['populations']}")
+
+    clients = pop.synthetic_population_clients(1_000, seed=0)
+    params0 = init_gru(torch.Generator().manual_seed(0), pop.MODEL, "cpu")
+    rounds = {dev: pop.pooled_rounds(clients, params0, rounds=1, device=dev)
+              for dev in ("cuda", "cpu")}
+    diff = param_diff(rounds["cuda"]["params"], rounds["cpu"]["params"])
+    pools = {dev: (r["device_cohort"].uploads, r["device_cohort"].evictions)
+             for dev, r in rounds.items()}
+    emit(phase="population_parity", population=1_000, max_param_diff=diff, pools=pools)
+    require(diff <= POP_PARITY_TOL, f"a pooled round on the card and the CPU differ by {diff}")
+    require(pools["cuda"] == pools["cpu"], f"the pools differ: {pools}")
+    return counts
+
+
+def run_tables_part(torch, K) -> dict[str, int]:
+    """(b) Tables 4 and 5 and Fig. 2 at the paper's width, cut in depth:
+    finite metrics; federation sizes equal to the CPU's recruitment of the
+    same cohorts; two launches of each GRU kernel a batched (or central)
+    step and two of the forward a predict batch."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import build_client_datasets, global_dataset
+    from repro_torch.data.synth_eicu import Cohort
+    from repro_torch.experiments import tables
+    from repro_torch.experiments.paper import ExperimentConfig, build_cohort, policies_for
+    from repro_torch.federated.api import Federation, FederationConfig
+    from repro_torch.models.gru import GRUConfig, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    exp = ExperimentConfig(rounds=1, local_epochs=1, central_epochs=1)
+    reduced = {"rounds": [exp.rounds, 15], "local_epochs": [exp.local_epochs, 4],
+               "central_epochs": [exp.central_epochs, 15], "seeds": [TABLES_SEEDS, [0, 1, 2]],
+               "fig2_gamma_th": [FIG2_GAMMA_THS, list(tables.FIG2_GAMMA_THS)],
+               "fig2_seeds": [[0], [0, 1]]}
+    outs, counts, seconds = {}, {}, {}
+    torch.cuda.synchronize()
+    for part, call in (("table4", lambda: tables.run_table4(exp, TABLES_SEEDS)),
+                       ("table5", lambda: tables.run_table5(exp, TABLES_SEEDS)),
+                       ("fig2", lambda: tables.run_fig2(exp, [0], FIG2_GAMMA_THS))):
+        reset_gru_counts(K)
+        t0 = time.perf_counter()
+        outs[part] = call()
+        seconds[part] = time.perf_counter() - t0
+        counts[part] = gru_counts(K)
+    t4, t5, fig2 = outs["table4"], outs["table5"], outs["fig2"]
+    print(tables.to_markdown_table4(t4), flush=True)
+    print(tables.to_markdown_table4(t5), flush=True)
+
+    # What the runs imply, and the federations the CPU's recruitment gives.
+    cohorts = {seed: build_cohort(exp, seed) for seed in TABLES_SEEDS}
+    clients = {seed: build_client_datasets(c) for seed, c in cohorts.items()}
+    predict = {seed: math.ceil(len(global_dataset(c, Cohort.TEST)) / 2048)
+               for seed, c in cohorts.items()}
+
+    def cpu_federation(setting: str, e, seed: int) -> int:
+        fed = Federation(FederationConfig(**policies_for(setting, e), seed=seed), clients[seed],
+                         make_loss_fn(GRUConfig()), AdamW(), device="cpu")
+        return int(fed.build_federation()[0].size)
+
+    sizes = {}
+    for part, table in (("table4", t4), ("table5", t5)):
+        steps = batches = 0
+        for setting, agg in table.items():
+            for run in agg["runs"]:
+                steps += run["local_steps"] if setting == "central" else run["cohort_steps"]
+                batches += predict[run["seed"]]
+                require(all(math.isfinite(v) for v in run["metrics"].values()),
+                        f"{setting} seed {run['seed']}: metrics not finite: {run['metrics']}")
+                if setting != "central":
+                    sizes[f"{setting}/{run['seed']}"] = (
+                        run["federation_size"], cpu_federation(setting, exp, run["seed"]))
+        check_launches(part, counts[part], steps, batches)
+    for point in fig2:
+        e = dataclasses.replace(exp, gamma_th=point["gamma_th"])
+        sizes[f"fig2/{point['gamma_th']}"] = (point["recruited"],
+                                             cpu_federation("federated-src", e, 0))
+        require(all(math.isfinite(point[m]["mean"]) for m in ("msle", "mae")),
+                f"fig2 at gamma_th {point['gamma_th']}: {point}")
+    fig2_launches = counts["fig2"]
+    emit(phase="tables", reduced=reduced, seconds=seconds,
+         tau_s={s: agg["tau_s"]["values"] for s, agg in {**t4, **t5}.items()},
+         msle={s: agg["msle"]["values"] for s, agg in {**t4, **t5}.items()},
+         significance_vs_sc={s: {m: v["p"] for m, v in agg["significance_vs_sc"].items()}
+                             for s, agg in t4.items()},
+         fig2=[{k: p[k] for k in ("gamma_th", "recruited", "local_steps")} for p in fig2],
+         federation_sizes=sizes, launches=counts)
+    require(all(card == cpu for card, cpu in sizes.values()),
+            f"federation sizes differ from the CPU's recruitment: {sizes}")
+    require(sizes["federated-arc/0"][0] == COHORT, f"arc recruited {sizes['federated-arc/0']}")
+    # run_fig2 returns no batched-step counts: its backward launched, and its
+    # forward's extra launches are its predict batches'.
+    require(fig2_launches["gru_scan_bwd"] > 0 and fig2_launches["gru_scan"]
+            - fig2_launches["gru_scan_bwd"] == 2 * predict[0] * len(FIG2_GAMMA_THS),
+            f"fig2 launches {fig2_launches}")
+    total: dict[str, int] = {}
+    for c in counts.values():
+        add_counts(total, c)
+    return total
+
+
+def run_analysis_part(torch, K, SK) -> dict[str, int]:
+    """(c) ``recompute_elimination_report`` on the card: the GRU pair at the
+    ARC cohort's batched step, the SSD pair at the reduced config.  The
+    residual backward launches its backward kernel once and no forward; the
+    oracle's launches no backward kernel; over the whole report the forward
+    kernel launched twice (the residual's forward and the oracle's)."""
+    from repro_torch.kernels.analysis import recompute_elimination_report
+    from repro_torch.kernels.gru_scan.ops import GRUScan, gru_scan_oracle
+    from repro_torch.kernels.ssd.ops import ssd_chunk_scan, ssd_chunk_scan_oracle
+
+    dev = torch.device("cuda")
+    c, b, t, n = ANALYSIS_GRU
+    xg, w, bias, _ = gru_inputs(torch, dev, c, b, t, n, seed=230)
+    x, dt, a, bm, cm = ssd_inputs(torch, dev, ANALYSIS_SSD, seed=231)
+    ssd_args = (x, dt, torch.cumsum(dt * a, dim=2), bm, cm)
+    wrappers = (K.gru_scan, K.gru_scan_bwd, SK.ssd_chunk_scan, SK.ssd_chunk_scan_bwd)
+    total: dict[str, int] = {}
+    for name, residual, oracle, args, fwd, bwd in (
+        ("gru_scan", GRUScan.apply, gru_scan_oracle, (xg, w, bias), "gru_scan", "gru_scan_bwd"),
+        ("ssd_chunk_scan", ssd_chunk_scan, ssd_chunk_scan_oracle, ssd_args,
+         "ssd_chunk_scan", "ssd_chunk_scan_bwd"),
+    ):
+        torch.cuda.synchronize()
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rep = recompute_elimination_report(residual, oracle, *args)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in wrappers}
+        emit(phase="analysis", pair=name, seconds=time.perf_counter() - t0, launches=counts, **rep)
+        res, orc = rep["residual_bwd"], rep["oracle_bwd"]
+        require(rep["recompute_eliminated"], f"{name}: recompute not eliminated: {rep}")
+        require(res["launches"][bwd] == 1 and res["launches"][fwd] == 0,
+                f"{name}: the residual backward launched {res['launches']}")
+        require(orc["launches"][bwd] == 0, f"{name}: the oracle backward launched {orc['launches']}")
+        want = {k: 0 for k in counts} | {fwd: 2, bwd: 1}
+        require(counts == want, f"{name}: the report launched {counts}, expected {want}")
+        add_counts(total, counts)
+    return total
+
+
+def run_tables_phase(torch, K, SK) -> dict[str, int]:
+    """Phase 23: (a) population, (b) tables, (c) analysis; their launches."""
+    t_phase = time.perf_counter()
+    total: dict[str, int] = {}
+    for part in (lambda: run_population_part(torch, K), lambda: run_tables_part(torch, K),
+                 lambda: run_analysis_part(torch, K, SK)):
+        add_counts(total, part())
+    emit(phase="tables_phase_seconds", seconds=time.perf_counter() - t_phase, launches=total)
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

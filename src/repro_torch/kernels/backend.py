@@ -16,11 +16,17 @@ builds and first loads in a process.  Each is counted with its host seconds
 in ``LIBRARY_EVENTS`` and handed to the listeners of
 ``add_library_listener`` (``obs/profile.py::CompileWatcher`` turns them into
 the ``jit.*`` metrics).  Counting costs no device work.
+
+Each plain version whose loop is one sequential pass over the time (or
+chunk) axis runs inside a ``recurrence`` profiler range;
+``kernels/analysis.py`` counts them, with the kernels' launches, as a
+backward's ``scans``.  The kernel wrappers enter no range.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -143,3 +149,25 @@ def check(err: int, what: str) -> None:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as a pointer-sized int."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+RECURRENCE = "recurrence:"
+
+
+def recurrence(name: str) -> torch.profiler.record_function:
+    """A profiler range around one plain version's sequential pass over the
+    time or chunk axis."""
+    return torch.profiler.record_function(RECURRENCE + name)
+
+
+def marks_recurrence(fn: Callable) -> Callable:
+    """Run ``fn``, a plain version whose loop is one pass over time or
+    chunks, inside a ``recurrence`` range named after it."""
+
+    @functools.wraps(fn)
+    def marked(*args, **kwargs):
+        with recurrence(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return marked
+

@@ -5,13 +5,20 @@ forward saves ``(x_gates, w_hh, b_hh, h_seq)`` and its backward is the
 single reverse pass of ``gru_scan_bwd`` (the CUDA kernel on the card, the
 plain reverse loop on the CPU) with no forward recompute.  ``gru_sequence``
 also takes a leading client axis, which the kernels take as it is.
+
+``gru_scan_oracle`` is the pre-residual pairing, kept as a baseline for
+``kernels/analysis.py`` only: the same forward, and a backward that reruns
+the plain forward (``ref.py``) under autograd and transposes it.  Nothing on
+the main path calls it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.analysis import recompute_vjp
 from repro_torch.kernels.gru_scan.kernel import gru_scan, gru_scan_bwd
+from repro_torch.kernels.gru_scan.ref import gru_scan_ref
 
 
 class GRUScan(torch.autograd.Function):
@@ -25,6 +32,22 @@ class GRUScan(torch.autograd.Function):
     def backward(ctx, dy):
         x_gates, w_hh, b_hh, h_seq = ctx.saved_tensors
         return gru_scan_bwd(x_gates, w_hh, b_hh, h_seq, dy.contiguous())
+
+
+class GRUScanOracle(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_gates, w_hh, b_hh):
+        ctx.save_for_backward(x_gates, w_hh, b_hh)
+        return gru_scan(x_gates, w_hh, b_hh)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return recompute_vjp(gru_scan_ref, ctx.saved_tensors, dy, "gru_scan_oracle")
+
+
+def gru_scan_oracle(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """The kernel's forward; a backward that recomputes it (analysis baseline only)."""
+    return GRUScanOracle.apply(x_gates, w_hh, b_hh)
 
 
 def gru_sequence(

@@ -7,11 +7,14 @@ outputs in the input dtype.  Leading dimensions broadcast, so a client axis
 CUDA kernel wrappers use them for CPU tensors, and tests and
 ``chip_smoke.py`` hold the kernels against them.  ``gru_bwd_recur_ref`` and
 ``gru_bwd_dw_ref`` are the plain twins of the backward's two stage kernels.
+The forward and the backward each run inside a ``recurrence`` range.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.backend import marks_recurrence
 
 
 def _gates(gx: torch.Tensor, gh: torch.Tensor, n: int):
@@ -23,6 +26,7 @@ def _gates(gx: torch.Tensor, gh: torch.Tensor, n: int):
     return r, z, cand, hn
 
 
+@marks_recurrence
 def gru_scan_ref(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
     """x_gates: (..., B, T, 3N) precomputed input projections -> h_seq (..., B, T, N)."""
     n = x_gates.shape[-1] // 3
@@ -39,6 +43,7 @@ def gru_scan_ref(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) 
     return torch.stack(outs, dim=-2).to(x_gates.dtype)
 
 
+@marks_recurrence
 def gru_scan_bwd_ref(
     x_gates: torch.Tensor,  # (..., B, T, 3N) forward input
     w_hh: torch.Tensor,     # (..., N, 3N)

@@ -13,6 +13,11 @@ CUDA tensors both are the hand-written kernels; on CPU tensors both are the
 plain versions in ``ref.py``, as the JAX package runs its jnp backward off
 the TPU.  ``cum`` gets a cotangent of its own, which autograd carries
 through ``ssd_full``'s cumsum to ``dt`` and ``A``.
+
+``ssd_chunk_scan_oracle`` is the pre-residual pairing, kept as a baseline
+for ``kernels/analysis.py`` only: the same forward, and a backward that
+reruns the plain forward (``ssd_chunk_scan_ref``) under autograd and
+transposes it.  Nothing on the main path calls it.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.analysis import recompute_vjp
 from repro_torch.kernels.ssd import kernel
+from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref
 
 
 class SSDChunkScan(torch.autograd.Function):
@@ -40,6 +47,22 @@ class SSDChunkScan(torch.autograd.Function):
 def ssd_chunk_scan(xc, dtc, cum, bc, cc) -> torch.Tensor:
     """Chunked inputs (B, NC, L, ...) -> y (B, NC, L, H, P)."""
     return SSDChunkScan.apply(xc, dtc, cum, bc, cc)
+
+
+class SSDChunkScanOracle(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xc, dtc, cum, bc, cc):
+        ctx.save_for_backward(xc, dtc, cum, bc, cc)
+        return kernel.ssd_chunk_scan(xc, dtc, cum, bc, cc)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return recompute_vjp(ssd_chunk_scan_ref, ctx.saved_tensors, dy, "ssd_chunk_scan_oracle")
+
+
+def ssd_chunk_scan_oracle(xc, dtc, cum, bc, cc) -> torch.Tensor:
+    """The kernel's forward; a backward that recomputes it (analysis baseline only)."""
+    return SSDChunkScanOracle.apply(xc, dtc, cum, bc, cc)
 
 
 def ssd_full(

@@ -8,7 +8,8 @@ slow but unambiguous.  ``ssd_chunk_scan_ref`` computes what the CUDA kernel
 computes, in the chunked layout, chunk by chunk; ``ssd_chunk_states_ref``
 gives the chunk-entry states the kernel writes with ``return_states``;
 ``ssd_chunk_scan_bwd_ref`` is the backward kernel's plain version, one
-reverse pass over the chunks from those states.  All compute in float32.
+reverse pass over the chunks from those states.  All compute in float32;
+those three each run inside a ``recurrence`` range.
 
 The CUDA kernels compute the same functions in stages (``csrc/ssd.cu``):
 per-chunk work in parallel, only the state carry in sequence.  Each stage
@@ -22,6 +23,8 @@ calls them.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.backend import marks_recurrence
 
 
 def ssd_ref(
@@ -60,6 +63,7 @@ def _state_update(state, x_k, dt_k, cum_k, b_k):
     )
 
 
+@marks_recurrence
 def ssd_chunk_scan_ref(
     xc: torch.Tensor,     # (B, NC, L, H, P)
     dtc: torch.Tensor,    # (B, NC, L, H)
@@ -88,6 +92,7 @@ def ssd_chunk_scan_ref(
     return torch.stack(ys, dim=1).to(xc.dtype)
 
 
+@marks_recurrence
 def ssd_chunk_states_ref(
     xc: torch.Tensor,
     dtc: torch.Tensor,
@@ -107,6 +112,7 @@ def ssd_chunk_states_ref(
     return torch.stack(entries, dim=1)
 
 
+@marks_recurrence
 def ssd_chunk_scan_bwd_ref(
     xc: torch.Tensor,      # (B, NC, L, H, P)
     dtc: torch.Tensor,     # (B, NC, L, H)

@@ -9,6 +9,7 @@
 """
 
 import ctypes
+import importlib.util
 import pkgutil
 import re
 import subprocess
@@ -339,3 +340,70 @@ def test_dp_chunks_above_the_grid_limit_raise_before_any_launch():
     small = CohortTrainer(make_loss_fn(cfg), AdamW(), 128, 1, cohort_chunk=MAX_CHUNK // 128,
                           dp=DPConfig(1.0, 1.0), device="cpu")
     small.train_cohort(params, clients[:2], rng, gens[:2])
+
+
+TABLES_MODULES = ("repro_torch.metrics.stats", "repro_torch.configs.gru_eicu",
+                  "repro_torch.experiments.tables", "repro_torch.experiments.run_full",
+                  "repro_torch.experiments.noniid_ablation", "repro_torch.experiments.population",
+                  "repro_torch.kernels.analysis")
+TORCH_EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def import_alone(target: str) -> subprocess.Popen:
+    """A fresh interpreter that imports ``target`` (a module, or an example's
+    path) and exits 1 if JAX or the reference is then in ``sys.modules``."""
+    if target.endswith(".py"):
+        load = ("import importlib.util\n"
+                f"spec = importlib.util.spec_from_file_location('ex', {target!r})\n"
+                "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n")
+    else:
+        load = f"import {target}\n"
+    code = load + (
+        "import sys\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    return subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"},
+    )
+
+
+@pytest.mark.parametrize("group", ["modules", "examples"])
+def test_tables_modules_and_examples_pull_in_no_jax_and_no_repro(group):
+    """Each module of the tables slice and each ``examples/torch_*.py``,
+    imported alone in a fresh interpreter (all at once), leaves JAX and the
+    reference out."""
+    assert set(TABLES_MODULES) <= set(port_modules()) and len(TORCH_EXAMPLES) == 6
+    targets = TABLES_MODULES if group == "modules" else [str(p) for p in TORCH_EXAMPLES]
+    procs = {target: import_alone(target) for target in targets}
+    failed = {}
+    for target, proc in procs.items():
+        out, _ = proc.communicate(timeout=240)
+        if proc.returncode != 0:
+            failed[target] = out
+    assert not failed
+
+
+def test_tables_entry_points_raise_without_a_card(no_cuda):
+    from repro_torch.experiments import noniid_ablation, population, tables
+    from repro_torch.experiments.paper import ExperimentConfig
+
+    tiny = ExperimentConfig(cohort_scale=0.005, rounds=1, local_epochs=1, central_epochs=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        population.run_population_scale(populations=(20,), rounds=1, round_clients=4,
+                                        pool_rows=8, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tables.run_table4(tiny, [0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        noniid_ablation.run_noniid_ablation(tiny, [0.35], [0])
+    for path in TORCH_EXAMPLES:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        argv = ["--scale", "0.005"] if path.stem in ("torch_federated_recruitment",
+                                                     "torch_async_federation") else []
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main(argv + (["--train"] if path.stem == "torch_recruitment_sweep" else []))
