@@ -23,15 +23,17 @@ exit code and no result line:
              yardstick.
              ``ssd_chunk_scan`` against its plain versions (with and
              without the entry states) at the serving slice's shape, one
-             chunk, the reduced config, and a ragged sequence with H=3
-             through ``ssd_full``; each of its four stage kernels against
-             its plain stage in ``ref.py``; runs compared bit for bit; then
-             times (the call, and each stage alone), and the float32 and the
-             3xTF32 tensor-core bounds.  ``ssd_chunk_scan_bwd`` against its
-             plain version at the train slice's shape, one chunk, the
-             reduced config and NC=3 with H=3, and each of its six stage
-             kernels against its plain stage; runs compared bit for bit;
-             then the same times.
+             chunk, the reduced config, zamba2-7b's prefill shape (H=112,
+             N=64), and a ragged sequence with H=3 through ``ssd_full``;
+             each of its four stage kernels against its plain stage in
+             ``ref.py``; runs compared bit for bit; then times at the
+             serving slice's shape and zamba2's (the call, and each stage
+             alone), and the float32 and the 3xTF32 tensor-core bounds.
+             ``ssd_chunk_scan_bwd`` against its plain version at the train
+             slice's shape, one chunk, the reduced config, NC=3 with H=3
+             and zamba2's shape, and each of its six stage kernels against
+             its plain stage; runs compared bit for bit; then the same
+             times at the train slice's shape and zamba2's.
 4. parity  — a small federation trained on the card (default, vectorized
              engine, resident staging, dropout 0) against the same one trained
              on the CPU
@@ -47,19 +49,20 @@ exit code and no result line:
 6. profile — one client's local round under torch.profiler: step time,
              device busy time and idle share, the GRU kernels' shares of it,
              and the kernels that take most of it.
-7. mamba2 parity — mamba2-130m at full width in float32, B=2, prompts of
-             512 and 300 tokens: prefill logits and hidden states on the card
-             against the CPU, and the card's prefill logits against its
-             decode path after the same prompt.
+7. mamba2 parity — mamba2-130m at full width in float32, B=2, a prompt
+             of 300 tokens (ragged against the chunk of 256): prefill logits
+             and hidden states on the card against the CPU, and the card's
+             prefill logits against its decode path after the same prompt.
 8. serve slice — the published mamba2-130m (bfloat16): ``make_prefill_step``
              at B=8 on a 2,048-token prompt (tokens/s, 24 SSD launches per
-             call), then the same prompt and 64 greedy tokens through
-             ``make_serve_step`` (tokens/s, no SSD launch).
+             call) and on its first 256 tokens, then those 256 and 64
+             greedy tokens through ``make_serve_step`` (tokens/s, no SSD
+             launch).
 9. serve profile — one prefill call and one decode step under
              torch.profiler: wall time, device busy time and idle share, the
              kernels that take most of it.
 10. mamba2 train parity — mamba2-130m at full width in float32, B=2,
-             sequences of 512 and 300 tokens: the loss, every gradient leaf
+             a sequence of 300 tokens: the loss, every gradient leaf
              and the params after one ``make_train_step`` on the card against
              the CPU; on the card, remat on against remat off.
 11. train slice — the published mamba2-130m (bfloat16) through
@@ -183,6 +186,26 @@ exit code and no result line:
              pair at (35, 128, 24, 32) and the SSD pair at the reduced
              config: recompute eliminated, one backward launch and no
              forward in the residual backward, none in the oracle's.
+24. LM zoo — the dense, VLM and hybrid families: (a) every reduced
+             config of the slice (smollm-135m, qwen3-1.7b, yi-9b,
+             nemotron-4-15b, internvl2-26b, zamba2-7b) and two variants
+             (qwen3 with GQA group 2, zamba2 with 5 layers: 2 groups and a
+             tail) in float32: logits, the loss and every gradient leaf on
+             the card against the CPU, and the card's decode path (the
+             VLM's patches through ``token_embeds``) against its forward;
+             (b) the published qwen3-1.7b (bfloat16): 4 prefill calls at
+             B=8 x 2,048, 16 prompt and 64 greedy tokens through the decode
+             path, two train steps at the largest of B=8, 4, 2 that fits;
+             (c) the published zamba2-7b: 2 prefill calls at B=8 x 2,048
+             with exactly 68 ``ssd_chunk_scan`` launches each, 32 decode
+             tokens with none, and a train step at B=1 x 2,048 cut to 60
+             layers (50 Mamba layers; printed in ``reduced``) with 100
+             forward and 50 backward SSD launches; (d) yi-9b,
+             nemotron-4-15b and internvl2-26b at full width cut to 2 layers:
+             prefill, the VLM's 256 patches through the decode path, 8
+             greedy tokens, finite; (e) ``make_fed_round_step`` at
+             full-width smollm-135m, 4 client slots of 3 local steps, one
+             of weight 0: every slot equal after the round, a finite loss.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -220,8 +243,9 @@ MAMBA_TOL = 1e-4             # 24 float32 layers, card against CPU: times max(1,
 DECAY_GRAD_TOL = 1e-3        # times its own max|ref|: the A_log and dt_bias leaves (phase 10)
 DECAY_LEAVES = ("A_log", "dt_bias")
 DECODE_ATOL, DECODE_RTOL = 2e-4, 1e-4   # decode path against prefill, as tests/test_decode.py
-PARITY_PROMPTS = (512, 300)  # phases 7 and 10: B=2; 300 is ragged against the chunk of 256
+PARITY_PROMPTS = (300,)      # phases 7 and 10: B=2; 300 is ragged against the chunk of 256
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64   # phase 8
+SERVE_FEED = 256             # phase 8: prompt tokens fed through the decode path
 TRAIN_B, TRAIN_SEQ, TRAIN_LR = 8, 2048, 1e-3     # phase 11
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 
@@ -350,6 +374,10 @@ def main() -> int:
 
     # -- 23. the population sweep, the paper's tables, the analysis ------------
     for kernel, n in run_tables_phase(torch, K, SK).items():
+        launches[kernel] += n
+
+    # -- 24. the attention families of the LM zoo: dense, VLM, hybrid ----------
+    for kernel, n in run_lm_zoo_phase(torch, SK).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -631,7 +659,9 @@ SSD_CASES = (
     ("slice", 8, 8, 256, 24, 64, 128),     # the serving slice's prefill call
     ("one-chunk", 1, 1, 256, 24, 64, 128),
     ("reduced", 2, 4, 16, 16, 32, 16),     # mamba2-130m .reduced()
+    ("zamba2", 8, 8, 256, 112, 64, 64),    # zamba2-7b's prefill call (phase 24)
 )
+SSD_TIMED = ("slice", "zamba2")
 SSD_RAGGED = (2, 300, 3, 64, 128, 256)     # B, S, H, P, N, chunk: through ssd_full
 
 
@@ -706,9 +736,33 @@ def check_ssd_kernel(torch, dev, SK) -> dict:
     require(e <= SSD_TOL, f"ssd ragged through ssd_full: error {e}")
     worst = max(worst, max_err(y, y_ref))
 
-    # Times at the serving slice's shape.
-    _, b, nc, l_len, h, p, n = SSD_CASES[0]
-    x, dt, a, bm, cm = ssd_inputs(torch, dev, (b, nc, l_len, h, p, n), seed=220)
+    # Times at the serving slice's shape (the kernels line) and at zamba2-7b's.
+    timed = {case: ssd_timing(torch, dev, SK, case, shape, seed=220 + i) for i, (case, *shape)
+             in enumerate(c for c in SSD_CASES if c[0] in SSD_TIMED)}
+    ms, plain, t_bytes, t_tc = (timed["slice"][k] for k in
+                                ("ssd_chunk_scan_ms", "plain_ms", "bound_bytes_ms", "bound_tc_ms"))
+    return {
+        "name": "ssd_chunk_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:87",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": max(t_bytes, t_tc),
+        "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+        "library_ms": None,
+    }
+
+
+def ssd_timing(torch, dev, SK, case: str, shape, seed: int) -> dict:
+    """The forward call's device time (with and without the entry states),
+    each stage alone, the plain version's time and the bounds at one shape."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref
+
+    b, nc, l_len, h, p, n = shape
+    x, dt, a, bm, cm = ssd_inputs(torch, dev, shape, seed=seed)
     args = (x, dt, torch.cumsum(dt * a, dim=2), bm, cm)
     ms = time_ms(torch, lambda: SK.ssd_chunk_scan(*args), iters=20, warmup=3)
     ms_states = time_ms(torch, lambda: SK.ssd_chunk_scan(*args, return_states=True),
@@ -725,28 +779,15 @@ def check_ssd_kernel(torch, dev, SK) -> dict:
         "y": ("ssd_stage_y", dims, (x, dt, args[2], cm, g, local), (torch.empty_like(x),)),
     })
     nbytes, ops, ops_full, mma = ssd_work(b, nc, l_len, h, p, n)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    t_tc = tensor_core_ms(ops, mma)
-    emit(phase="ssd_timing", shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n},
-         ssd_chunk_scan_ms=ms, with_states_ms=ms_states, plain_ms=plain, bytes=nbytes,
-         flops_causal=ops, flops_full_block=ops_full, flops_tile_products=mma,
-         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bound_tc_ms=t_tc,
-         achieved_tflops=ops / ms / 1e9, stage_ms=stages,
+    row = dict(ssd_chunk_scan_ms=ms, with_states_ms=ms_states, plain_ms=plain, bytes=nbytes,
+               flops_causal=ops, flops_full_block=ops_full, flops_tile_products=mma,
+               bound_bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+               bound_ops_ms=ops / PEAK_F32_FLOPS * 1e3, bound_tc_ms=tensor_core_ms(ops, mma),
+               achieved_tflops=ops / ms / 1e9, stage_ms=stages)
+    emit(phase="ssd_timing", case=case,
+         shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n}, **row,
          library_ms=None, library_note="no single PyTorch call computes the chunk scan")
-    return {
-        "name": "ssd_chunk_scan",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/ssd.cu",
-        "replaces": "src/repro/kernels/ssd/kernel.py:87",
-        "launches": 0,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain,
-        "bound_ms": max(t_bytes, t_tc),
-        "bound_by": "bytes" if t_bytes >= t_tc else "operations",
-        "library_ms": None,
-    }
+    return row
 
 
 def forward_stages(SK, xc, dtc, cum, bc, cc) -> list[tuple]:
@@ -811,6 +852,7 @@ SSD_BWD_CASES = (
     ("one-chunk", 1, 1, 256, 24, 64, 128),
     ("reduced", 2, 4, 16, 16, 32, 16),     # mamba2-130m .reduced()
     ("nc3-h3", 2, 3, 256, 3, 64, 128),     # the last row's dcum term across three chunks
+    ("zamba2", 8, 8, 256, 112, 64, 64),    # zamba2-7b's shape (its train step runs B=1)
 )
 
 
@@ -851,11 +893,37 @@ def check_ssd_bwd_kernel(torch, dev, SK) -> dict:
         check_ssd_stages(torch, SK, case, backward_stages(SK, *args))
         del args
 
-    _, b, nc, l_len, h, p, n = SSD_BWD_CASES[0]
-    args = bwd_inputs((b, nc, l_len, h, p, n), seed=240)
+    timed = {case: ssd_bwd_timing(torch, dev, SK, case, bwd_inputs(tuple(shape), seed=240 + i))
+             for i, (case, *shape) in enumerate(c for c in SSD_BWD_CASES
+                                                if c[0] in ("train", "zamba2"))}
+    ms, plain, t_bytes, t_tc = (timed["train"][k] for k in
+                                ("ssd_chunk_scan_bwd_ms", "plain_ms", "bound_bytes_ms",
+                                 "bound_tc_ms"))
+    return {
+        "name": "ssd_chunk_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:212",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": max(t_bytes, t_tc),
+        "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+        "library_ms": None,
+    }
+
+
+def ssd_bwd_timing(torch, dev, SK, case: str, args) -> dict:
+    """The backward call's device time, each stage alone, the plain
+    version's time and the bounds at one shape."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan_bwd_ref
+
+    xc, dtc, cum, bc, cc, states, dy = args
+    b, nc, l_len, h, p = xc.shape
+    n = bc.shape[-1]
     ms = time_ms(torch, lambda: SK.ssd_chunk_scan_bwd(*args), iters=10, warmup=2)
     plain = time_ms(torch, lambda: ssd_chunk_scan_bwd_ref(*args), iters=2, warmup=1)
-    xc, dtc, cum, bc, cc, states, dy = args
     g = torch.empty((b, nc, l_len, l_len), device=dev)
     ds = torch.empty((b, nc, h, p, n), device=dev)
     carry = torch.empty_like(ds)
@@ -870,27 +938,14 @@ def check_ssd_bwd_kernel(torch, dev, SK) -> dict:
         "dbc": ("ssd_stage_dbc", dims, (xc, dtc, cum, bc, cc, states, ds, g, dy), grads[3:]),
     })
     nbytes, ops, mma = ssd_bwd_work(b, nc, l_len, h, p, n)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    t_tc = tensor_core_ms(ops, mma)
-    emit(phase="ssd_bwd_timing", shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n},
-         ssd_chunk_scan_bwd_ms=ms, plain_ms=plain, bytes=nbytes, flops=ops,
-         flops_tile_products=mma, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bound_tc_ms=t_tc,
-         achieved_tflops=ops / ms / 1e9, stage_ms=stages,
-         library_ms=None, library_note="no single PyTorch call computes the chunk scan's backward")
-    return {
-        "name": "ssd_chunk_scan_bwd",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/ssd.cu",
-        "replaces": "src/repro/kernels/ssd/kernel.py:212",
-        "launches": 0,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain,
-        "bound_ms": max(t_bytes, t_tc),
-        "bound_by": "bytes" if t_bytes >= t_tc else "operations",
-        "library_ms": None,
-    }
+    row = dict(ssd_chunk_scan_bwd_ms=ms, plain_ms=plain, bytes=nbytes, flops=ops,
+               flops_tile_products=mma, bound_bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+               bound_ops_ms=ops / PEAK_F32_FLOPS * 1e3, bound_tc_ms=tensor_core_ms(ops, mma),
+               achieved_tflops=ops / ms / 1e9, stage_ms=stages)
+    emit(phase="ssd_bwd_timing", case=case,
+         shape={"B": b, "NC": nc, "L": l_len, "H": h, "P": p, "N": n}, **row, library_ms=None,
+         library_note="no single PyTorch call computes the chunk scan's backward")
+    return row
 
 
 def tensor_core_ms(ops: int, mma: int) -> float:
@@ -1274,9 +1329,11 @@ def check_mamba2_parity(torch) -> None:
 
 def run_serve_slice(torch, SK):
     """The published mamba2-130m (bfloat16, random weights from seed 0):
-    prefill steps at B=8 on a 2,048-token prompt, then the same prompt and
-    64 greedy tokens through the decode path.  The SSD launch count is set
-    to 0 just before and read just after."""
+    prefill steps at B=8 on a 2,048-token prompt and one on its first
+    SERVE_FEED tokens, then those tokens and 64 greedy ones through the
+    decode path (the state does not grow, so a step costs the same at any
+    position).  The SSD launch count is set to 0 just before and read just
+    after."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.zoo import Model
@@ -1301,20 +1358,22 @@ def run_serve_slice(torch, SK):
         per_call = SK.ssd_chunk_scan.launches - before
         require(per_call == cfg.num_layers,
                 f"a prefill call launched ssd_chunk_scan {per_call} times, not {cfg.num_layers}")
+    feed = toks[:, :SERVE_FEED]
+    short = prefill(params, {"tokens": feed})
     prefill_launches = SK.ssd_chunk_scan.launches
     warm_s = sum(call_s[1:]) / len(call_s[1:])
 
     t0 = time.perf_counter()
-    lg, cache = decode_prompt(serve, params, model, toks, "cuda")
+    lg, cache = decode_prompt(serve, params, model, feed, "cuda")
     torch.cuda.synchronize()
     feed_s = time.perf_counter() - t0
-    gap = float((lg - logits).abs().max())
-    finite = [bool(torch.isfinite(logits).all()), bool(torch.isfinite(lg).all())]
+    gap = float((lg - short).abs().max())
+    finite = [bool(torch.isfinite(t).all()) for t in (logits, short, lg)]
     tok = torch.argmax(lg, dim=-1)[:, None]
     generated = []
     t0 = time.perf_counter()
     for k in range(gen):
-        lg, cache = serve(params, tok, cache, s + k)
+        lg, cache = serve(params, tok, cache, SERVE_FEED + k)
         tok = torch.argmax(lg, dim=-1)[:, None]
         generated.append(tok)
     torch.cuda.synchronize()
@@ -1322,9 +1381,9 @@ def run_serve_slice(torch, SK):
     finite.append(bool(torch.isfinite(lg).all()))
     decode_launches = SK.ssd_chunk_scan.launches - prefill_launches
     emit(phase="serve_slice", arch=cfg.name, dtype=cfg.dtype, B=b, prompt=s, gen=gen,
-         prefill_call_s=call_s, prefill_tokens_per_s=b * s / warm_s,
+         feed=SERVE_FEED, prefill_call_s=call_s, prefill_tokens_per_s=b * s / warm_s,
          prefill_cold_tokens_per_s=b * s / call_s[0],
-         decode_feed_tokens_per_s=b * s / feed_s, decode_tokens_per_s=b * gen / decode_s,
+         decode_feed_tokens_per_s=b * SERVE_FEED / feed_s, decode_tokens_per_s=b * gen / decode_s,
          decode_step_ms=decode_s / gen * 1e3,
          ssd_launches={"prefill": prefill_launches, "decode": decode_launches},
          bf16_prefill_vs_decode_max_abs=gap, max_abs_logit=float(logits.abs().max()),
@@ -1332,7 +1391,7 @@ def run_serve_slice(torch, SK):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     require(all(finite), f"serve slice outputs not finite: {finite}")
     require(decode_launches == 0, f"the decode path launched ssd_chunk_scan {decode_launches} times")
-    step = lambda: serve(params, tok, cache, s + gen)  # one more decode step
+    step = lambda: serve(params, tok, cache, SERVE_FEED + gen)  # one more decode step
     return {"ssd_chunk_scan": prefill_launches}, (lambda: prefill(params, batch), step)
 
 
@@ -3144,6 +3203,361 @@ def run_tables_phase(torch, K, SK) -> dict[str, int]:
         add_counts(total, part())
     emit(phase="tables_phase_seconds", seconds=time.perf_counter() - t_phase, launches=total)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the attention families of the LM zoo (dense, VLM, hybrid)
+# ---------------------------------------------------------------------------
+
+LM_PARITY_CASES = (
+    # name, arch, changes to its reduced config
+    ("smollm-135m", "smollm-135m", {}),          # GQA group 2, tied head
+    ("qwen3-1.7b", "qwen3-1.7b", {}),            # qk-norm, group 1
+    ("yi-9b", "yi-9b", {}),
+    ("nemotron-4-15b", "nemotron-4-15b", {}),    # squared ReLU
+    ("internvl2-26b", "internvl2-26b", {}),      # 8 patches prepended
+    ("zamba2-7b", "zamba2-7b", {}),              # 1 group, no tail
+    ("qwen3-group2", "qwen3-1.7b", {"num_kv_heads": 2}),
+    ("zamba2-5layers", "zamba2-7b", {"num_layers": 5}),   # 2 groups and a tail layer
+)
+LM_PARITY_B, LM_PARITY_S = 2, 40     # 40 is ragged against the reduced SSD chunk of 16
+LM_B, LM_PROMPT = 8, 2048            # (b) and (c): the prefill calls
+LM_FEED = 16                         # prompt tokens fed through the decode path before generating
+LM_TRAIN_B = (8, 4, 2)               # (b): the largest that fits
+HYBRID_TRAIN_LAYERS = 60             # (c): 10 of zamba2-7b's 13 groups, 50 Mamba layers
+WIDE_ARCHS = ("yi-9b", "nemotron-4-15b", "internvl2-26b")   # (d): full width, 2 layers
+WIDE_B, WIDE_S, WIDE_GEN = 2, 512, 8
+FED_C, FED_K, FED_B, FED_S = 4, 3, 2, 256   # (e)
+FED_WEIGHTS = (120.0, 0.0, 80.0, 40.0)      # slot 1: a client recruitment excluded
+
+
+def lm_inputs(torch, cfg, b: int, s: int, seed: int) -> dict:
+    """Tokens and labels from ``lm_token_batch``; the VLM's patch
+    embeddings drawn right after them from the same numpy stream."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import lm_token_batch
+
+    rng = np.random.default_rng(seed)
+    batch = lm_token_batch(rng, b, s, cfg.vocab_size)
+    if cfg.arch_type.value == "vlm":
+        batch["patch_embeds"] = rng.normal(
+            size=(b, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def decode_through(model, params, batch, cache, greedy: int = 0):
+    """The VLM's patches (``token_embeds``), then ``batch``'s tokens, then
+    ``greedy`` argmax tokens through ``decode_step``; returns each token
+    step's logits, the generated tokens and the cache."""
+    import torch
+
+    pos = 0
+    patches = batch.get("patch_embeds")
+    with torch.inference_mode():
+        for i in range(0 if patches is None else patches.shape[1]):
+            _, cache = model.decode_step(params, None, cache, pos, token_embeds=patches[:, i:i + 1])
+            pos += 1
+        logits, generated = [], []
+        toks = batch["tokens"]
+        for t in range(toks.shape[1]):
+            lg, cache = model.decode_step(params, toks[:, t:t + 1], cache, pos)
+            logits.append(lg)
+            pos += 1
+        for _ in range(greedy):
+            tok = torch.argmax(logits[-1], dim=-1)[:, None]
+            generated.append(tok)
+            lg, cache = model.decode_step(params, tok, cache, pos)
+            logits.append(lg)
+            pos += 1
+    return logits, generated, cache
+
+
+def check_lm_zoo_parity(torch) -> None:
+    """(a) Each reduced config of the slice, and the group-2 and 5-layer
+    hybrid variants, in float32: logits, the loss and every gradient leaf
+    on the card against the CPU (a leaf held to MAMBA_TOL times its own
+    max|ref|, the hybrid's A_log and dt_bias to DECAY_GRAD_TOL, as phase
+    10), and the card's decode path (patches included) against its own
+    forward at the reference's decode tolerance."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.zoo import Model
+    from repro_torch.tree import tree_map
+
+    failures = []
+    for name, arch, changes in LM_PARITY_CASES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+        model = Model(cfg, remat=False)
+        params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        params = tree_map(lambda t: t.to("cuda"), params_cpu)
+        batch = lm_inputs(torch, cfg, LM_PARITY_B, LM_PARITY_S, seed=24)
+        batch_card = {k: v.cuda() for k, v in batch.items()}
+        with torch.inference_mode():
+            lg_cpu = model.forward_logits(params_cpu, batch)
+            lg_card = model.forward_logits(params, batch_card)
+        loss_cpu, g_cpu = loss_and_grads(torch, model, params_cpu, batch)
+        loss_card, g_card = loss_and_grads(torch, model, params, batch_card)
+        n_patch = cfg.num_frontend_tokens if "patch_embeds" in batch else 0
+        cache = model.init_cache(LM_PARITY_B, n_patch + LM_PARITY_S, "cuda")
+        dec, _, _ = decode_through(model, params, batch_card, cache)
+        torch.cuda.synchronize()
+        dec = torch.stack(dec, dim=1)
+        by_leaf = sorted(((leaf_err(g.cpu(), r), q) for q, g, r in
+                          zip(leaf_paths(params_cpu), g_card, g_cpu)), reverse=True)
+        decay = [(e, q) for e, q in by_leaf if q.endswith(DECAY_LEAVES)]
+        other = [(e, q) for e, q in by_leaf if not q.endswith(DECAY_LEAVES)]
+        e = {"logits": scaled_err(lg_card.cpu(), lg_cpu),
+             "loss": scaled_err(loss_card.cpu(), loss_cpu), "grad_leaf_worst": other[0][0]}
+        dec_gap = (dec - lg_card).abs()
+        dec_ok = bool((dec_gap <= DECODE_ATOL + DECODE_RTOL * lg_card.abs()).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in (lg_card, dec, loss_card, *g_card))
+        emit(phase="lm_parity", case=name, arch=arch, changes=changes, B=LM_PARITY_B,
+             S=LM_PARITY_S, patches=n_patch, dtype=cfg.dtype, card_vs_cpu_scaled_err=e,
+             grad_leaf_err_worst=other[:3], grad_leaf_err_decay=decay[:2],
+             decode_vs_prefill_max_abs=float(dec_gap.max()), decode_within_tol=dec_ok,
+             seconds=time.perf_counter() - t0)
+        if not finite:
+            failures.append(f"{name}: non-finite outputs")
+        if max(e.values()) > MAMBA_TOL or (decay and decay[0][0] > DECAY_GRAD_TOL):
+            failures.append(f"{name}: card against CPU {e}, {other[0]}, {decay[:1]}")
+        if not dec_ok:
+            failures.append(f"{name}: decode against prefill {float(dec_gap.max())}")
+    require(not failures, "; ".join(failures))
+
+
+def lm_serve(torch, SK, model, params, calls: int, gen: int, ssd_per_call: int) -> dict:
+    """``make_prefill_step`` at LM_B x LM_PROMPT, ``calls`` times (the first
+    cold); then LM_FEED prompt tokens and ``gen`` greedy tokens through
+    ``make_serve_step`` against a cache of LM_PROMPT + ``gen`` slots (a step
+    attends over every slot, masked, so its cost is that of a full
+    context).  Prefill calls must launch ``ssd_chunk_scan`` ``ssd_per_call``
+    times each, decode steps never."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    cfg = model.cfg
+    toks = prompt_tokens(torch, cfg.vocab_size, LM_B, LM_PROMPT, seed=0).cuda()
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    call_s, per_call = [], []
+    for _ in range(calls):
+        before = SK.ssd_chunk_scan.launches
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+        per_call.append(SK.ssd_chunk_scan.launches - before)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    short = prefill(params, {"tokens": toks[:, :LM_FEED]})
+
+    before = SK.ssd_chunk_scan.launches
+    cache = model.init_cache(LM_B, LM_PROMPT + gen, "cuda")
+    feed_logits = None
+    for t in range(LM_FEED):
+        feed_logits, cache = serve(params, toks[:, t:t + 1], cache, t)
+    tok = torch.argmax(feed_logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(gen):
+        lg, cache = serve(params, tok, cache, LM_FEED + k)
+        tok = torch.argmax(lg, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = SK.ssd_chunk_scan.launches - before
+    warm = call_s[1:] or call_s
+    out = dict(B=LM_B, prompt=LM_PROMPT, prefill_call_s=call_s,
+               prefill_tokens_per_s=LM_B * LM_PROMPT * len(warm) / sum(warm),
+               prefill_peak_mem_gb=prefill_peak / 1e9, ssd_launches_per_prefill=per_call,
+               feed=LM_FEED, gen=gen, decode_tokens_per_s=LM_B * gen / decode_s,
+               decode_step_ms=decode_s / gen * 1e3, decode_ssd_launches=decode_launches,
+               bf16_decode_vs_prefill_max_abs=float((feed_logits - short).abs().max()),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               finite=[bool(torch.isfinite(t).all()) for t in (logits, short, lg)])
+    require(all(out["finite"]), f"{cfg.name} serving outputs not finite: {out['finite']}")
+    require(all(n == ssd_per_call for n in per_call),
+            f"{cfg.name}: prefill calls launched ssd_chunk_scan {per_call}, not {ssd_per_call}")
+    require(decode_launches == 0, f"{cfg.name}: decode launched ssd_chunk_scan {decode_launches}")
+    return out
+
+
+def lm_train(torch, SK, model, params, batch_sizes, steps: int) -> dict:
+    """``steps`` ``make_train_step`` calls with AdamW(TRAIN_LR) at the largest
+    of ``batch_sizes`` that fits x LM_PROMPT tokens, on one fixed batch: step
+    times, losses, peak memory and SSD launches a step."""
+    import gc
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = model.cfg
+    opt = AdamW(TRAIN_LR)
+    step = make_train_step(model, opt)
+    tried = []
+    for b in batch_sizes:
+        batch = {k: v.cuda() for k, v in lm_batch(torch, cfg.vocab_size, b, LM_PROMPT, 1).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, losses, per_step = [], [], []
+        try:
+            state = opt.init(params)
+            for _ in range(steps):
+                before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                losses.append(float(metrics["loss"]))  # waits for the step
+                step_s.append(time.perf_counter() - t0)
+                per_step.append((SK.ssd_chunk_scan.launches - before[0],
+                                 SK.ssd_chunk_scan_bwd.launches - before[1]))
+        except torch.cuda.OutOfMemoryError:
+            tried.append(b)
+        else:
+            return dict(B=b, seq=LM_PROMPT, lr=TRAIN_LR, out_of_memory_at_B=tried,
+                        step_s=step_s, tokens_per_s=b * LM_PROMPT / step_s[-1], losses=losses,
+                        ssd_launches_per_step=per_step,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            state = batch = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    require(False, f"{cfg.name}: no train batch of {batch_sizes} fits")
+
+
+def run_lm_zoo_phase(torch, SK) -> dict[str, int]:
+    """Phase 24: (a) parity at the reduced configs; (b) qwen3-1.7b and (c)
+    zamba2-7b at full width and depth, bfloat16, served and trained; (d)
+    yi-9b, nemotron-4-15b and internvl2-26b at full width cut to 2 layers;
+    (e) the federated LM round at full-width smollm-135m.  Returns the SSD
+    launches of (c)'s prefill calls and train step, the main path's."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_fed_round_step, make_prefill_step
+    from repro_torch.models.transformer import hybrid_layout
+    from repro_torch.models.zoo import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    check_lm_zoo_parity(torch)
+
+    def init(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        return params, time.perf_counter() - t0
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) qwen3-1.7b: 4 prefill calls, 64 decode tokens, a train step
+    cfg = get_config("qwen3-1.7b")
+    params, init_s = init(cfg)
+    serve = lm_serve(torch, SK, Model(cfg), params, calls=4, gen=64, ssd_per_call=0)
+    trained = lm_train(torch, SK, Model(cfg), params, LM_TRAIN_B, steps=2)
+    emit(phase="lm_dense", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+         params=sum(t.numel() for t in tree_leaves(params)), init_s=init_s, serve=serve,
+         train=trained)
+    require(all(math.isfinite(v) for v in trained["losses"]), f"qwen3 losses {trained['losses']}")
+    del params
+    release()
+
+    # (c) zamba2-7b: prefill calls and 32 decode tokens at full depth; a train step cut in depth
+    cfg = get_config("zamba2-7b")
+    groups, per_group, tail = hybrid_layout(cfg)
+    mamba_layers = groups * per_group + tail
+    params, init_s = init(cfg)
+    before = SK.ssd_chunk_scan.launches
+    serve = lm_serve(torch, SK, Model(cfg), params, calls=2, gen=32, ssd_per_call=mamba_layers)
+    launches = {"ssd_chunk_scan": SK.ssd_chunk_scan.launches - before}
+    del params
+    release()
+    cut = dataclasses.replace(cfg, num_layers=HYBRID_TRAIN_LAYERS)
+    g, pg, tl = hybrid_layout(cut)
+    cut_layers = g * pg + tl
+    params, cut_init_s = init(cut)
+    before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+    trained = lm_train(torch, SK, Model(cut), params, (1,), steps=1)
+    launches["ssd_chunk_scan"] += SK.ssd_chunk_scan.launches - before[0]
+    launches["ssd_chunk_scan_bwd"] = SK.ssd_chunk_scan_bwd.launches - before[1]
+    emit(phase="lm_hybrid", arch=cfg.name, dtype=cfg.dtype, layout=[groups, per_group, tail],
+         init_s=init_s, serve=serve, train=trained, train_init_s=cut_init_s,
+         train_layout=[g, pg, tl],
+         reduced={"train_num_layers": [HYBRID_TRAIN_LAYERS, cfg.num_layers],
+                  "why": "AdamW's functional update holds the old and new moments at once: "
+                         "7 bf16 copies of 5.74 B params (80.3 GB) do not fit in 80 GB"},
+         launches=launches)
+    require(all(math.isfinite(v) for v in trained["losses"]), f"zamba2 losses {trained['losses']}")
+    require(trained["ssd_launches_per_step"] == [(2 * cut_layers, cut_layers)],
+            f"zamba2 train step SSD launches {trained['ssd_launches_per_step']}, expected "
+            f"{(2 * cut_layers, cut_layers)} (remat: the forward twice)")
+    del params
+    release()
+
+    # (d) the widest dense and VLM configs at full width, 2 layers
+    for arch in WIDE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        model = Model(cfg)
+        params, init_s = init(cfg)
+        batch = {k: v.cuda() for k, v in lm_inputs(torch, cfg, WIDE_B, WIDE_S, seed=25).items()}
+        t0 = time.perf_counter()
+        logits = make_prefill_step(model)(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        n_patch = cfg.num_frontend_tokens if "patch_embeds" in batch else 0
+        cache = model.init_cache(WIDE_B, n_patch + 1 + WIDE_GEN, "cuda")
+        t0 = time.perf_counter()
+        dec, generated, _ = decode_through(model, params, {**batch, "tokens": batch["tokens"][:, :1]},
+                                           cache, greedy=WIDE_GEN)
+        torch.cuda.synchronize()
+        finite = [bool(torch.isfinite(t).all()) for t in (logits, *dec)]
+        emit(phase="lm_wide", arch=arch, dtype=cfg.dtype, d_model=cfg.d_model,
+             reduced={"num_layers": [2, get_config(arch).num_layers]}, init_s=init_s,
+             B=WIDE_B, S=WIDE_S, patches=n_patch, prefill_s=prefill_s,
+             decode_s=time.perf_counter() - t0, decode_steps=n_patch + 1 + WIDE_GEN,
+             sample=torch.cat(generated, dim=1)[0].tolist(), finite=all(finite),
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        require(all(finite), f"{arch}: non-finite outputs {finite}")
+        del params, batch, cache
+        release()
+
+    # (e) the federated LM round at full-width smollm-135m
+    cfg = get_config("smollm-135m")
+    model = Model(cfg)
+    one, _ = init(cfg)
+    params_c = tree_map(lambda t: t[None].expand(FED_C, *t.shape).clone(), one)
+    del one
+    opt = AdamW(TRAIN_LR)
+    toks = np.random.default_rng(26).integers(0, cfg.vocab_size, (FED_C, FED_K, FED_B, FED_S + 1))
+    batches = {"tokens": torch.from_numpy(toks[..., :-1].copy()).cuda(),
+               "labels": torch.from_numpy(toks[..., 1:].copy()).cuda()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params_c, state, loss = make_fed_round_step(model, opt)(params_c, opt.init(params_c), batches,
+                                                            FED_WEIGHTS)
+    loss = float(loss)
+    round_s = time.perf_counter() - t0
+    leaves = tree_leaves(params_c)
+    equal = all(torch.equal(leaf[c], leaf[0]) for leaf in leaves for c in range(1, FED_C))
+    finite = all(bool(torch.isfinite(leaf).all()) for leaf in leaves)
+    emit(phase="lm_fed_round", arch=cfg.name, dtype=cfg.dtype, clients=FED_C, local_steps=FED_K,
+         local_batch=FED_B, seq=FED_S, weights=FED_WEIGHTS, loss=loss, round_s=round_s,
+         slots_equal=equal, params_finite=finite, steps=[int(s) for s in state.step],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(math.isfinite(loss) and finite and equal,
+            f"fed round: loss {loss}, finite {finite}, slots equal {equal}")
+    del params_c, state, batches
+    release()
+    emit(phase="lm_zoo_seconds", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

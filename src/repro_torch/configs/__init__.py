@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-It holds the architectures the port runs.  The JAX package's other ids are
-known by name and raise ``NotImplementedError``: their model families are
-still to be ported (ROADMAP Queue 1 item 15).
+It holds the architectures the port runs: the dense decoders, the VLM, the
+SSM and the hybrid.  The JAX package's other ids are known by name and
+raise ``NotImplementedError``: the MoE decoders are ROADMAP Queue 1 item
+15b and the encoder-decoder item 15c.
 """
 
 from __future__ import annotations
@@ -17,33 +18,52 @@ from repro_torch.configs.base import (
     SSMConfig,
 )
 
-ARCH_IDS: tuple[str, ...] = ("mamba2-130m",)
-
-# The reference's ids whose model families the port does not run yet.
-UNPORTED_ARCH_IDS: tuple[str, ...] = (
+# The first id is the default ``--arch`` of the port's train and serve CLIs.
+ARCH_IDS: tuple[str, ...] = (
+    "mamba2-130m",
     "qwen3-1.7b",
-    "seamless-m4t-large-v2",
-    "deepseek-v3-671b",
     "smollm-135m",
     "yi-9b",
     "internvl2-26b",
     "nemotron-4-15b",
-    "llama4-scout-17b-a16e",
     "zamba2-7b",
 )
 
+# The reference's ids whose model families the port does not run yet, each
+# with the ROADMAP Queue 1 item that ports it.
+UNPORTED_ARCH_IDS: tuple[str, ...] = (
+    "seamless-m4t-large-v2",
+    "deepseek-v3-671b",
+    "llama4-scout-17b-a16e",
+)
+_UNPORTED_ITEM = {
+    "seamless-m4t-large-v2": "15c",
+    "deepseek-v3-671b": "15b",
+    "llama4-scout-17b-a16e": "15b",
+}
+
 
 def _registry() -> dict[str, ArchConfig]:
-    from repro_torch.configs import mamba2_130m
+    from repro_torch.configs import (
+        internvl2_26b,
+        mamba2_130m,
+        nemotron_4_15b,
+        qwen3_1_7b,
+        smollm_135m,
+        yi_9b,
+        zamba2_7b,
+    )
 
-    return {c.name: c for c in (mamba2_130m.CONFIG,)}
+    configs = (mamba2_130m, qwen3_1_7b, smollm_135m, yi_9b, internvl2_26b, nemotron_4_15b,
+               zamba2_7b)
+    return {c.CONFIG.name: c.CONFIG for c in configs}
 
 
 def get_config(name: str) -> ArchConfig:
     if name in UNPORTED_ARCH_IDS:
         raise NotImplementedError(
-            f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1 item 15); "
-            f"ported: {list(ARCH_IDS)}"
+            f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1 item "
+            f"{_UNPORTED_ITEM[name]}); ported: {list(ARCH_IDS)}"
         )
     reg = _registry()
     if name not in reg:

@@ -5,7 +5,8 @@ One ``ArchConfig`` dataclass describes every selectable architecture
 hybrid (Mamba2 + shared attention), encoder-decoder (audio backbone), and
 VLM (vision-stub + decoder).  Reduced variants for CPU smoke tests come from
 ``.reduced()``.  The dataclasses are copied whole, so a config of any
-family can be described; the port's model zoo runs the SSM family only.
+family can be described; the port's model zoo runs the dense, VLM, SSM
+and hybrid families.
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
 """Decode driver: batched autoregressive *inference* with a state cache.
 
 The port of ``repro.launch.serve``, with the same CLI and behaviour: a
-*reduced* config, the prompt fed through the decode path token by token,
-then batched greedy decode, with tokens/step timings.  ``--arch`` takes the
-ids the port runs; ``--device`` defaults to the card.  The decode path runs
-no kernel: the SSD kernel runs in the prefill step
-(``launch/steps.py::make_prefill_step``).
+*reduced* config, the VLM's patch embeddings and then the prompt fed
+through the decode path token by token, then batched greedy decode, with
+tokens/step timings.  ``--arch`` takes the ids the port runs; ``--device``
+defaults to the card.  The decode path runs no kernel: the SSD kernel runs
+in the prefill step (``launch/steps.py::make_prefill_step``).
 
     python -m repro_torch.launch.serve --arch mamba2-130m --batch 4 --prompt-len 16 --gen 32
+    python -m repro_torch.launch.serve --arch internvl2-26b --device cpu
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, ArchType, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.zoo import Model
@@ -50,6 +51,15 @@ def main(argv: list[str] | None = None) -> None:
     serve_step = make_serve_step(model)
 
     pos = 0
+    if cfg.arch_type == ArchType.VLM:
+        patches = torch.from_numpy(rng.normal(
+            size=(args.batch, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            for i in range(cfg.num_frontend_tokens):
+                _, cache = model.decode_step(params, None, cache, pos,
+                                             token_embeds=patches[:, i : i + 1])
+                pos += 1
+
     prompt = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     prompt_t = torch.from_numpy(prompt).to(dev)
     logits = None

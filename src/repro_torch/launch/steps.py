@@ -1,16 +1,19 @@
-"""Step functions: train, prefill, serve (decode).
+"""Step functions: train, federated round, prefill, serve (decode).
 
 The train step takes the gradient of ``Model.loss`` over every param leaf
 and applies the port's AdamW, the same step as the JAX package's jitted
-``train_step``; on the card each layer runs the SSD kernel forward with
-its entry states and, in the backward, the SSD backward kernel.  Prefill
-and decode run under ``torch.inference_mode()``.
+``train_step``; on the card each Mamba2 layer (the SSM and hybrid
+families) runs the SSD kernel forward with its entry states and, in the
+backward, the SSD backward kernel, while attention and the MLPs are plain
+PyTorch under autograd.  The federated round is the paper's FedAvg over a
+client-stacked tree.  Prefill and decode run under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.models.zoo import Model
@@ -44,10 +47,61 @@ def make_train_step(model: Model, optimizer: AdamW) -> Callable:
     return train_step
 
 
+def make_fed_round_step(model: Model, optimizer: AdamW) -> Callable:
+    """``fed_round_step(params_c, opt_state_c, batches, weights) ->
+    (params_c, opt_state_c, loss)``: one FedAvg round over client slots.
+
+    ``params_c`` and the moments of ``opt_state_c`` carry a leading client
+    axis C; its ``step`` is an int or a (C,) array of each slot's steps.
+    ``batches`` leaves are (C, K, b, ...) and ``weights`` (C,) is
+    ``n_c * recruited_c``.  Each slot takes its K AdamW steps on its own
+    replica (slot by slot: no cross-client traffic), then every leaf
+    becomes the weighted average ``sum_c w_c x_c`` with ``w = weights /
+    max(sum, 1e-9)`` in float32, written back to every slot.  A slot of
+    weight 0 is a client that recruitment excluded: it trains, but does not
+    move the average.  ``loss`` is ``sum_c w_c * mean_k loss_ck``.  Both
+    trees are updated in place and returned."""
+    train_step = make_train_step(model, optimizer)
+
+    def fed_round_step(params_c: PyTree, opt_state_c: AdamWState, batches: PyTree, weights):
+        leaves = tree_leaves(params_c)
+        n_clients = leaves[0].shape[0]
+        steps = np.broadcast_to(np.asarray(opt_state_c.step, dtype=np.int64), (n_clients,))
+        k_steps = tree_leaves(batches)[0].shape[1]
+        losses = []
+        for c in range(n_clients):
+            slot = lambda tree: tree_map(lambda t: t[c].clone(), tree)
+            params = slot(params_c)
+            state = AdamWState(int(steps[c]), slot(opt_state_c.mu), slot(opt_state_c.nu))
+            slot_losses = []
+            for k in range(k_steps):
+                batch = tree_map(lambda t: t[c, k], batches)
+                params, state, metrics = train_step(params, state, batch)
+                slot_losses.append(metrics["loss"])
+            with torch.no_grad():
+                for stacked, new in ((params_c, params), (opt_state_c.mu, state.mu),
+                                     (opt_state_c.nu, state.nu)):
+                    for s_leaf, n_leaf in zip(tree_leaves(stacked), tree_leaves(new)):
+                        s_leaf[c].copy_(n_leaf)
+            losses.append(torch.stack(slot_losses).mean())
+
+        w = torch.as_tensor(weights, dtype=torch.float32, device=leaves[0].device)
+        w = w / torch.clamp(w.sum(), min=1e-9)
+        with torch.no_grad():
+            for leaf in leaves:
+                avg = torch.tensordot(w.to(leaf.dtype), leaf, dims=1)   # reduce over C
+                leaf.copy_(avg.expand_as(leaf))                         # redistribute
+        loss = (torch.stack(losses) * w).sum()
+        return params_c, AdamWState(steps + k_steps, opt_state_c.mu, opt_state_c.nu), loss
+
+    return fed_round_step
+
+
 def make_prefill_step(model: Model) -> Callable:
     """Serving prefill: hidden states for the whole prompt, logits for the
     LAST position only (materializing (B, S, V) float32 logits is never what
-    a serving system does).  Runs the SSD kernel once per layer on the card."""
+    a serving system does).  Runs the SSD kernel once per Mamba2 layer on
+    the card."""
 
     @torch.inference_mode()
     def prefill_step(params: PyTree, batch: dict[str, torch.Tensor]) -> torch.Tensor:

@@ -5,7 +5,9 @@ Two modes:
   * ``paper`` (default) — the paper's experiments on the synthetic eICU
     cohort: central / federated with and without client recruitment.
   * ``lm`` — single-process smoke training of an architecture's *reduced*
-    variant on synthetic tokens (the port runs the ssm family).
+    variant on synthetic tokens (the dense, VLM, SSM and hybrid families;
+    the VLM's patch embeddings are drawn from the same numpy stream right
+    after each batch's tokens, as in the reference).
 
 ``--device`` defaults to the card and raises where there is none; ``cpu``
 runs the plain versions of the kernels.  There is no ``--pallas``: the
@@ -14,6 +16,7 @@ checkout.
 
     python -m repro_torch.launch.train --setting federated-src --scale 0.2 --seeds 0 1 2
     python -m repro_torch.launch.train --mode lm --arch mamba2-130m --steps 10
+    python -m repro_torch.launch.train --mode lm --arch zamba2-7b --steps 10
 """
 
 from __future__ import annotations
@@ -54,10 +57,10 @@ def run_paper(args) -> None:
 def run_lm(args) -> None:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
-    if cfg.arch_type in (ArchType.VLM, ArchType.ENCDEC):
+    if cfg.arch_type == ArchType.ENCDEC:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type.value} family's stub frontends are not "
-            "ported to PyTorch yet (ROADMAP Queue 1 item 15)"
+            f"{cfg.name}: the {cfg.arch_type.value} family's stub frontend is not "
+            "ported to PyTorch yet (ROADMAP Queue 1 item 15c)"
         )
     model = Model(cfg, remat=False)
     optimizer = AdamW(learning_rate=1e-3)
@@ -68,6 +71,9 @@ def run_lm(args) -> None:
 
     for i in range(args.steps):
         batch = lm_token_batch(rng, args.batch, args.seq, cfg.vocab_size)
+        if cfg.arch_type == ArchType.VLM:
+            batch["patch_embeds"] = rng.normal(
+                size=(args.batch, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         params, opt_state, metrics = step(params, opt_state, batch)
         print(f"step {i}: loss={float(metrics['loss']):.4f}")

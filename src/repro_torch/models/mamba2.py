@@ -34,7 +34,7 @@ def mamba2_init(generator: torch.Generator, cfg: ArchConfig, dtype, device) -> P
     # in_proj emits [z, x, B, C, dt]
     proj_out = 2 * d_in + 2 * s.d_state + nheads
     in_proj = dense_init(generator, d, proj_out, dtype, device)
-    conv_w = torch.randn((s.d_conv, conv_dim), generator=generator) * 0.1
+    conv_w = torch.randn((s.d_conv, conv_dim), generator=generator, device=generator.device) * 0.1
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "in_proj": in_proj,

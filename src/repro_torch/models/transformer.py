@@ -1,12 +1,21 @@
-"""Blocks and layer stacks of the SSM family (Mamba2).
+"""Transformer and Mamba2 blocks, and the layer stacks that run them.
 
 Per-layer parameters are stacked on a leading layer dimension, as in the
 JAX package, so param trees carry across key for key.  JAX scans a layer
 body over that dimension; here ``run_stack`` and ``run_stack_decode`` are
 Python loops over the layer index.  ``run_stack(..., remat=True)`` is the
 port of ``jax.checkpoint(body)``: each layer keeps only its input for the
-backward and runs its forward again there.  The attention, MoE and encoder-decoder
-blocks come with their families (ROADMAP Queue 1 item 15).
+backward and runs its forward again there.  ``run_stack`` returns ``x``
+alone: the router aux loss is 0 in every family the port runs.
+
+Block kinds:
+  * ``dense`` — GQA attention + [swiglu | relu2 | gelu | relu] MLP;
+  * ``mamba`` — the Mamba2 SSD block.
+The hybrid (Zamba2) runs groups of mamba blocks with one weight-*shared*
+dense block applied after each group (``hybrid_layout``).  MLA and the MoE
+blocks come with the MoE families (ROADMAP Queue 1 item 15b); the
+cross-attention and decoder blocks with the encoder-decoder family (item
+15c).
 """
 
 from __future__ import annotations
@@ -17,7 +26,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import rmsnorm, rmsnorm_init
+from repro_torch.models.attention import gqa_apply, gqa_cache_init, gqa_decode, gqa_init
+from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 from repro_torch.models.mamba2 import mamba2_apply, mamba2_decode, mamba2_init
 from repro_torch.tree import PyTree, tree_map
 
@@ -31,6 +41,75 @@ def stack_init(init_fn: Callable[[], PyTree], n: int) -> PyTree:
 def layer(stack: PyTree, i: int) -> PyTree:
     """Layer ``i``'s slice of a stacked tree (views, no copies)."""
     return tree_map(lambda t: t[i], stack)
+
+
+# ==========================================================================
+# block init / apply
+# ==========================================================================
+
+def _require_gqa(cfg: ArchConfig) -> None:
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-head latent attention (MLA) is not ported to PyTorch yet "
+            "(ROADMAP Queue 1 item 15b)"
+        )
+
+
+def _require_dense(use_moe: bool) -> None:
+    if use_moe:
+        raise NotImplementedError(
+            "the MoE block is not ported to PyTorch yet (ROADMAP Queue 1 item 15b)"
+        )
+
+
+def _self_attn_init(generator: torch.Generator, cfg: ArchConfig, dtype, device) -> PyTree:
+    _require_gqa(cfg)
+    return gqa_init(generator, cfg, dtype, device)
+
+
+def _self_attn_apply(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    _require_gqa(cfg)
+    return gqa_apply(params, cfg, x)
+
+
+def _self_attn_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree, pos):
+    _require_gqa(cfg)
+    return gqa_decode(params, cfg, x, cache, pos)
+
+
+def _self_attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> PyTree:
+    _require_gqa(cfg)
+    return gqa_cache_init(cfg, batch, max_len, dtype, device)
+
+
+def dense_block_init(generator: torch.Generator, cfg: ArchConfig, dtype, device, *,
+                     use_moe: bool) -> PyTree:
+    """Drawn in a fixed order: the attention's weights, then the MLP's."""
+    _require_dense(use_moe)
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": _self_attn_init(generator, cfg, dtype, device),
+        "ln2": rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.activation, dtype, device),
+    }
+
+
+def dense_block_apply(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *,
+                      use_moe: bool) -> torch.Tensor:
+    """Causal self-attention and the MLP, each on the pre-normed residual."""
+    _require_dense(use_moe)
+    h = x + _self_attn_apply(params["attn"], cfg, rmsnorm(params["ln1"], x, cfg.norm_eps))
+    return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h, cfg.norm_eps), cfg.activation)
+
+
+def dense_block_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree, pos, *,
+                       use_moe: bool) -> tuple[torch.Tensor, PyTree]:
+    _require_dense(use_moe)
+    attn_out, new_cache = _self_attn_decode(
+        params["attn"], cfg, rmsnorm(params["ln1"], x, cfg.norm_eps), cache, pos)
+    h = x + attn_out
+    h = h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h, cfg.norm_eps), cfg.activation)
+    return h, new_cache
 
 
 def mamba_block_init(generator: torch.Generator, cfg: ArchConfig, dtype, device) -> PyTree:
@@ -87,3 +166,14 @@ def _depth(stack: PyTree) -> int:
     while isinstance(stack, dict):
         stack = next(iter(stack.values()))
     return stack.shape[0]
+
+
+# ==========================================================================
+# layer layout
+# ==========================================================================
+
+def hybrid_layout(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(num groups, mamba per group, trailing mamba layers)."""
+    period = cfg.hybrid.attn_every
+    groups = cfg.num_layers // period
+    return groups, period - 1, cfg.num_layers - groups * period

@@ -4,7 +4,9 @@
 * Entry points default to the card and raise where there is none.
 * CPU tensors go through the plain versions and count no kernel launch;
   the router accepts nothing but CUDA and CPU tensors.
-* The arch ids and model families not ported yet raise ``NotImplementedError``.
+* Every reference arch id either builds a ``Model`` (ported) or raises
+  ``NotImplementedError`` naming its ROADMAP item; so do the MoE and
+  encoder-decoder families.
 * Each kernel module's ctypes signatures match the C prototypes of its source.
 """
 
@@ -49,7 +51,7 @@ def no_cuda():
 def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     modules = port_modules()
     assert "repro_torch.experiments.paper" in modules
-    assert {"repro_torch.models.zoo", "repro_torch.launch.serve",
+    assert {"repro_torch.models.zoo", "repro_torch.models.attention", "repro_torch.launch.serve",
             "repro_torch.launch.train", "repro_torch.data.device_cohort",
             "repro_torch.federated.staging", "repro_torch.obs.trace", "repro_torch.obs.report",
             "repro_torch.obs.profile", "repro_torch.obs.__main__"} <= set(modules)
@@ -131,11 +133,14 @@ def test_lm_entry_points_raise_without_a_card(no_cuda):
     from repro_torch.launch import serve
     from repro_torch.models.zoo import Model, params_from_jax
 
-    model = Model(get_config("mamba2-130m").reduced())
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        model.init_cache(2, 8)
+    for arch in ("mamba2-130m", "qwen3-1.7b", "internvl2-26b", "zamba2-7b"):
+        model = Model(get_config(arch).reduced())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model.init(torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model.init_cache(2, 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--batch", "1", "--prompt-len", "1", "--gen", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"embed": np.zeros((2, 2), np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -147,6 +152,10 @@ def test_train_entry_point_raises_without_a_card(no_cuda):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--mode", "lm", "--steps", "1", "--batch", "1", "--seq", "4"])
+    for arch in ("smollm-135m", "internvl2-26b", "zamba2-7b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--mode", "lm", "--arch", arch, "--steps", "1", "--batch", "1",
+                        "--seq", "4"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--mode", "paper", "--scale", "0.01", "--rounds", "1", "--seeds", "0"])
 
@@ -169,24 +178,53 @@ def test_cpu_tensors_through_the_ssd_wrapper_count_no_launch():
     assert torch.equal(states, ssd_chunk_states_ref(*args))
 
 
-@pytest.mark.parametrize("arch", UNPORTED_ARCH_IDS)
+# The JAX package's ten arch ids (repro.configs.ARCH_IDS).
+REFERENCE_ARCH_IDS = (
+    "qwen3-1.7b", "mamba2-130m", "seamless-m4t-large-v2", "deepseek-v3-671b", "smollm-135m",
+    "yi-9b", "internvl2-26b", "nemotron-4-15b", "llama4-scout-17b-a16e", "zamba2-7b",
+)
+
+
+@pytest.mark.parametrize("arch", REFERENCE_ARCH_IDS)
 def test_unported_arch_ids_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        get_config(arch)
+    """A ported id builds its reduced ``Model`` on the CPU; an unported one
+    raises, naming its ROADMAP Queue 1 item (15b, 15c)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.zoo import Model
+
+    assert (arch in ARCH_IDS) != (arch in UNPORTED_ARCH_IDS)
+    if arch in UNPORTED_ARCH_IDS:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            get_config(arch)
+        return
+    from repro_torch.tree import tree_leaves
+
+    model = Model(get_config(arch).reduced(), remat=False)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    assert all(t.device.type == "cpu" for t in tree_leaves(params))
 
 
 def test_only_the_ssm_family_builds_a_model():
+    """The MoE and encoder-decoder families still raise, in ``Model`` and in
+    ``count_params_config`` (ROADMAP Queue 1 items 15b and 15c); the dense,
+    VLM, SSM and hybrid families build."""
     import dataclasses
 
-    from repro_torch.configs import ArchType
+    from repro_torch.configs import ArchType, MoEConfig
     from repro_torch.models.zoo import Model, count_params_config
 
-    cfg = get_config("mamba2-130m")
-    dense = dataclasses.replace(cfg, arch_type=ArchType.DENSE)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        Model(dense)
-    with pytest.raises(NotImplementedError):
-        count_params_config(dense)
+    cfg = get_config("smollm-135m")
+    moe = dataclasses.replace(cfg, arch_type=ArchType.MOE, moe=MoEConfig(4, 2, 64))
+    encdec = dataclasses.replace(cfg, arch_type=ArchType.ENCDEC, encoder_layers=2,
+                                 frontend="audio")
+    for family, item in ((moe, "15b"), (encdec, "15c")):
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            Model(family)
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            count_params_config(family)
+    for arch in ("smollm-135m", "internvl2-26b", "mamba2-130m", "zamba2-7b"):
+        assert count_params_config(get_config(arch)) > 0
+        Model(get_config(arch))
     with pytest.raises(KeyError):
         get_config("mamba3-1t")
 
@@ -376,7 +414,7 @@ def test_tables_modules_and_examples_pull_in_no_jax_and_no_repro(group):
     """Each module of the tables slice and each ``examples/torch_*.py``,
     imported alone in a fresh interpreter (all at once), leaves JAX and the
     reference out."""
-    assert set(TABLES_MODULES) <= set(port_modules()) and len(TORCH_EXAMPLES) == 6
+    assert set(TABLES_MODULES) <= set(port_modules()) and len(TORCH_EXAMPLES) == 7
     targets = TABLES_MODULES if group == "modules" else [str(p) for p in TORCH_EXAMPLES]
     procs = {target: import_alone(target) for target in targets}
     failed = {}
