@@ -206,6 +206,18 @@ exit code and no result line:
              greedy tokens, finite; (e) ``make_fed_round_step`` at
              full-width smollm-135m, 4 client slots of 3 local steps, one
              of weight 0: every slot equal after the round, a finite loss.
+25. mesh   — the client axis over several processes (``launch/mesh.py``):
+             (a) federated-arc's round (35 clients, 1 local epoch) with
+             ``mesh="auto"`` in this process, where no process group
+             exists, equal to ``mesh=None`` bit for bit; (b) the same round
+             in two child processes, both on cuda:0, joined in a gloo group
+             through a ``FileStore``: each rank's block, its ``gru_scan``
+             and ``gru_scan_bwd`` launches (two a step of its block) and
+             its round time, labelled as two ranks sharing one card; the
+             ranks' params the same bits, within 1e-4 of the one-process
+             round's and the losses within 1e-5; (c) with two cards or more,
+             the same round over two GPUs under NCCL; with one, a line says
+             that leg did not run.  The children's launches count.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -378,6 +390,10 @@ def main() -> int:
 
     # -- 24. the attention families of the LM zoo: dense, VLM, hybrid ----------
     for kernel, n in run_lm_zoo_phase(torch, SK).items():
+        launches[kernel] += n
+
+    # -- 25. the client axis over several processes ----------------------------
+    for kernel, n in run_mesh_phase(torch, K, cohort).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -3557,6 +3573,163 @@ def run_lm_zoo_phase(torch, SK) -> dict[str, int]:
     release()
     emit(phase="lm_zoo_seconds", seconds=time.perf_counter() - t_phase, launches=launches)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the client axis over several processes (launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+MESH_LOSS_TOL = 1e-5         # a sharded round's losses against the one-process round's (phase 25)
+MESH_PARAMS_TOL = 1e-4       # and its params
+# One rank of phase 25's sharded round: joins a group of WORLD ranks over
+# BACKEND through a FileStore, trains federated-arc's round (1 round, 1
+# local epoch, seed 0) with mesh "auto" on cuda:DEVICE from the seed-0 init,
+# writes its params to OUT and prints its block, launches and round time as
+# the last line of its standard output.
+MESH_CHILD = """
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+rank, world, backend, device, store, out = sys.argv[1:7]
+rank, world = int(rank), int(world)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.cuda.set_device(int(device))
+dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank, world_size=world)
+try:
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.experiments.paper import ExperimentConfig, build_cohort, policies_for
+    from repro_torch.federated.api import Federation, FederationConfig
+    from repro_torch.kernels.gru_scan import kernel as K
+    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves
+
+    exp = ExperimentConfig(rounds=1, local_epochs=1)
+    fed = Federation(
+        FederationConfig(rounds=1, local_epochs=1, batch_size=exp.batch_size, seed=0,
+                         mesh="auto", **policies_for("federated-arc", exp)),
+        build_client_datasets(build_cohort(exp, seed=0)), make_loss_fn(GRUConfig()),
+        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda")
+    params0 = init_gru(torch.Generator().manual_seed(0), GRUConfig(), "cuda")
+    torch.cuda.synchronize()
+    K.gru_scan.launches = K.gru_scan_bwd.launches = 0
+    result = fed.run(params0)
+    st = fed.cohort_trainer.last_round_stats
+    np.savez(out, *[t.cpu().numpy() for t in tree_leaves(result.params)])
+    print(json.dumps({"rank": rank, "world": world, "backend": backend, "device": int(device),
+                      "shards": st["shards"], "rank_clients": st["rank_clients"],
+                      "cohort_steps": st["cohort_steps"],
+                      "losses": [r.mean_local_loss for r in result.history],
+                      "participants": [len(r.participant_ids) for r in result.history],
+                      "round_time_s": [r.round_time_s for r in result.history],
+                      "gru_scan": K.gru_scan.launches, "gru_scan_bwd": K.gru_scan_bwd.launches}),
+          flush=True)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def run_mesh_ranks(backend: str, devices: list[int], workdir: Path) -> list[tuple[dict, list]]:
+    """The sharded arc round in one child process a rank, all started
+    together: each rank's report and params."""
+    import numpy as np
+
+    store = workdir / f"{backend}.store"
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_CHILD, str(rank), str(len(devices)),
+                               backend, str(dev), str(store), str(workdir / f"{backend}{rank}.npz")],
+                              env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for rank, dev in enumerate(devices)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            outs.append((proc.returncode, out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    reports = []
+    for rank, (rc, out, err) in enumerate(outs):
+        lines = out.strip().splitlines()
+        require(rc == 0 and bool(lines) and lines[-1].startswith("{"),
+                f"mesh rank {rank} ({backend}) exited {rc}: {err[-3000:]}")
+        with np.load(workdir / f"{backend}{rank}.npz") as z:
+            params = [z[f"arr_{i}"] for i in range(len(z.files))]
+        reports.append((json.loads(lines[-1]), params))
+    return reports
+
+
+def run_mesh_phase(torch, K, cohort) -> dict[str, int]:
+    """Phase 25: (a) federated-arc's round with ``mesh="auto"`` in this
+    process (no process group: no mesh) against ``mesh=None``, bit for bit;
+    (b) the same round over two gloo ranks sharing cuda:0, against the
+    one-process round, each rank's GRU launches two a step of its block;
+    (c) over two GPUs under NCCL, where the machine has them."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.experiments.paper import ExperimentConfig
+    from repro_torch.launch.mesh import DataMesh, block_of
+    from repro_torch.tree import tree_leaves
+
+    exp = ExperimentConfig(rounds=1, local_epochs=1)
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    runs = {}
+    for mesh in (None, "auto"):
+        fed = arc_federation(torch, cohort, exp, mesh=mesh)
+        result, stats, counts = run_federation(torch, K, fed)
+        check_launches(f"federated-arc (mesh {mesh})", counts, stats[0]["cohort_steps"], 0)
+        add_counts(total, counts)
+        runs[mesh] = result
+        del fed
+    one = runs[None]
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(one.params),
+                                                    tree_leaves(runs["auto"].params)))
+    emit(phase="mesh_auto", bitwise=bitwise,
+         mean_local_loss=[[r.mean_local_loss for r in res.history] for res in runs.values()],
+         round_time_s=[[r.round_time_s for r in res.history] for res in runs.values()])
+    require(bitwise and [r.mean_local_loss for r in one.history] ==
+            [r.mean_local_loss for r in runs["auto"].history],
+            "mesh 'auto' in one process differs from no mesh")
+
+    ref = [t.cpu().numpy() for t in tree_leaves(one.params)]
+    n = len(one.history[0].participant_ids)
+    legs = [("gloo", [0, 0])]
+    if torch.cuda.device_count() >= 2:
+        legs.append(("nccl", [0, 1]))
+    else:
+        emit(phase="mesh_nccl", ran=False,
+             note="one card: the NCCL leg over two GPUs did not run")
+    with tempfile.TemporaryDirectory() as workdir:
+        for backend, devices in legs:
+            t0 = time.perf_counter()
+            reports = run_mesh_ranks(backend, devices, Path(workdir))
+            seconds = time.perf_counter() - t0
+            for rank, (rep, params) in enumerate(reports):
+                block = block_of(n, DataMesh(None, rank, len(devices)))
+                loss_gap = max(abs(a - r.mean_local_loss) for a, r in zip(rep["losses"],
+                                                                         one.history))
+                param_gap = max(float(np.max(np.abs(a - b))) for a, b in zip(params, ref))
+                emit(phase="mesh_rank", **rep, block=[block.start, block.stop],
+                     loss_gap=loss_gap, loss_bar=MESH_LOSS_TOL, param_gap=param_gap,
+                     param_bar=MESH_PARAMS_TOL, seconds=seconds,
+                     label=("two ranks sharing one card (gloo), not a multi-GPU time"
+                            if backend == "gloo" else "two GPUs (NCCL)"))
+                require(rep["shards"] == len(devices) and rep["rank_clients"] == len(block),
+                        f"mesh rank {rank} trained {rep['rank_clients']} clients, "
+                        f"its block is {len(block)}")
+                check_launches(f"mesh rank {rank} ({backend})",
+                               {k: rep[k] for k in total}, rep["cohort_steps"], 0)
+                require(loss_gap <= MESH_LOSS_TOL and param_gap <= MESH_PARAMS_TOL,
+                        f"mesh rank {rank} ({backend}) against one process: losses "
+                        f"{loss_gap}, params {param_gap}")
+                add_counts(total, {k: rep[k] for k in total})
+            require(all(a.tobytes() == b.tobytes() for a, b in zip(reports[0][1], reports[1][1])),
+                    f"the {backend} ranks' params differ")
+    return total
 
 
 if __name__ == "__main__":

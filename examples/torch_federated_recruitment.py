@@ -16,15 +16,39 @@ any spec.  ``--staging resident`` (the default) uploads the federation's
 client data to the card once and stages int32 index plans each round, the
 next chunk's plan built on a thread while one trains (``--no-prefetch``
 builds them inline); ``--staging rebuild`` re-stages the whole schedule
-every round.  ``--mesh auto`` (the client axis over several GPUs) is not
-ported yet and raises.  The paper's tables are
+every round.  The paper's tables are
 ``python -m repro_torch.experiments.run_full``.
+
+``--mesh auto`` splits the vectorized engine's client axis over processes,
+one GPU each:
+
+    PYTHONPATH=src torchrun --nproc-per-node N examples/torch_federated_recruitment.py --mesh auto
+
+Each rank sets its card from ``LOCAL_RANK`` and joins the NCCL group that
+torchrun describes (gloo with ``--device cpu``); rank 0 prints.  In one
+plain process ``--mesh auto`` is the run without a mesh.
 """
 
 import argparse
 import json
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.experiments.paper import ExperimentConfig, build_cohort, run_setting
+
+
+def join_process_group(device: str) -> bool:
+    """Under torchrun (``WORLD_SIZE`` above 1): this rank's card from
+    ``LOCAL_RANK`` and the process group torchrun describes.  Returns
+    whether a group was created here."""
+    if int(os.environ.get("WORLD_SIZE", "1")) < 2 or dist.is_initialized():
+        return False
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    return True
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -41,7 +65,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     ap.add_argument(
         "--mesh", choices=["auto"], default=None,
-        help="vectorized engine: the client axis over several GPUs (not ported yet)",
+        help="vectorized engine: the client axis over the ranks of torchrun's "
+        "process group (no mesh in one process)",
     )
     ap.add_argument(
         "--no-donate", action="store_true",
@@ -70,17 +95,25 @@ def main(argv: list[str] | None = None) -> None:
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh auto (the client axis over several GPUs) is not ported yet "
-            "(ROADMAP Queue 1 item 9)"
-        )
+    joined = args.mesh is not None and join_process_group(args.device)
+    try:
+        run(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def run(args: argparse.Namespace) -> None:
+    # Under a mesh every rank computes the same results; rank 0 prints them.
+    quiet = dist.is_initialized() and dist.get_rank() != 0
+    say = (lambda *_: None) if quiet else print
 
     # paper-faithful settings, trained on the selected engine
     exp = ExperimentConfig(
         cohort_scale=args.scale,
         engine=args.engine,
         cohort_chunk=args.cohort_chunk,
+        mesh=args.mesh,
         donate_buffers=not args.no_donate,
         staging=args.staging,
         prefetch=not args.no_prefetch,
@@ -88,24 +121,24 @@ def main(argv: list[str] | None = None) -> None:
         aggregator=args.aggregator,
         device=args.device,
     )
-    print(f"engine: {args.engine}")
+    say(f"engine: {args.engine}")
     cohort = build_cohort(exp, seed=args.seed)
-    print(f"cohort: {len(cohort.y):,} stays, {cohort.num_hospitals} hospitals")
+    say(f"cohort: {len(cohort.y):,} stays, {cohort.num_hospitals} hospitals")
 
     results = {}
     for setting in ("federated-sc", "federated-src"):
-        print(f"--- {setting} (15 rounds x 4 local epochs) ---")
+        say(f"--- {setting} (15 rounds x 4 local epochs) ---")
         out = run_setting(setting, exp, cohort, seed=args.seed)
         results[setting] = out
-        print(
+        say(
             f"  federation={out['federation_size']} recruited={out['recruited']} "
             f"local_steps={out['local_steps']} tau={out['tau_s']:.1f}s"
         )
-        print(f"  metrics: {json.dumps({k: round(v, 4) for k, v in out['metrics'].items()})}")
+        say(f"  metrics: {json.dumps({k: round(v, 4) for k, v in out['metrics'].items()})}")
 
     sc, src = results["federated-sc"], results["federated-src"]
     speedup = sc["tau_s"] / src["tau_s"]
-    print(
+    say(
         f"\nRecruited federation (SRC): {src['recruited']} of {sc['federation_size']} clients, "
         f"{speedup:.2f}x faster than standard FedAvg (SC), "
         f"MSLE {src['metrics']['msle']:.4f} vs {sc['metrics']['msle']:.4f}"

@@ -20,6 +20,11 @@ int32 sample indices:
   batch bit for bit, and the example mask is ``index < n_c``.
 * With ``resident_budget_bytes`` below the whole federation's size the
   cohort is an LRU pool of rows, filled per round by ``ensure_resident``.
+* Under a data mesh (``launch/mesh.py``) the rows are padded to a multiple
+  of the axis size, as the reference pads them, and each rank uploads only
+  its contiguous block of them; ``owner_of`` names the rank that holds a
+  client's row, and the rows never move.  The pool is single-host, as in
+  the reference: a pool under a mesh of more than one rank raises.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from repro_torch.data.pipeline import ClientDataset, cohort_steps_per_epoch
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import resolve_mesh
 from repro_torch.obs.trace import resolve_tracer
 
 _ALIGN = 64
@@ -158,6 +164,9 @@ class DeviceCohort:
     attach_seconds: float = 0.0
     # Observability: pool uploads record a "pool_upload" span (None = no-op).
     tracer: Any = dataclasses.field(default=None, repr=False)
+    # Under a data mesh: client_id -> the rank holding its row (``rows``
+    # then holds this rank's rows only).  Empty without a mesh.
+    owners: dict[int, int] = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self) -> None:
         self.tracer = resolve_tracer(self.tracer)
@@ -183,6 +192,11 @@ class DeviceCohort:
                     f"client {client.client_id} is not resident in the pool; "
                     "call ensure_resident(round_clients) before staging"
                 ) from None
+            if client.client_id in self.owners:
+                raise KeyError(
+                    f"client {client.client_id}'s row is held by rank "
+                    f"{self.owners[client.client_id]}; a rank trains only the rows it holds"
+                ) from None
             raise KeyError(
                 f"client {client.client_id} is not part of this device cohort; "
                 "attach the full federation before training"
@@ -191,6 +205,10 @@ class DeviceCohort:
     def owns(self, client: ClientDataset) -> bool:
         """True iff this resident copy was built from exactly this dataset."""
         return self._sources.get(client.client_id) is client.train
+
+    def owner_of(self, client: ClientDataset) -> int:
+        """The rank holding ``client``'s row: 0 without a mesh."""
+        return self.owners.get(client.client_id, 0)
 
     def ensure_resident(self, clients: Sequence[ClientDataset]) -> int:
         """Make every client in ``clients`` resident; returns rows uploaded.
@@ -291,15 +309,17 @@ def build_device_cohort(
     round (LRU eviction) by ``ensure_resident``, each upload a
     ``pool_upload`` span of ``tracer`` (None = no-op).  ``device`` defaults
     to the card.
+
+    ``mesh`` (a ``DataMesh``, ``"auto"`` or None): the rows are padded to a
+    multiple of the axis size with all-zero rows and this rank uploads only
+    its contiguous block of them (``num_rows`` is then the block's size).
+    The pool is single-host: a budget too small for the whole federation
+    under a mesh of more than one rank raises ``ValueError``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_device_cohort mesh= (rows sharded over several GPUs) is not "
-            "ported yet (ROADMAP Queue 1 item 9)"
-        )
     if not clients:
         raise ValueError("empty cohort")
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh)
     t0 = time.perf_counter()
     feat = clients[0].train.x.shape[1:]
     x_dtype = clients[0].train.x.dtype
@@ -313,7 +333,9 @@ def build_device_cohort(
         np.prod((max_n + 1, *feat)) * np.dtype(x_dtype).itemsize
         + (max_n + 1) * np.dtype(y_dtype).itemsize
     )
-    full_bytes = len(clients) * row_bytes
+    shards = 1 if mesh is None else mesh.size
+    num_rows = len(clients) + (-len(clients) % shards)
+    full_bytes = num_rows * row_bytes
 
     def zeros(rows: int) -> tuple[torch.Tensor, torch.Tensor]:
         return (
@@ -322,6 +344,11 @@ def build_device_cohort(
         )
 
     if resident_budget_bytes is not None and full_bytes > resident_budget_bytes:
+        if shards > 1:
+            raise ValueError(
+                "resident_budget_bytes pooling is single-host; drop the mesh "
+                "or raise the budget to fit the full cohort"
+            )
         pool_rows = int(resident_budget_bytes // row_bytes)
         if pool_rows < 1:
             raise ValueError(
@@ -341,9 +368,15 @@ def build_device_cohort(
             tracer=tracer,
         )
 
+    # This rank's block of the padded rows (every row without a mesh).
+    per_rank = num_rows // shards
+    first = 0 if mesh is None else mesh.rank * per_rank
+    owners = {} if mesh is None else {
+        c.client_id: r // per_rank for r, c in enumerate(clients)}
+    block = clients[first : first + per_rank]
     # The real samples packed back to back: one pinned buffer, one copy, then
     # one scatter each for x and y into the zeroed rows on the device.
-    total = sum(c.n_train for c in clients)
+    total = sum(c.n_train for c in block)
     layout = Layout({
         "x": ((total, *feat), x_dtype),
         "y": ((total,), y_dtype),
@@ -353,22 +386,22 @@ def build_device_cohort(
     views = layout.host_views(host.numpy())
     rows: dict[int, int] = {}
     start = 0
-    for r, client in enumerate(clients):
+    for r, client in enumerate(block):
         n = client.n_train
         views["x"][start : start + n] = client.train.x
         views["y"][start : start + n] = client.train.y
         views["dest"][start : start + n] = r * (max_n + 1) + np.arange(n)
         rows[client.client_id] = r
         start += n
-    dx, dy = zeros(len(clients))
+    dx, dy = zeros(per_rank)
     staged = layout.device_views(upload(host, dev))
     dx.view(-1, *feat).index_copy_(0, staged["dest"], staged["x"])
     dy.view(-1).index_copy_(0, staged["dest"], staged["y"])
     del staged
     _finish_copies(dev)
     return DeviceCohort(
-        x=dx, y=dy, rows=rows, nbytes=full_bytes, _sources=sources,
-        attach_seconds=time.perf_counter() - t0, tracer=tracer,
+        x=dx, y=dy, rows=rows, nbytes=per_rank * row_bytes, _sources=sources,
+        attach_seconds=time.perf_counter() - t0, tracer=tracer, owners=owners,
     )
 
 

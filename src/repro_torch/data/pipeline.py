@@ -167,6 +167,17 @@ def fill_cohort_schedule(
             # remaining slots of this epoch stay dummy (zeros, step_valid False)
 
 
+def skip_cohort_draws(sizes: Sequence[int], local_epochs: int, rng: np.random.Generator) -> None:
+    """Consume ``rng`` as ``fill_cohort_schedule`` (and the plan twin,
+    ``fill_cohort_plan``) would for clients of these ``sizes``, writing
+    nothing: one permutation per client per epoch, client-major.  Under a
+    data mesh a rank draws its block's batches and skips the others', so
+    every rank leaves the shared generator where one process would."""
+    for n in sizes:
+        for _ in range(local_epochs):
+            rng.permutation(int(n))
+
+
 def pad_cohort_schedule(sched: CohortSchedule, multiple: int) -> CohortSchedule:
     """Pad the client axis with weight-0 dummy clients to a multiple.
 

@@ -48,6 +48,7 @@ from repro_torch.federated.runtime.async_federation import (
     AsyncFederation,
     AsyncFederationConfig,
 )
+from repro_torch.launch.mesh import resolve_mesh
 from repro_torch.metrics.regression import evaluate_predictions
 from repro_torch.models.gru import GRUConfig, gru_apply, init_gru, make_loss_fn
 from repro_torch.optim.adamw import AdamW
@@ -86,6 +87,10 @@ class ExperimentConfig:
     engine: str = "vectorized"
     # Vectorized engine: clients per batched step (None = whole cohort).
     cohort_chunk: int | None = None
+    # Vectorized engine: the client axis over several processes (None, a
+    # launch/mesh.py DataMesh, or "auto" for the default process group's
+    # world when it has more than one rank).
+    mesh: Any = None
     # Vectorized engine: in-place accumulator, staged chunks released early.
     donate_buffers: bool = True
     # Vectorized engine: "resident" uploads client data once and stages int32
@@ -185,6 +190,7 @@ def run_setting(
             seed=seed,
             engine=exp.engine,
             cohort_chunk=exp.cohort_chunk,
+            mesh=exp.mesh,
             donate_buffers=exp.donate_buffers,
             staging=exp.staging,
             prefetch=exp.prefetch,
@@ -280,6 +286,7 @@ def run_paper_scale(
     seed: int = 0,
     total_stays: int = 189 * 23,
     engines: tuple[str, ...] = ("vectorized", "sequential"),
+    mesh: Any = None,
     settings: tuple[str, ...] = PAPER_SCALE_SETTINGS,
     verbose: bool = True,
     device: str | torch.device | None = None,
@@ -290,7 +297,8 @@ def run_paper_scale(
     epoch), test metrics and the vectorized engine's round stats.  A
     donation probe runs one all-clients round in two chunks with donation
     on and off and records both rounds' stats; ``peak_device_bytes`` is
-    None on the CPU.  ``device`` defaults to the card.
+    None on the CPU.  ``device`` defaults to the card; ``mesh`` splits the
+    vectorized engine's client axis over the process group's ranks.
     """
     dev = resolve_device(device)
     cohort_cfg = paper_scale_cohort_config(total_stays=total_stays)
@@ -301,6 +309,7 @@ def run_paper_scale(
         local_epochs=local_epochs,
         central_epochs=rounds * local_epochs,
         batch_size=batch_size,
+        mesh=mesh,
         device=str(dev),
     )
 
@@ -350,6 +359,7 @@ def run_paper_scale(
             batch_size=batch_size,
             local_epochs=local_epochs,
             cohort_chunk=max(1, (len(clients) + 1) // 2),  # 2 chunks: cross-chunk peak
+            mesh=mesh,
             donate=donate,
             device=dev,
         )
@@ -384,6 +394,7 @@ def run_staging_comparison(
     batch_size: int = 32,
     seed: int = 0,
     total_stays: int = 189 * 64,
+    mesh: Any = None,
     cohort_chunk: int | None = 48,
     variants: tuple[str, ...] = STAGING_VARIANTS,
     repeats: int = 2,
@@ -403,8 +414,12 @@ def run_staging_comparison(
     ``rebuild-chunked`` and ``resident-noprefetch`` isolate the two terms.
     The model is small (hidden 8, one layer): the client axis and the
     staging path are what is measured.  ``device`` defaults to the card.
+    ``mesh`` (``"auto"`` resolved here, so the report's ``"mesh"`` names the
+    mesh that ran: ``"data"`` or None) splits the client axis over the
+    process group's ranks; chunking stays on under it.
     """
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh)
     cohort_cfg = paper_scale_cohort_config(total_stays=total_stays)
     clients = build_client_datasets(generate_cohort(cohort_cfg, seed=seed))
     model_cfg = GRUConfig(hidden_dim=8, num_layers=1)
@@ -428,6 +443,7 @@ def run_staging_comparison(
             selection="uniform",  # all 189 clients, every round
             seed=seed,
             engine="vectorized",
+            mesh=mesh,
             **configs[variant],
         )
         # Best of ``repeats`` whole federations (the least steady-state round
@@ -475,7 +491,7 @@ def run_staging_comparison(
         "batch_size": batch_size,
         "cohort_chunk": cohort_chunk,
         "total_stays": cohort_cfg.total_stays,
-        "mesh": None,
+        "mesh": "data" if mesh is not None else None,
         "seed": seed,
         "repeats": repeats,
         "device": str(dev),
@@ -845,6 +861,7 @@ def run_privacy_frontier(
             seed=seed,
             engine=exp.engine,
             cohort_chunk=exp.cohort_chunk,
+            mesh=exp.mesh,
             donate_buffers=exp.donate_buffers,
             staging=exp.staging,
             prefetch=exp.prefetch,
@@ -1106,15 +1123,21 @@ def job_spec_for(setting: str, exp: ExperimentConfig, seed: int = 0) -> dict[str
     setting can run as a submitted job with checkpoint/resume and a
     streamed record file.  ``central`` is pooled training, not a federation
     — it has no job-spec form.  The port's ``ExperimentConfig`` has no
-    ``mesh`` and no ``use_pallas``, so the spec carries the reference's
-    defaults for them (``null``, ``false``) and equals (and hashes as) the
-    reference's for the same settings; ``exp.device`` and ``exp.privacy``
-    are not part of it, as in the reference.
+    ``use_pallas``, so the spec carries the reference's default for it
+    (``false``) and equals (and hashes as) the reference's for the same
+    settings; ``exp.mesh`` must be None or ``"auto"`` (a spec is JSON);
+    ``exp.device`` and ``exp.privacy`` are not part of it, as in the
+    reference.
     """
     if setting == "central":
         raise ValueError("'central' is pooled training, not a federated job")
     if setting not in MODEL_SETTINGS:
         raise ValueError(f"unknown setting {setting}; choose from {MODEL_SETTINGS}")
+    if exp.mesh not in (None, "auto"):
+        raise ValueError(
+            "job specs are JSON: mesh must be null or 'auto' (drive the "
+            "Federation facade directly to pass a DataMesh)"
+        )
     policies = policies_for(setting, exp)
     if not all(isinstance(v, str) for v in policies.values()):
         raise ValueError(
@@ -1131,7 +1154,7 @@ def job_spec_for(setting: str, exp: ExperimentConfig, seed: int = 0) -> dict[str
         **policies,
         "engine": exp.engine,
         "cohort_chunk": exp.cohort_chunk,
-        "mesh": None,
+        "mesh": exp.mesh,
         "staging": exp.staging,
         "prefetch": exp.prefetch,
         "donate_buffers": exp.donate_buffers,

@@ -19,6 +19,15 @@ are the extension points of the runtime:
   ``"hierarchical-async"`` resolve here too, but run only under
   ``federated/runtime/async_federation.py::AsyncFederation``.
 
+Several processes (``FederationConfig.mesh``, ``launch/mesh.py``): the
+vectorized engine splits each round's participants over the process group's
+ranks and sums their FedAvg accumulators with one all-reduce a
+``train_cohort`` call, so a ``"grouped"`` aggregator (hierarchical) does
+one all-reduce a group.  Rounds of a ``"stacked"`` aggregator
+(trimmed-mean, krum, secagg-fedavg) run the per-client trainer on every
+rank, as the reference ignores its mesh there: each rank computes the
+whole round and none is faster.  The sequential engine ignores the mesh.
+
 DP-SGD (``FederationConfig.privacy``) runs in both engines
 (``privacy/dp.py``); one Rényi accountant a run turns each round's
 sampling rate into the cumulative ``RoundRecord.epsilon``.
@@ -720,6 +729,10 @@ class FederationConfig:
     engine: str = "vectorized"
     # Vectorized engine: clients per batched step (None = the whole cohort).
     cohort_chunk: int | None = None
+    # Vectorized engine: the client axis over several processes
+    # (launch/mesh.py): a DataMesh, or "auto" for the default process
+    # group's world when it has more than one rank (else no mesh).
+    mesh: Any = None
     # Vectorized engine: in-place accumulator, staged chunks released early.
     donate_buffers: bool = True
     # Vectorized engine: "resident" uploads the federation's train arrays
@@ -806,6 +819,7 @@ class Federation:
             batch_size=config.batch_size,
             local_epochs=config.local_epochs,
             cohort_chunk=config.cohort_chunk,
+            mesh=config.mesh,
             donate=config.donate_buffers,
             staging=config.staging,
             prefetch=config.prefetch,

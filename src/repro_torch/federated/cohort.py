@@ -64,6 +64,29 @@ accumulator is added into in place and a chunk's staged tensors are
 released before the next chunk is staged inline; without it the
 accumulator is added out of place and the previous chunk's tensors stay
 alive until the next is staged.
+
+Several processes (``mesh=``, a ``launch/mesh.py::DataMesh`` or ``"auto"``):
+the client axis is split over a ``torch.distributed`` group, SPMD as the
+reference's ``shard_map``.  Every rank stages every chunk in order, so the
+shared numpy generator moves as in one process, but builds only its own
+participants' batches or plans (``skip_cohort_draws`` draws the others'),
+and keeps only their dropout generators.  Which rank trains a participant:
+
+* rebuild staging: the reference's layout, each chunk cut into contiguous
+  blocks, block k to rank k (``block_of``);
+* resident staging: the rank that holds the participant's row (a rank
+  uploads only its block of the federation's rows, and a row never moves).
+  Under full participation that is the same block of the round.
+
+A rank adds its clients into its float32 accumulator in client order; the
+round's one all-reduce then sums the ranks' partial sums, so a sharded round
+equals the one-process round within rounding, not bit for bit (as in the
+reference).  The per-client losses ride in the same all-reduce, each rank
+adding zeros for the clients it did not train (exact), so every rank
+returns the same params and losses.  ``cohort_chunk`` and
+``MAX_CHUNK`` bound a rank's share of a chunk; DP runs a rank's share as
+per-example clients.  A rank with no participant in a chunk (or a round)
+trains nothing there and adds zeros to the all-reduce.
 """
 
 from __future__ import annotations
@@ -89,9 +112,11 @@ from repro_torch.data.pipeline import (
     cohort_steps_per_epoch,
     fill_cohort_schedule,
     local_round_steps,
+    skip_cohort_draws,
 )
 from repro_torch.device import resolve_device
 from repro_torch.federated.staging import StagingPipeline
+from repro_torch.launch.mesh import all_reduce_sum_, block_of, resolve_mesh
 from repro_torch.obs.trace import resolve_tracer
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.privacy.dp import DPConfig, dp_value_and_grad, resolve_dp
@@ -117,6 +142,18 @@ def client_generators(
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
+def _runs(mine: np.ndarray):
+    """The chunk's runs of clients that are, or are not, this rank's, in
+    order: ``(lo, hi, first)``, ``first`` the run's index among this rank's
+    clients, or None for a run of others'."""
+    first, lo = 0, 0
+    for hi in range(1, len(mine) + 1):
+        if hi == len(mine) or mine[hi] != mine[lo]:
+            yield lo, hi, (first if mine[lo] else None)
+            first += (hi - lo) if mine[lo] else 0
+            lo = hi
+
+
 @dataclasses.dataclass
 class _Chunk:
     """One chunk's staged tensors on the training device, step-major."""
@@ -125,6 +162,7 @@ class _Chunk:
     coefficients: torch.Tensor  # (T, 3, C): AdamW's 1/b1c, 1/b2c, -lr per client
     valid_host: np.ndarray      # (T, C) bool
     weights: np.ndarray         # (C,) float32 n_c
+    members: np.ndarray         # (C,) the clients' positions in the round
     nbytes: int                 # host bytes staged
     seconds: float              # host seconds staging took
 
@@ -176,7 +214,9 @@ class CohortTrainer:
     local_epochs: int
     # Max clients per batched step; None = the whole cohort at once.
     cohort_chunk: int | None = None
-    # The client axis over several GPUs: a later slice of the port.
+    # The client axis over several processes: a launch/mesh.py DataMesh, or
+    # "auto" (the default group's world when more than one rank is
+    # initialized, else None).
     mesh: Any = None
     donate: bool = True
     # "rebuild" re-stages the whole schedule every round (the staging
@@ -212,15 +252,11 @@ class CohortTrainer:
     def __post_init__(self) -> None:
         if self.staging not in STAGING_MODES:
             raise ValueError(f"unknown staging {self.staging!r}; choose from {STAGING_MODES}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "CohortTrainer mesh= (the client axis over several GPUs) is not "
-                "ported yet (ROADMAP Queue 1 item 9)"
-            )
         self.tracer = resolve_tracer(self.tracer)
         self.dp = resolve_dp(self.dp)
         self._dp_grad = None if self.dp is None else dp_value_and_grad(self.loss_fn, self.dp)
         self.device = resolve_device(self.device)
+        self.mesh = resolve_mesh(self.mesh)
         self._device_cohort: DeviceCohort | None = None
         # Resident plans: two host buffers (pinned on the card), chunk k in
         # buffer k % 2, reused round after round; the event of each one's
@@ -247,6 +283,7 @@ class CohortTrainer:
         """
         self._device_cohort = build_device_cohort(
             clients,
+            mesh=self.mesh,
             resident_budget_bytes=self.resident_budget_bytes,
             tracer=self.tracer,
             device=self.device,
@@ -260,13 +297,17 @@ class CohortTrainer:
         return self.attach_device_cohort(clients)
 
     def _stage_rebuild(
-        self, part: Sequence[ClientDataset], rng: np.random.Generator, spe: int
+        self, part: Sequence[ClientDataset], rng: np.random.Generator, spe: int,
+        mine: np.ndarray | None = None,
     ) -> _RebuiltChunk:
-        """Build one chunk's schedule into one host buffer and upload it with
-        one copy.  Consumes ``rng``: chunks must be staged in order."""
+        """Build the schedule of the chunk's clients marked ``mine`` (all by
+        default) into one host buffer and upload it with one copy.  Consumes
+        ``rng`` for the whole chunk: chunks must be staged in order."""
         t0 = time.perf_counter()
-        c, b, t = len(part), self.batch_size, spe * self.local_epochs
-        x0, y0 = part[0].train.x, part[0].train.y
+        mine = np.ones(len(part), dtype=bool) if mine is None else mine
+        own = [p for p, m in zip(part, mine) if m]
+        c, b, t = len(own), self.batch_size, spe * self.local_epochs
+        x0, y0 = own[0].train.x, own[0].train.y
         layout = Layout({
             "x": ((t, c, b, *x0.shape[1:]), x0.dtype),
             "y": ((t, c, b), y0.dtype),
@@ -277,18 +318,23 @@ class CohortTrainer:
         buf = np.zeros(layout.nbytes, dtype=np.uint8)
         host = layout.host_views(buf)
         # The fill writes client-major (C, T, ...) views of the step-major buffer.
-        fill_cohort_schedule(
-            [p.train for p in part], b, self.local_epochs, rng, spe,
-            host["x"].swapaxes(0, 1), host["y"].swapaxes(0, 1),
-            host["mask"].swapaxes(0, 1), host["valid"].swapaxes(0, 1),
-        )
+        views = [host[k].swapaxes(0, 1) for k in ("x", "y", "mask", "valid")]
+        for lo, hi, slot in _runs(mine):
+            if slot is None:
+                skip_cohort_draws([p.n_train for p in part[lo:hi]], self.local_epochs, rng)
+                continue
+            fill_cohort_schedule(
+                [p.train for p in part[lo:hi]], b, self.local_epochs, rng, spe,
+                *(v[slot : slot + hi - lo] for v in views),
+            )
         valid_host = host["valid"].copy()
         host["coefficients"][...] = self.optimizer.cohort_coefficients(valid_host.T)
         staged = layout.device_views(torch.from_numpy(buf).to(self.device))
         return _RebuiltChunk(
             **staged,
             valid_host=valid_host,
-            weights=np.asarray([p.n_train for p in part], dtype=np.float32),
+            weights=np.asarray([p.n_train for p in own], dtype=np.float32),
+            members=np.flatnonzero(mine),
             nbytes=layout.nbytes,
             seconds=time.perf_counter() - t0,
         )
@@ -301,25 +347,29 @@ class CohortTrainer:
         dc: DeviceCohort,
         slot: int,
         side: Any,
+        mine: np.ndarray | None = None,
     ) -> _PlannedChunk:
-        """Build one chunk's index plan into host buffer ``slot`` and copy it
-        to the device (on ``side``, a stream, when given).  Consumes ``rng``:
-        chunks must be staged in order."""
+        """Build the index plan of the chunk's clients marked ``mine`` (all
+        by default) into host buffer ``slot`` and copy it to the device (on
+        ``side``, a stream, when given).  Consumes ``rng`` for the whole
+        chunk: chunks must be staged in order."""
         t0 = time.perf_counter()
-        c, b, t = len(part), self.batch_size, spe * self.local_epochs
+        mine = np.ones(len(part), dtype=bool) if mine is None else mine
+        own = [p for p, m in zip(part, mine) if m]
+        c, b, t = len(own), self.batch_size, spe * self.local_epochs
         width = dc.pad_index + 1
         if dc.num_rows * width > np.iinfo(np.int32).max:
             raise ValueError(
                 f"a device cohort of {dc.num_rows} rows of {width} samples is above "
                 "the int32 index range of a plan"
             )
-        rows = np.asarray([dc.row_of(p) for p in part], dtype=np.int64)
+        rows = np.asarray([dc.row_of(p) for p in own], dtype=np.int64)
         contiguous = np.array_equal(rows, np.arange(rows[0], rows[0] + c))
         full = c == dc.num_rows and contiguous and rows[0] == 0
         sliced = self.slice_fastpath and contiguous and not full
         r0 = int(rows[0]) if sliced else 0
         base = (rows - r0) * width
-        sizes = np.asarray([p.n_train for p in part], dtype=np.int64)
+        sizes = np.asarray([p.n_train for p in own], dtype=np.int64)
         layout = Layout({
             "idx": ((t, c, b), np.int32),
             "valid": ((t, c), np.bool_),
@@ -329,10 +379,16 @@ class CohortTrainer:
         host = self._plan_buffer(slot, layout.nbytes)[: layout.nbytes]
         views = layout.host_views(host.numpy())
         views["valid"][...] = False
-        fill_cohort_plan(
-            sizes, b, self.local_epochs, rng, spe, dc.pad_index,
-            views["idx"].swapaxes(0, 1), views["valid"].swapaxes(0, 1), base=base,
-        )
+        idx, valid = views["idx"].swapaxes(0, 1), views["valid"].swapaxes(0, 1)
+        for lo, hi, first in _runs(mine):
+            if first is None:
+                skip_cohort_draws([p.n_train for p in part[lo:hi]], self.local_epochs, rng)
+                continue
+            own_run = slice(first, first + hi - lo)
+            fill_cohort_plan(
+                sizes[own_run], b, self.local_epochs, rng, spe, dc.pad_index,
+                idx[own_run], valid[own_run], base=base[own_run],
+            )
         valid_host = views["valid"].copy()
         views["coefficients"][...] = self.optimizer.cohort_coefficients(valid_host.T)
         views["limit"][:, 0] = base + sizes
@@ -344,6 +400,7 @@ class CohortTrainer:
             coefficients=plan["coefficients"],
             valid_host=valid_host,
             weights=sizes.astype(np.float32),
+            members=np.flatnonzero(mine),
             nbytes=layout.nbytes,
             seconds=time.perf_counter() - t0,
             idx=plan["idx"],
@@ -473,8 +530,22 @@ class CohortTrainer:
         if self.cohort_chunk is not None and self.cohort_chunk <= 0:
             raise ValueError(f"cohort_chunk must be positive, got {self.cohort_chunk}")
         chunk = self.cohort_chunk or len(clients)
-        # Under DP each of a chunk's clients is batch_size per-example clients.
-        launched = min(chunk, len(clients)) * (1 if self.dp is None else self.batch_size)
+        sizes = [cl.n_train for cl in clients]
+        spe = steps_per_epoch or cohort_steps_per_epoch(sizes, self.batch_size)
+        cuda = self.device.type == "cuda"
+        resident = self.staging == "resident"
+        # Under a mesh, resident staging trains a client on the rank holding
+        # its row, so the rows are attached first; otherwise nothing is
+        # uploaded before the chunk bound below is checked.
+        meshed = resident and self.mesh is not None
+        dcohort = self._ensure_device_cohort(clients) if meshed else None
+        starts = range(0, len(clients), chunk)
+        owners = self._owners(clients, starts, chunk, dcohort)
+        rank = 0 if self.mesh is None else self.mesh.rank
+        # The largest share of a chunk any rank trains; under DP each of its
+        # clients is batch_size per-example clients.
+        share = max(int(np.bincount(owners[s : s + chunk]).max()) for s in starts)
+        launched = share * (1 if self.dp is None else self.batch_size)
         if launched > MAX_CHUNK:
             what = ("clients" if self.dp is None
                     else f"per-example clients (DP at batch {self.batch_size})")
@@ -482,11 +553,8 @@ class CohortTrainer:
                 f"a chunk of {launched} {what} is above {MAX_CHUNK}, the GRU kernels' grid "
                 "y dimension; set cohort_chunk"
             )
-        sizes = [cl.n_train for cl in clients]
-        spe = steps_per_epoch or cohort_steps_per_epoch(sizes, self.batch_size)
-        cuda = self.device.type == "cuda"
-        resident = self.staging == "resident"
-        dcohort = self._ensure_device_cohort(clients) if resident else None
+        if resident and not meshed:
+            dcohort = self._ensure_device_cohort(clients)
         pooled = resident and dcohort.is_pooled
         pool_before = (0, 0, 0, 0)
         if pooled:
@@ -499,7 +567,6 @@ class CohortTrainer:
         if cuda and self.track_stats:
             torch.cuda.reset_peak_memory_stats(self.device)
 
-        starts = range(0, len(clients), chunk)
         prefetch = resident and self.prefetch and len(starts) > 1
         side = None
         if prefetch and cuda:
@@ -507,15 +574,19 @@ class CohortTrainer:
                 self._side_stream = torch.cuda.Stream(self.device)
             side = self._side_stream
 
-        def stage(item: tuple[int, int]) -> _Chunk:
+        def stage(item: tuple[int, int]) -> _Chunk | None:
             index, start = item
             part = clients[start : start + chunk]
+            mine = owners[start : start + chunk] == rank
             # The span lands on whichever thread stages: inline here, or the
             # StagingPipeline's producer when prefetching.
             with self.tracer.span("stage", track="staging", chunk=int(start)):
+                if not mine.any():  # none of the chunk's clients is this rank's
+                    skip_cohort_draws([p.n_train for p in part], self.local_epochs, rng)
+                    return None
                 if resident:
-                    return self._stage_plan(part, rng, spe, dcohort, index % 2, side)
-                return self._stage_rebuild(part, rng, spe)
+                    return self._stage_plan(part, rng, spe, dcohort, index % 2, side, mine)
+                return self._stage_rebuild(part, rng, spe, mine)
 
         pipeline: StagingPipeline | None = None
         if prefetch:
@@ -529,31 +600,38 @@ class CohortTrainer:
                                   device=self.device),
             params,
         )
-        total_weight, bytes_staged, num_chunks, executed, stage_s = 0.0, 0, 0, 0, 0.0
-        slice_chunks = 0
+        # Every rank divides by the whole round's weight, summed as one
+        # process sums it: chunk by chunk in float32.
+        total_weight = 0.0
+        for start in starts:
+            total_weight += float(np.asarray(sizes[start : start + chunk], np.float32).sum())
+        bytes_staged, num_chunks, executed, stage_s, slice_chunks, trained = 0, 0, 0, 0.0, 0, 0
         per_losses = np.full(len(clients), np.nan, dtype=np.float32)
         held: _Chunk | None = None
         try:
             for start, staged in zip(starts, staged_chunks):
                 held = None  # without donation the previous chunk lived until here
+                num_chunks += 1
+                if staged is None:
+                    continue
                 if isinstance(staged, _PlannedChunk):
                     slice_chunks += staged.sliced
                     if staged.ready is not None:
                         current = torch.cuda.current_stream(self.device)
                         current.wait_event(staged.ready)
                         staged.staged.record_stream(current)
+                members = start + staged.members
                 stacked, losses, steps = self._train_chunk(
-                    params, staged, generators[start : start + chunk]
+                    params, staged, [generators[i] for i in members]
                 )
                 acc = self._accumulate(acc, stacked, staged.weights)
                 if not self.donate:
                     held = staged
-                per_losses[start : start + len(staged.weights)] = losses
-                total_weight += float(staged.weights.sum())
+                per_losses[members] = losses
                 bytes_staged += staged.nbytes
                 stage_s += staged.seconds
                 executed += steps
-                num_chunks += 1
+                trained += len(members)
                 del stacked, staged
         finally:
             if pipeline is not None:
@@ -561,11 +639,17 @@ class CohortTrainer:
                 # not already propagating another one.
                 pipeline.close(raise_pending=sys.exc_info()[0] is None)
         del held
+        if self.mesh is not None:
+            per_losses[owners != rank] = 0.0  # the other ranks' clients
+            acc, per_losses = self._all_reduce(acc, per_losses)
 
         new_params = tree_map(lambda a, q: (a / total_weight).to(q.dtype), acc, params)
         self.last_round_stats = {
             "chunks": num_chunks,
-            "shards": 1,
+            "shards": 1 if self.mesh is None else self.mesh.size,
+            # This rank and the participants it trained (all of them without a mesh).
+            "rank": rank,
+            "rank_clients": trained,
             "donated": self.donate,
             "staging": self.staging,
             "prefetch": pipeline is not None,
@@ -579,9 +663,10 @@ class CohortTrainer:
             # included); None on the CPU or without track_stats.
             "peak_device_bytes": (torch.cuda.max_memory_allocated(self.device)
                                   if cuda and self.track_stats else None),
+            # This rank's batched steps.
             "cohort_steps": executed,
-            # Under DP, the largest chunk's per-example clients on the GRU
-            # kernels' client axis (chunk × batch); 0 without DP.
+            # Under DP, the largest share of a chunk's per-example clients on
+            # the GRU kernels' client axis (share × batch); 0 without DP.
             "per_example_clients": 0 if self.dp is None else launched,
             "slice_chunks": slice_chunks,
             "pool": pooled,
@@ -593,6 +678,37 @@ class CohortTrainer:
         }
         real_steps = sum(local_round_steps(n, self.batch_size, self.local_epochs) for n in sizes)
         return new_params, per_losses, real_steps
+
+    def _owners(
+        self, clients: Sequence[ClientDataset], starts: range, chunk: int,
+        dcohort: DeviceCohort | None,
+    ) -> np.ndarray:
+        """The rank that trains each participant: 0 without a mesh; under a
+        mesh the rank holding its row (resident staging), else its chunk's
+        block (``block_of``)."""
+        owners = np.zeros(len(clients), dtype=np.int64)
+        if self.mesh is None:
+            return owners
+        if dcohort is not None:
+            return np.asarray([dcohort.owner_of(c) for c in clients], dtype=np.int64)
+        for start in starts:
+            n = min(chunk, len(clients) - start)
+            for k in range(self.mesh.size):
+                owners[start + np.asarray(block_of(n, self.mesh, k), dtype=np.int64)] = k
+        return owners
+
+    def _all_reduce(self, acc: PyTree, losses: np.ndarray) -> tuple[PyTree, np.ndarray]:
+        """The round's one collective: every rank's accumulator and
+        per-client losses (zeros where another rank trained the client)
+        summed as one flat buffer."""
+        leaves = tree_leaves(acc)
+        flat = torch.cat([*(a.reshape(-1) for a in leaves),
+                          torch.from_numpy(losses).to(self.device)])
+        parts = torch.split(all_reduce_sum_(flat, self.mesh), [*(a.numel() for a in leaves),
+                                                               len(losses)])
+        it = iter(parts)
+        summed = tree_map(lambda a: next(it).view(a.shape).to(a.dtype), acc)
+        return summed, parts[-1].cpu().numpy().astype(np.float32)
 
     def _accumulate(self, acc: PyTree, stacked: PyTree, weights: np.ndarray) -> PyTree:
         """``acc + sum_c w_c * stacked[c]``, client by client: in place with

@@ -16,7 +16,11 @@ The engine hot path is untouched: each task executes through the same
 one ``CohortTrainer.train_cohort`` call per task under the vectorized
 engine (a one-client cohort for ``fedbuff``), the per-client trainer under
 the sequential one.  The runtime only reorders *which* cohort chunks train
-against *which* parameter version.
+against *which* parameter version.  Under a mesh
+(``AsyncFederationConfig.mesh``, the sync facade's field) every rank runs
+the same event loop; a task's clients train on their ranks (a one-client
+task on the rank that owns the client) and the others add zeros to the
+task's all-reduce.
 
 Seeded replay and the RNG contract
 ----------------------------------
@@ -373,6 +377,7 @@ class AsyncFederation:
                 seed=config.seed,
                 engine=config.engine,
                 cohort_chunk=config.cohort_chunk,
+                mesh=config.mesh,
                 donate_buffers=config.donate_buffers,
                 staging=config.staging,
                 prefetch=config.prefetch,

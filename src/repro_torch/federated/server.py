@@ -15,10 +15,8 @@ config onto those policies so every existing invocation keeps working::
 
 New code should construct a ``Federation`` directly.
 
-The port of the JAX package's ``federated/server.py``.  The port's
-``FederationConfig`` has no ``mesh`` (the client axis over several GPUs
-waits for ROADMAP Queue 1 item 9), so neither has ``FederatedConfig``;
-``FederatedServer`` takes the port's ``device`` (``None`` is the card).
+The port of the JAX package's ``federated/server.py``; ``FederatedServer``
+takes the port's ``device`` (``None`` is the card).
 """
 
 from __future__ import annotations
@@ -79,6 +77,9 @@ class FederatedConfig:
     engine: str = "vectorized"
     # Vectorized engine: max clients per batched step (None = all at once).
     cohort_chunk: int | None = None
+    # Vectorized engine: the client axis over several processes (a
+    # launch/mesh.py DataMesh, or "auto").
+    mesh: Any = None
     # Vectorized engine: in-place accumulator, staged chunks released early.
     donate_buffers: bool = True
     # "resident" uploads client data once + stages int32 plans per round;
@@ -110,6 +111,7 @@ class FederatedConfig:
             seed=self.seed,
             engine=self.engine,
             cohort_chunk=self.cohort_chunk,
+            mesh=self.mesh,
             donate_buffers=self.donate_buffers,
             staging=self.staging,
             prefetch=self.prefetch,

@@ -23,8 +23,17 @@ What differs from the reference:
 * ``model.use_pallas`` is accepted and hashed as in the reference, and
   chooses nothing: the tensors' device routes every GRU call (the CUDA
   kernels on the card, their plain versions on the CPU).
-* ``mesh: "auto"`` raises ``NotImplementedError`` (the client axis over
-  several GPUs, ROADMAP Queue 1 item 9).
+* ``mesh: "auto"`` maps to ``FederationConfig.mesh="auto"``: under a
+  process group of more than one rank (``torchrun``) the job's client axis
+  is split over the ranks (``launch/mesh.py``), and in one process it is
+  the ``null`` job, bit for bit.  Every rank runs the job; only rank 0
+  writes its files (job.json, records, metrics.jsonl, snapshots,
+  trace.json, profiles, final/, result.json), and the other ranks' facades
+  get the null tracer and no profiler.  On resume every rank reads the
+  snapshot, and rank 0 overwrites it only after all have.  The package
+  creates no process group, the CLI included: a job over several ranks is
+  submitted from a launcher script that creates one (as
+  ``examples/torch_federated_recruitment.py`` does under ``torchrun``).
 * ``observability.jax_profile_rounds`` (the key is the reference's, so
   specs hash alike) profiles rounds with ``torch.profiler`` into
   ``torch_profile/`` where the reference writes ``jax_profile/``.
@@ -312,19 +321,10 @@ def job_spec_hash(spec: dict) -> str:
 
 
 def federation_config_from_spec(spec: dict):
-    """Normalized spec -> FederationConfig / AsyncFederationConfig.
-
-    The port's configs have no ``mesh``: ``null`` maps to nothing and
-    ``"auto"`` raises ``NotImplementedError``.
-    """
+    """Normalized spec -> FederationConfig / AsyncFederationConfig."""
     from repro_torch.federated.api import FederationConfig
     from repro_torch.federated.runtime import AsyncFederationConfig
 
-    if spec.get("mesh") is not None:
-        raise NotImplementedError(
-            f"mesh {spec['mesh']!r}: the client axis over several GPUs is not "
-            "ported yet (ROADMAP Queue 1 item 9); use mesh null"
-        )
     common = dict(
         rounds=int(spec["rounds"]),
         local_epochs=int(spec["local_epochs"]),
@@ -334,6 +334,7 @@ def federation_config_from_spec(spec: dict):
         seed=int(spec["seed"]),
         engine=spec["engine"],
         cohort_chunk=spec["cohort_chunk"],
+        mesh=spec.get("mesh"),
         donate_buffers=bool(spec["donate_buffers"]),
         staging=spec["staging"],
         prefetch=bool(spec["prefetch"]),
@@ -543,6 +544,7 @@ def _run_job(
     )
     from repro_torch.federated.api import Federation
     from repro_torch.federated.runtime import AsyncFederation
+    from repro_torch.launch.mesh import is_writer, resolve_mesh
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.obs.profile import RoundProfiler, resolve_observability
     from repro_torch.obs.trace import Tracer
@@ -551,12 +553,15 @@ def _run_job(
     spec_hash = job["spec_hash"]
     cfg = federation_config_from_spec(spec)
     ckpt_dir = os.path.join(run_dir, CHECKPOINT_DIR)
+    # Under a mesh of several ranks only rank 0 writes the run dir.
+    writer = is_writer(resolve_mesh(spec.get("mesh")))
 
     # Observability: the metrics registry always exists (metrics.jsonl is
     # part of the run-dir contract); the tracer and profiler only when the
-    # spec's observability section asks for them.  .get(): job.json files
-    # written before the observability tier existed resume uninstrumented.
-    obs = resolve_observability(spec.get("observability"))
+    # spec's observability section asks for them, and only on the writer.
+    # .get(): job.json files written before the observability tier existed
+    # resume uninstrumented.
+    obs = resolve_observability(spec.get("observability")) if writer else None
     metrics = MetricsRegistry()
     if resume_snapshot is not None and has_federation_snapshot(ckpt_dir):
         # Continue the series: counters resume from the snapshot instead of
@@ -571,7 +576,7 @@ def _run_job(
     )
 
     metrics_path = os.path.join(run_dir, METRICS_FILE)
-    if resume_snapshot is None:
+    if resume_snapshot is None and writer:
         with open(metrics_path, "w", encoding="utf-8"):
             pass  # truncate: a fresh run owns the whole series
 
@@ -584,24 +589,26 @@ def _run_job(
             fh.flush()
 
     stream = RecordStream(
-        os.path.join(run_dir, RECORDS_FILE),
-        [stream_metrics, *subscribers],
+        os.path.join(run_dir, RECORDS_FILE) if writer else None,
+        [stream_metrics, *subscribers] if writer else subscribers,
         append=resume_snapshot is not None,
     )
     every = int(spec["checkpoint_every"])
 
     def snapshot_hook(snap) -> None:
         index = int(snap.round_index)
-        if index % every == 0 or (preempt_after is not None and index >= preempt_after):
+        preempt = preempt_after is not None and index >= preempt_after
+        if writer and (index % every == 0 or preempt):
             snap.save(
                 ckpt_dir,
                 extra_state={"spec_hash": spec_hash, "metrics": metrics.snapshot()},
             )
-        if preempt_after is not None and index >= preempt_after:
-            _write_json(
-                os.path.join(run_dir, RESULT_FILE),
-                {"status": "preempted", "round_index": index, "spec_hash": spec_hash},
-            )
+        if preempt:
+            if writer:
+                _write_json(
+                    os.path.join(run_dir, RESULT_FILE),
+                    {"status": "preempted", "round_index": index, "spec_hash": spec_hash},
+                )
             raise JobPreempted(run_dir, index)
 
     facade_cls = Federation if spec["mode"] == "sync" else AsyncFederation
@@ -630,11 +637,12 @@ def _run_job(
         if profiler is not None:
             profiler.stop()
 
-    save_pytree(
-        os.path.join(run_dir, FINAL_DIR),
-        result.params,
-        metadata={"spec_hash": spec_hash, "rounds": len(result.history)},
-    )
+    if writer:
+        save_pytree(
+            os.path.join(run_dir, FINAL_DIR),
+            result.params,
+            metadata={"spec_hash": spec_hash, "rounds": len(result.history)},
+        )
     summary = result.summary()
     out = {
         "status": "completed",
@@ -646,7 +654,8 @@ def _run_job(
         if resume_snapshot is None
         else int(resume_snapshot.round_index),
     }
-    _write_json(os.path.join(run_dir, RESULT_FILE), out)
+    if writer:
+        _write_json(os.path.join(run_dir, RESULT_FILE), out)
     return out
 
 
@@ -667,12 +676,14 @@ def submit_job(
     needs.
     """
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import is_writer, resolve_mesh
 
     normalized = validate_job_spec(spec)
     device = resolve_device(device)
     job = {"spec": normalized, "spec_hash": job_spec_hash(normalized)}
-    os.makedirs(run_dir, exist_ok=True)
-    _write_json(os.path.join(run_dir, JOB_FILE), job)
+    if is_writer(resolve_mesh(normalized["mesh"])):
+        os.makedirs(run_dir, exist_ok=True)
+        _write_json(os.path.join(run_dir, JOB_FILE), job)
     return _run_job(
         job,
         run_dir,
@@ -706,6 +717,7 @@ def resume_job(
     from repro_torch.device import resolve_device
     from repro_torch.federated.api import FederationSnapshot
     from repro_torch.federated.runtime import AsyncFederationSnapshot
+    from repro_torch.launch.mesh import barrier, is_writer, resolve_mesh
 
     device = resolve_device(device)
     job = _read_json(os.path.join(run_dir, JOB_FILE))
@@ -737,8 +749,14 @@ def resume_job(
         FederationSnapshot if job["spec"]["mode"] == "sync" else AsyncFederationSnapshot
     )
     snapshot = snapshot_cls.load(ckpt_dir, workload.init_params)
-    _rewrite_records(os.path.join(run_dir, RECORDS_FILE), snapshot.history)
-    _truncate_jsonl_prefix(os.path.join(run_dir, METRICS_FILE), len(snapshot.history))
+    mesh = resolve_mesh(job["spec"].get("mesh"))
+    if is_writer(mesh):
+        _rewrite_records(os.path.join(run_dir, RECORDS_FILE), snapshot.history)
+        _truncate_jsonl_prefix(os.path.join(run_dir, METRICS_FILE), len(snapshot.history))
+    if mesh is not None:
+        # Rank 0 overwrites the snapshot at its next checkpoint: not before
+        # every rank has read this one.
+        barrier(mesh)
     return _run_job(
         job,
         run_dir,

@@ -18,6 +18,11 @@ federated stack:
 
 ``python -m repro_torch.obs report <run_dir>`` renders a per-phase time
 breakdown and the top-k slowest clients from an exported trace.
+
+Under a data mesh (``launch/mesh.py``) every rank runs the same round
+program; the control plane gives the facades of ranks other than 0 the
+null tracer and no profiler, so a job's ``trace.json`` and profiles are
+rank 0's, whole, and no rank writes a file of its own.
 """
 
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry

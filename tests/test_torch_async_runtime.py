@@ -22,9 +22,9 @@ against the reference on the same inputs where the reference can run them:
   equals one draw of n (the port of
   ``test_chain_split_singletons_match_batched_chain``).
 
-The reference's ``test_fedbuff_parity_under_auto_mesh`` waits for the
-client axis over several GPUs (ROADMAP Queue 1 item 9): the port has no
-``mesh`` field.
+The reference's ``test_fedbuff_parity_under_auto_mesh`` runs in
+``tests/test_torch_mesh.py``: ``fedbuff`` under a mesh of two gloo ranks
+against sync FedAvg under the same mesh.
 """
 
 import functools

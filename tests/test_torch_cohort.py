@@ -396,8 +396,15 @@ def test_errors(model):
         trainer().train_cohort(params0, many, rng, gens * len(many))
     with pytest.raises(ValueError, match="unknown staging"):
         trainer(staging="lazy")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trainer(mesh="auto")
+    # the client axis over several processes is ported: "auto" in one
+    # process is no mesh, and its round is the round without one, bit for bit
+    auto, plain = trainer(mesh="auto"), trainer()
+    assert auto.mesh is None
+    got, ref = (t.train_cohort(params0, clients, np.random.default_rng(6),
+                               client_generators(np.random.default_rng(7), 1, torch.device("cpu")))
+                for t in (auto, plain))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got[0]), tree_leaves(ref[0])))
+    assert got[1].tobytes() == ref[1].tobytes() and auto.last_round_stats["shards"] == 1
     # the tracer is ported: a traced trainer stages under a "stage" span
     tracer = Tracer()
     traced = trainer(tracer=tracer)

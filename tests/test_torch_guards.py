@@ -263,8 +263,12 @@ def test_unported_options_say_so(tmp_path):
     from repro_torch.models.gru import GRUConfig, make_loss_fn
     from repro_torch.optim.adamw import AdamW
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        CohortTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, mesh="auto", device="cpu")
+    # the mesh is ported: "auto" in one process is no mesh; a string that is
+    # not "auto" is refused
+    assert CohortTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, mesh="auto",
+                         device="cpu").mesh is None
+    with pytest.raises(ValueError, match="mesh"):
+        CohortTrainer(make_loss_fn(GRUConfig()), AdamW(), 4, 1, mesh="ring", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         FederationConfig(engine="warp-drive")
     # DP-SGD is ported: what is not a DP config is refused, never ignored
@@ -274,13 +278,12 @@ def test_unported_options_say_so(tmp_path):
         resolve_recruitment("nu-gredy")
     with pytest.raises(ValueError, match="did you mean 'round-robin'"):
         resolve_selection("round-robbin:2")
-    # the control plane: a mesh over several GPUs (item 9) raises; the span
-    # trace and profiled rounds are ported and run
+    # the control plane: a spec with mesh "auto" is accepted (in one process
+    # it is the null job); the span trace and profiled rounds are ported and run
     from repro_torch.launch.federation_service import submit_job, validate_job_spec
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        validate_job_spec({"mode": "sync", "mesh": "auto"})
-    tiny = {"mode": "sync", "rounds": 1, "local_epochs": 1, "batch_size": 8,
+    assert validate_job_spec({"mode": "sync", "mesh": "auto"})["mesh"] == "auto"
+    tiny = {"mode": "sync", "rounds": 1, "local_epochs": 1, "batch_size": 8, "mesh": "auto",
             "data": {"scale": 0.002, "num_hospitals": 4, "split_mode": "stratified"},
             "model": {"hidden_dim": 2, "num_layers": 1}}
     for i, (section, artifact) in enumerate((({}, "trace.json"),

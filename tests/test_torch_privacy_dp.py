@@ -397,7 +397,10 @@ def test_trainers_take_a_dp_config_or_a_dict():
         assert trainer.dp == dp.DPConfig(2.0, 0.5)
     with pytest.raises(ValueError, match="unknown"):
         CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", dp={"clip": 1.0})
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+    # the mesh is ported: "auto" in one process is no mesh, and what is not
+    # a mesh is refused
+    assert CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", dp=spec, mesh="auto").mesh is None
+    with pytest.raises(TypeError, match="mesh"):
         CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", mesh=object())
     # the tracer is ported: a DP trainer takes one beside its DP config
     traced = CohortTrainer(loss_fn, AdamW(), 8, 1, device="cpu", dp=spec, tracer=Tracer())
@@ -445,7 +448,7 @@ def test_privacy_frontier_runs_on_the_cpu():
 
     assert paper.ExperimentConfig().privacy is None
     assert {f.name for f in dataclasses.fields(jax_paper.ExperimentConfig)} - {
-        f.name for f in dataclasses.fields(paper.ExperimentConfig)} == {"use_pallas", "mesh"}
+        f.name for f in dataclasses.fields(paper.ExperimentConfig)} == {"use_pallas"}
     exp = paper.ExperimentConfig(cohort_scale=0.005, rounds=1, local_epochs=1, batch_size=32,
                                  device="cpu")
     out = paper.run_privacy_frontier(

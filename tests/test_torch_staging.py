@@ -143,8 +143,12 @@ def test_device_cohort_holds_jax_arrays():
     assert got.ensure_resident(ours) == 0  # fully resident: a no-op
     with pytest.raises(ValueError, match="empty cohort"):
         dc_mod.build_device_cohort([], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        dc_mod.build_device_cohort(ours, device="cpu", mesh=object())
+    # the rows over several processes are ported: "auto" in one process
+    # is no mesh, the same cohort bit for bit
+    auto = dc_mod.build_device_cohort(ours, device="cpu", mesh="auto")
+    assert auto.x.numpy().tobytes() == got.x.numpy().tobytes()
+    assert auto.y.numpy().tobytes() == got.y.numpy().tobytes()
+    assert (auto.rows, auto.nbytes, auto.owners) == (got.rows, got.nbytes, {})
     # the tracer is ported: a pooled cohort's uploads are "pool_upload" spans
     tracer = Tracer()
     pooled = dc_mod.build_device_cohort(ours, device="cpu", tracer=tracer,
