@@ -218,6 +218,24 @@ exit code and no result line:
              round's and the losses within 1e-5; (c) with two cards or more,
              the same round over two GPUs under NCCL; with one, a line says
              that leg did not run.  The children's launches count.
+26. MoE and encoder-decoder — the last families of the LM zoo: (a) the
+             reduced deepseek-v3-671b (MLA, 4 experts top-2, a shared expert,
+             MTP, one dense layer), llama4-scout-17b-a16e and
+             seamless-m4t-large-v2, llama4 with ``moe_every=2`` and 5 layers,
+             deepseek with ``ep_local`` and at capacity 0.5, in float32:
+             logits, the loss and every gradient leaf on the card against
+             the CPU, the routed ids equal, a repeated forward the same
+             bits, decode (after ``encode_for_decode``) against the card's
+             forward at capacity 8.0; (b) deepseek-v3-671b in bf16 at full
+             width, 5 of 61 layers (3 dense, 2 MoE of 256 experts, top-8):
+             prefill at B=2 x 2,048, 16 + 32 tokens through the latent-cache
+             decode, its bytes a token beside a full-rank cache's; a train
+             step of 2 layers with 16 of 256 experts and MTP (ce,
+             router_aux, mtp_ce); (c) llama4-scout-17b-a16e, 8 of 48 layers
+             served (B=8 x 2,048, 16 + 32 tokens), 1 trained; (d)
+             seamless-m4t-large-v2 uncut: prefill at B=8 x 2,048 with 512
+             frames, ``encode_for_decode`` and 16 + 64 tokens, a train step.
+             The cuts are printed in ``reduced``; this path runs no kernel.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -394,6 +412,10 @@ def main() -> int:
 
     # -- 25. the client axis over several processes ----------------------------
     for kernel, n in run_mesh_phase(torch, K, cohort).items():
+        launches[kernel] += n
+
+    # -- 26. the MoE decoders with MLA, and the encoder-decoder -----------------
+    for kernel, n in run_moe_encdec_phase(torch, K, SK).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -3249,16 +3271,21 @@ FED_WEIGHTS = (120.0, 0.0, 80.0, 40.0)      # slot 1: a client recruitment exclu
 
 def lm_inputs(torch, cfg, b: int, s: int, seed: int) -> dict:
     """Tokens and labels from ``lm_token_batch``; the VLM's patch
-    embeddings drawn right after them from the same numpy stream."""
+    embeddings, or the encoder-decoder's max(s // 4, 8) frame embeddings,
+    drawn right after them from the same numpy stream (as ``train.py``)."""
     import numpy as np
 
     from repro_torch.data.pipeline import lm_token_batch
+    from repro_torch.models.zoo import Model
 
     rng = np.random.default_rng(seed)
     batch = lm_token_batch(rng, b, s, cfg.vocab_size)
     if cfg.arch_type.value == "vlm":
         batch["patch_embeds"] = rng.normal(
             size=(b, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.arch_type.value == "encdec":
+        batch["src_embeds"] = rng.normal(
+            size=(b, Model.encoder_frames(s), cfg.d_model)).astype(np.float32)
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
@@ -3344,17 +3371,26 @@ def check_lm_zoo_parity(torch) -> None:
     require(not failures, "; ".join(failures))
 
 
-def lm_serve(torch, SK, model, params, calls: int, gen: int, ssd_per_call: int) -> dict:
-    """``make_prefill_step`` at LM_B x LM_PROMPT, ``calls`` times (the first
-    cold); then LM_FEED prompt tokens and ``gen`` greedy tokens through
-    ``make_serve_step`` against a cache of LM_PROMPT + ``gen`` slots (a step
-    attends over every slot, masked, so its cost is that of a full
-    context).  Prefill calls must launch ``ssd_chunk_scan`` ``ssd_per_call``
-    times each, decode steps never."""
+def lm_serve(torch, SK, model, params, calls: int, gen: int, ssd_per_call: int,
+             b: int = LM_B, frames: int = 0) -> tuple[dict, dict]:
+    """``make_prefill_step`` at ``b`` x LM_PROMPT, ``calls`` times (the first
+    cold; with ``frames`` source frames for the encoder-decoder); then,
+    against a cache of LM_PROMPT + ``gen`` slots (a step attends over every
+    slot, masked, so its cost is that of a full context; the encoder's
+    K/V put in by ``encode_for_decode`` first), LM_FEED prompt tokens and
+    ``gen`` greedy tokens through ``make_serve_step``.  Prefill calls must
+    launch ``ssd_chunk_scan`` ``ssd_per_call`` times each, decode steps
+    never.  Returns the numbers and the last cache."""
+    import numpy as np
+
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
 
     cfg = model.cfg
-    toks = prompt_tokens(torch, cfg.vocab_size, LM_B, LM_PROMPT, seed=0).cuda()
+    toks = prompt_tokens(torch, cfg.vocab_size, b, LM_PROMPT, seed=0).cuda()
+    batch = {"tokens": toks}
+    if frames:
+        batch["src_embeds"] = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(b, frames, cfg.d_model)).astype(np.float32)).cuda()
     prefill, serve = make_prefill_step(model), make_serve_step(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3362,47 +3398,58 @@ def lm_serve(torch, SK, model, params, calls: int, gen: int, ssd_per_call: int) 
     for _ in range(calls):
         before = SK.ssd_chunk_scan.launches
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": toks})
+        logits = prefill(params, batch)
         torch.cuda.synchronize()
         call_s.append(time.perf_counter() - t0)
         per_call.append(SK.ssd_chunk_scan.launches - before)
     prefill_peak = torch.cuda.max_memory_allocated()
-    short = prefill(params, {"tokens": toks[:, :LM_FEED]})
+    short = prefill(params, {**batch, "tokens": toks[:, :LM_FEED]})
 
     before = SK.ssd_chunk_scan.launches
-    cache = model.init_cache(LM_B, LM_PROMPT + gen, "cuda")
+    cache = model.init_cache(b, LM_PROMPT + gen, "cuda")
+    t0 = time.perf_counter()
+    if frames:
+        with torch.inference_mode():
+            cache = model.encode_for_decode(params, batch["src_embeds"], cache)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
     feed_logits = None
     for t in range(LM_FEED):
         feed_logits, cache = serve(params, toks[:, t:t + 1], cache, t)
     tok = torch.argmax(feed_logits, dim=-1)[:, None]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    generated = []
     for k in range(gen):
         lg, cache = serve(params, tok, cache, LM_FEED + k)
         tok = torch.argmax(lg, dim=-1)[:, None]
+        generated.append(tok)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     decode_launches = SK.ssd_chunk_scan.launches - before
     warm = call_s[1:] or call_s
-    out = dict(B=LM_B, prompt=LM_PROMPT, prefill_call_s=call_s,
-               prefill_tokens_per_s=LM_B * LM_PROMPT * len(warm) / sum(warm),
+    out = dict(B=b, prompt=LM_PROMPT, frames=frames, prefill_call_s=call_s,
+               prefill_tokens_per_s=b * LM_PROMPT * len(warm) / sum(warm),
                prefill_peak_mem_gb=prefill_peak / 1e9, ssd_launches_per_prefill=per_call,
-               feed=LM_FEED, gen=gen, decode_tokens_per_s=LM_B * gen / decode_s,
+               encode_for_decode_s=encode_s if frames else None,
+               feed=LM_FEED, gen=gen, decode_tokens_per_s=b * gen / decode_s,
                decode_step_ms=decode_s / gen * 1e3, decode_ssd_launches=decode_launches,
                bf16_decode_vs_prefill_max_abs=float((feed_logits - short).abs().max()),
+               sample=torch.cat(generated, dim=1)[0, :16].tolist(),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                finite=[bool(torch.isfinite(t).all()) for t in (logits, short, lg)])
     require(all(out["finite"]), f"{cfg.name} serving outputs not finite: {out['finite']}")
     require(all(n == ssd_per_call for n in per_call),
             f"{cfg.name}: prefill calls launched ssd_chunk_scan {per_call}, not {ssd_per_call}")
     require(decode_launches == 0, f"{cfg.name}: decode launched ssd_chunk_scan {decode_launches}")
-    return out
+    return out, cache
 
 
-def lm_train(torch, SK, model, params, batch_sizes, steps: int) -> dict:
+def lm_train(torch, SK, model, params, batch_sizes, steps: int, frames: int | None = None) -> dict:
     """``steps`` ``make_train_step`` calls with AdamW(TRAIN_LR) at the largest
-    of ``batch_sizes`` that fits x LM_PROMPT tokens, on one fixed batch: step
-    times, losses, peak memory and SSD launches a step."""
+    of ``batch_sizes`` that fits x LM_PROMPT tokens, on one fixed batch (and
+    ``frames`` source frames for the encoder-decoder): step times, losses,
+    the last step's metrics, peak memory and SSD launches a step."""
     import gc
 
     from repro_torch.launch.steps import make_train_step
@@ -3414,6 +3461,9 @@ def lm_train(torch, SK, model, params, batch_sizes, steps: int) -> dict:
     tried = []
     for b in batch_sizes:
         batch = {k: v.cuda() for k, v in lm_batch(torch, cfg.vocab_size, b, LM_PROMPT, 1).items()}
+        if frames:
+            g = torch.Generator(device="cuda").manual_seed(1)
+            batch["src_embeds"] = torch.randn(b, frames, cfg.d_model, device="cuda", generator=g)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         step_s, losses, per_step = [], [], []
@@ -3432,6 +3482,7 @@ def lm_train(torch, SK, model, params, batch_sizes, steps: int) -> dict:
         else:
             return dict(B=b, seq=LM_PROMPT, lr=TRAIN_LR, out_of_memory_at_B=tried,
                         step_s=step_s, tokens_per_s=b * LM_PROMPT / step_s[-1], losses=losses,
+                        metrics={k: float(v) for k, v in metrics.items()},
                         ssd_launches_per_step=per_step,
                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         finally:
@@ -3476,7 +3527,7 @@ def run_lm_zoo_phase(torch, SK) -> dict[str, int]:
     # (b) qwen3-1.7b: 4 prefill calls, 64 decode tokens, a train step
     cfg = get_config("qwen3-1.7b")
     params, init_s = init(cfg)
-    serve = lm_serve(torch, SK, Model(cfg), params, calls=4, gen=64, ssd_per_call=0)
+    serve, _ = lm_serve(torch, SK, Model(cfg), params, calls=4, gen=64, ssd_per_call=0)
     trained = lm_train(torch, SK, Model(cfg), params, LM_TRAIN_B, steps=2)
     emit(phase="lm_dense", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
          params=sum(t.numel() for t in tree_leaves(params)), init_s=init_s, serve=serve,
@@ -3491,7 +3542,7 @@ def run_lm_zoo_phase(torch, SK) -> dict[str, int]:
     mamba_layers = groups * per_group + tail
     params, init_s = init(cfg)
     before = SK.ssd_chunk_scan.launches
-    serve = lm_serve(torch, SK, Model(cfg), params, calls=2, gen=32, ssd_per_call=mamba_layers)
+    serve, _ = lm_serve(torch, SK, Model(cfg), params, calls=2, gen=32, ssd_per_call=mamba_layers)
     launches = {"ssd_chunk_scan": SK.ssd_chunk_scan.launches - before}
     del params
     release()
@@ -3730,6 +3781,250 @@ def run_mesh_phase(torch, K, cohort) -> dict[str, int]:
             require(all(a.tobytes() == b.tobytes() for a, b in zip(reports[0][1], reports[1][1])),
                     f"the {backend} ranks' params differ")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the MoE decoders with MLA, and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+MOE_PARITY_CASES = (
+    # name, arch, changes to its reduced config, changes to its MoE config
+    ("deepseek-v3-671b", "deepseek-v3-671b", {}, {}),   # MLA, 4 experts top-2, MTP, 1 dense
+    ("llama4-scout-17b-a16e", "llama4-scout-17b-a16e", {}, {}),   # 4 experts top-1, shared
+    ("seamless-m4t-large-v2", "seamless-m4t-large-v2", {}, {}),   # 2 encoder, 2 decoder layers
+    ("llama4-moe-every2", "llama4-scout-17b-a16e", {"num_layers": 5}, {"moe_every": 2}),
+    ("deepseek-ep-local", "deepseek-v3-671b", {}, {"expert_sharding": "ep_local"}),
+    ("deepseek-capacity0.5", "deepseek-v3-671b", {}, {"capacity_factor": 0.5}),   # pairs drop
+)
+MOE_PARITY_B, MOE_PARITY_S = 2, 40   # 80 tokens: ep_local dispatches in 16 groups of 5
+MOE_GEN = 32                         # (b), (c): generated after LM_FEED prompt tokens
+DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_B = 5, 2                # (b): 3 dense and 2 MoE of 61
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_EXPERTS = 2, 16          # (b): 1 dense, 1 MoE
+LLAMA4_SERVE_LAYERS, LLAMA4_SERVE_B, LLAMA4_TRAIN_LAYERS = 8, 8, 1   # (c)
+SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_GEN = 8, 512, 64         # (d)
+MEMORY_WHY = ("AdamW's functional update holds 7 bf16 copies of the params "
+              "(old and new moments at once); 80 GB holds ~5.7 B params that way")
+
+
+def moe_case_config(arch: str, changes: dict, moe_changes: dict):
+    """``arch``'s reduced config with ``changes``, its MoE config with
+    ``moe_changes``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    if moe_changes:
+        changes = {**changes, "moe": dataclasses.replace(cfg.moe, **moe_changes)}
+    return dataclasses.replace(cfg, **changes)
+
+
+def generous(cfg):
+    """``cfg`` at capacity 8.0 when it has experts: a decode step of B tokens
+    then drops no pair that the forward keeps (tests/test_decode.py)."""
+    import dataclasses
+
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+class RoutedIds:
+    """Records the expert ids of every ``route`` call while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.ids, self._moe, self._route = [], moe, moe.route
+
+        def recording(*args, **kwargs):
+            out = self._route(*args, **kwargs)
+            self.ids.append(out[2].detach().cpu())
+            return out
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def check_moe_parity(torch) -> None:
+    """(a) Each case in float32: logits, the loss and every gradient leaf on
+    the card against the CPU (a leaf held to MAMBA_TOL times its own
+    max|ref|), the routed ids of every MoE layer equal, a repeated forward
+    on the card the same bits, and the card's decode path (after
+    ``encode_for_decode`` for the encoder-decoder) against its own forward
+    at the reference's decode tolerance, the MoE cases at capacity 8.0."""
+    from repro_torch.models.zoo import Model
+    from repro_torch.tree import tree_map
+
+    failures = []
+    for name, arch, changes, moe_changes in MOE_PARITY_CASES:
+        t0 = time.perf_counter()
+        cfg = moe_case_config(arch, changes, moe_changes)
+        model = Model(cfg, remat=False)
+        params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        params = tree_map(lambda t: t.to("cuda"), params_cpu)
+        batch = lm_inputs(torch, cfg, MOE_PARITY_B, MOE_PARITY_S, seed=27)
+        batch_card = {k: v.cuda() for k, v in batch.items()}
+        with torch.inference_mode():
+            with RoutedIds() as ids_cpu:
+                lg_cpu = model.forward_logits(params_cpu, batch)
+            with RoutedIds() as ids_card:
+                lg_card = model.forward_logits(params, batch_card)
+            again = model.forward_logits(params, batch_card)
+        loss_cpu, g_cpu = loss_and_grads(torch, model, params_cpu, batch)
+        loss_card, g_card = loss_and_grads(torch, model, params, batch_card)
+        dmodel = Model(generous(cfg), remat=False)
+        with torch.inference_mode():
+            full = dmodel.forward_logits(params, batch_card)
+        cache = dmodel.init_cache(MOE_PARITY_B, MOE_PARITY_S, "cuda")
+        if "src_embeds" in batch_card:
+            with torch.inference_mode():
+                cache = dmodel.encode_for_decode(params, batch_card["src_embeds"], cache)
+        dec, _, _ = decode_through(dmodel, params, {"tokens": batch_card["tokens"]}, cache)
+        torch.cuda.synchronize()
+        dec = torch.stack(dec, dim=1)
+        by_leaf = sorted(((leaf_err(g.cpu(), r), q) for q, g, r in
+                          zip(leaf_paths(params_cpu), g_card, g_cpu)), reverse=True)
+        e = {"logits": scaled_err(lg_card.cpu(), lg_cpu),
+             "loss": scaled_err(loss_card.cpu(), loss_cpu), "grad_leaf_worst": by_leaf[0][0]}
+        dec_gap = (dec - full).abs()
+        dec_ok = bool((dec_gap <= DECODE_ATOL + DECODE_RTOL * full.abs()).all())
+        ids_equal = (len(ids_card.ids) == len(ids_cpu.ids)
+                     and all(torch.equal(a, b) for a, b in zip(ids_card.ids, ids_cpu.ids)))
+        same_bits = torch.equal(again, lg_card)
+        finite = all(bool(torch.isfinite(t).all()) for t in (lg_card, dec, loss_card, *g_card))
+        emit(phase="moe_parity", case=name, arch=arch, changes=changes, moe_changes=moe_changes,
+             B=MOE_PARITY_B, S=MOE_PARITY_S, dtype=cfg.dtype, card_vs_cpu_scaled_err=e,
+             grad_leaf_err_worst=by_leaf[:3], moe_layers_routed=len(ids_card.ids),
+             routed_ids_equal=ids_equal, repeat_same_bits=same_bits,
+             decode_capacity=None if cfg.moe is None else 8.0,
+             decode_vs_prefill_max_abs=float(dec_gap.max()), decode_within_tol=dec_ok,
+             seconds=time.perf_counter() - t0)
+        if not finite:
+            failures.append(f"{name}: non-finite outputs")
+        if max(e.values()) > MAMBA_TOL:
+            failures.append(f"{name}: card against CPU {e}, {by_leaf[0]}")
+        if not ids_equal or (cfg.moe is not None) != bool(ids_card.ids):
+            failures.append(f"{name}: routed ids differ ({len(ids_card.ids)} MoE calls)")
+        if not same_bits:
+            failures.append(f"{name}: a repeated forward on the card gave other bits")
+        if not dec_ok:
+            failures.append(f"{name}: decode against prefill {float(dec_gap.max())}")
+    require(not failures, "; ".join(failures))
+
+
+def run_moe_encdec_phase(torch, K, SK) -> dict[str, int]:
+    """Phase 26: (a) parity at the reduced configs and variants; (b)
+    deepseek-v3-671b and (c) llama4-scout-17b-a16e at full width, bfloat16,
+    cut in depth (and deepseek's train step in experts) to fit one card,
+    served and trained; (d) seamless-m4t-large-v2 uncut, served through
+    ``encode_for_decode`` and trained.  No kernel of the port runs on this
+    path (the JAX package has none for MoE, MLA or cross-attention): the
+    kernels' counts, set to 0 before it, are returned as read after it."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.zoo import Model, count_params_config
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    reset_gru_counts(K)
+    SK.ssd_chunk_scan.launches = SK.ssd_chunk_scan_bwd.launches = 0
+    check_moe_parity(torch)
+
+    def init(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(params))
+        require(n == count_params_config(cfg), f"{cfg.name}: {n} params, counted "
+                f"{count_params_config(cfg)}")
+        return params, time.perf_counter() - t0
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def train(cfg, batch_sizes, frames=None):
+        params, init_s = init(cfg)
+        out = lm_train(torch, SK, Model(cfg), params, batch_sizes, steps=1, frames=frames)
+        require(all(math.isfinite(v) for v in out["metrics"].values()),
+                f"{cfg.name} train metrics {out['metrics']}")
+        del params
+        release()
+        return dict(out, init_s=init_s, params=count_params_config(cfg),
+                    adamw_copies_gb=7 * 2 * count_params_config(cfg) / 1e9)
+
+    # (b) deepseek-v3-671b: 5 of 61 layers served; 2 layers with 16 of 256 experts trained
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_SERVE_LAYERS)
+    params, init_s = init(cfg)
+    served, cache = lm_serve(torch, SK, Model(cfg), params, 2, MOE_GEN, 0, b=DEEPSEEK_SERVE_B)
+    m = cfg.mla
+    latent = cache["first_blocks"]
+    latent_bytes = ((latent["c_kv"].shape[-1] + latent["k_rope"].shape[-1])
+                    * latent["c_kv"].element_size())
+    full_rank_bytes = cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * 2
+    del params, cache, latent
+    release()
+    cut = dataclasses.replace(full, num_layers=DEEPSEEK_TRAIN_LAYERS,
+                              moe=dataclasses.replace(full.moe, first_dense=1,
+                                                      num_experts=DEEPSEEK_TRAIN_EXPERTS))
+    trained = train(cut, (2, 1))
+    emit(phase="moe_deepseek", arch=full.name, dtype=cfg.dtype, init_s=init_s,
+         serve_params=count_params_config(cfg), serve=served,
+         latent_cache_bytes_per_token_layer=latent_bytes,
+         full_rank_cache_bytes_per_token_layer=full_rank_bytes, train=trained,
+         reduced={"serve_num_layers": [DEEPSEEK_SERVE_LAYERS, full.num_layers],
+                  "serve_why": "61 layers hold 671.7 B params (1.34 TB in bf16); 5 layers, "
+                               "3 dense and 2 MoE of 256 experts, hold 27.3 B (54.6 GB)",
+                  "train_num_layers": [DEEPSEEK_TRAIN_LAYERS, full.num_layers],
+                  "train_num_experts": [DEEPSEEK_TRAIN_EXPERTS, full.moe.num_experts],
+                  "train_first_dense": [1, full.moe.first_dense],
+                  "train_why": MEMORY_WHY + "; one MoE layer of 256 experts is 11.3 B"})
+    require(latent_bytes == 1152 and full_rank_bytes == 81920,
+            f"latent cache {latent_bytes} B, full rank {full_rank_bytes} B a token a layer")
+    require("mtp_ce" in trained["metrics"], f"deepseek train metrics {trained['metrics']}")
+
+    # (c) llama4-scout-17b-a16e: 8 of 48 layers served, 1 trained
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(full, num_layers=LLAMA4_SERVE_LAYERS)
+    params, init_s = init(cfg)
+    served, cache = lm_serve(torch, SK, Model(cfg), params, 2, MOE_GEN, 0, b=LLAMA4_SERVE_B)
+    del params, cache
+    release()
+    trained = train(dataclasses.replace(full, num_layers=LLAMA4_TRAIN_LAYERS), (8, 4, 2, 1))
+    emit(phase="moe_llama4", arch=full.name, dtype=cfg.dtype, init_s=init_s,
+         serve_params=count_params_config(cfg), serve=served, train=trained,
+         decode_capacity_per_expert=max(int(LLAMA4_SERVE_B * full.moe.top_k / full.moe.num_experts
+                                            * full.moe.capacity_factor), full.moe.top_k),
+         reduced={"serve_num_layers": [LLAMA4_SERVE_LAYERS, full.num_layers],
+                  "serve_why": "48 layers hold 107.8 B params (215.5 GB in bf16); 8 hold 19.7 B",
+                  "train_num_layers": [LLAMA4_TRAIN_LAYERS, full.num_layers],
+                  "train_why": MEMORY_WHY + "; one layer is 4.27 B with the embeddings"})
+
+    # (d) seamless-m4t-large-v2 uncut: served through encode_for_decode, trained
+    cfg = get_config("seamless-m4t-large-v2")
+    params, init_s = init(cfg)
+    served, cache = lm_serve(torch, SK, Model(cfg), params, 2, SEAMLESS_GEN, 0, b=SEAMLESS_B,
+                             frames=SEAMLESS_FRAMES)
+    require(tuple(cache["blocks"]["cross_k"].shape[1:3]) == (SEAMLESS_B, SEAMLESS_FRAMES),
+            f"cross K/V {tuple(cache['blocks']['cross_k'].shape)}")
+    del params, cache
+    release()
+    trained = train(cfg, (SEAMLESS_B, 4, 2, 1), frames=Model.encoder_frames(LM_PROMPT))
+    emit(phase="encdec_seamless", arch=cfg.name, dtype=cfg.dtype, init_s=init_s,
+         params=count_params_config(cfg), serve=served, train=trained)
+
+    launches = {**gru_counts(K), "ssd_chunk_scan": SK.ssd_chunk_scan.launches,
+                "ssd_chunk_scan_bwd": SK.ssd_chunk_scan_bwd.launches}
+    emit(phase="moe_encdec_seconds", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
 
 
 if __name__ == "__main__":

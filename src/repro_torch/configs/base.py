@@ -4,9 +4,8 @@ One ``ArchConfig`` dataclass describes every selectable architecture
 (``--arch <id>``).  Families: dense decoder, MoE decoder, SSM (Mamba2),
 hybrid (Mamba2 + shared attention), encoder-decoder (audio backbone), and
 VLM (vision-stub + decoder).  Reduced variants for CPU smoke tests come from
-``.reduced()``.  The dataclasses are copied whole, so a config of any
-family can be described; the port's model zoo runs the dense, VLM, SSM
-and hybrid families.
+``.reduced()``.  The dataclasses are copied whole, and the port's model
+zoo runs every family.
 """
 
 from __future__ import annotations
@@ -188,3 +187,8 @@ class ArchConfig:
         from repro_torch.models.zoo import count_params_config  # lazy, avoids cycle
 
         return count_params_config(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.zoo import count_params_config
+
+        return count_params_config(self, active_only=True)

@@ -1,14 +1,17 @@
 """Decode driver: batched autoregressive *inference* with a state cache.
 
 The port of ``repro.launch.serve``, with the same CLI and behaviour: a
-*reduced* config, the VLM's patch embeddings and then the prompt fed
-through the decode path token by token, then batched greedy decode, with
-tokens/step timings.  ``--arch`` takes the ids the port runs; ``--device``
-defaults to the card.  The decode path runs no kernel: the SSD kernel runs
-in the prefill step (``launch/steps.py::make_prefill_step``).
+*reduced* config; for the encoder-decoder, max(prompt_len, 8) frame
+embeddings through the encoder into the cache (``encode_for_decode``);
+the VLM's patch embeddings and then the prompt fed through the decode
+path token by token; then batched greedy decode, with tokens/step timings.
+The numpy draws come in the reference's order.  ``--device`` defaults to
+the card.  The decode path runs no kernel: the SSD kernel runs in the
+prefill step (``launch/steps.py::make_prefill_step``).
 
     python -m repro_torch.launch.serve --arch mamba2-130m --batch 4 --prompt-len 16 --gen 32
     python -m repro_torch.launch.serve --arch internvl2-26b --device cpu
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --device cpu
 """
 
 from __future__ import annotations
@@ -49,6 +52,12 @@ def main(argv: list[str] | None = None) -> None:
     max_len = args.prompt_len + args.gen + cfg.num_frontend_tokens
     cache = model.init_cache(args.batch, max_len, dev)
     serve_step = make_serve_step(model)
+
+    if cfg.arch_type == ArchType.ENCDEC:
+        src = torch.from_numpy(rng.normal(
+            size=(args.batch, max(args.prompt_len, 8), cfg.d_model)).astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            cache = model.encode_for_decode(params, src, cache)
 
     pos = 0
     if cfg.arch_type == ArchType.VLM:

@@ -1,5 +1,6 @@
-"""The port's attention, RoPE and MLPs (``repro_torch.models.attention``,
-``repro_torch.models.layers``) against the JAX package's.
+"""The port's attention (GQA and DeepSeek's MLA), RoPE and MLPs
+(``repro_torch.models.attention``, ``repro_torch.models.layers``) against
+the JAX package's.
 
 The same inputs, made with numpy from a seed, go through both; params are
 drawn by JAX and carried across with ``params_from_jax``.  Tolerances:
@@ -209,3 +210,76 @@ def test_gqa_decode_takes_a_tensor_position():
     a, ca = attention.gqa_decode(params, tcfg, x, cache, 4)
     b, cb = attention.gqa_decode(params, tcfg, x, cache, torch.tensor(4))
     assert torch.equal(a, b) and all(torch.equal(ca[k], cb[k]) for k in ca)
+
+
+# ==========================================================================
+# MLA: the reduced deepseek-v3-671b config (rank 32, rope 16, nope 32, v 32)
+# ==========================================================================
+
+def mla_setup(seed: int):
+    jcfg, tcfg = attention_config("deepseek-v3-671b")
+    jparams = jax_attention.mla_init(jax.random.key(seed), jcfg, jnp.float32)
+    jparams = jax.tree.map(np.asarray, jparams)
+    return jcfg, tcfg, jparams, params_from_jax(jparams, "cpu")
+
+
+@pytest.mark.parametrize("kv_chunk", [1024, 4])     # 4: 11 positions in 3 chunks, the last padded
+def test_mla_apply_matches_jax(kv_chunk):
+    jcfg, tcfg, jparams, params = mla_setup(4)
+    x = normal(np.random.default_rng(11), 2, 11, tcfg.d_model)
+    want = jax_attention.mla_apply(jparams, jcfg, jnp.asarray(x), kv_chunk=kv_chunk)
+    got = attention.mla_apply(params, tcfg, torch.from_numpy(x), kv_chunk=kv_chunk)
+    close(got, want)
+    ours = attention.mla_init(torch.Generator().manual_seed(0), tcfg, torch.float32, "cpu")
+    assert {k: tuple(t.shape) for k, t in _flat(ours).items()} == \
+        {k: tuple(a.shape) for k, a in _flat(jparams).items()}
+
+
+def test_mla_decode_sequence_and_latent_cache_match_jax():
+    """Ten tokens through the weight-absorbed ``mla_decode`` on both sides
+    against a latent cache of 12 positions: each step's output and the
+    cache after it; the given cache is never written."""
+    jcfg, tcfg, jparams, params = mla_setup(5)
+    xs = normal(np.random.default_rng(12), 2, 10, tcfg.d_model)
+    jcache = jax_attention.mla_cache_init(jcfg, 2, 12, jnp.float32)
+    cache = attention.mla_cache_init(tcfg, 2, 12, torch.float32, "cpu")
+    assert {k: (tuple(t.shape), str(t.dtype).split(".")[-1]) for k, t in cache.items()} == \
+        {k: (tuple(a.shape), str(a.dtype)) for k, a in jcache.items()}
+    jdecode = jax.jit(jax_attention.mla_decode, static_argnums=(1,))
+    for t in range(10):
+        want, jcache = jdecode(jparams, jcfg, jnp.asarray(xs[:, t:t + 1]), jcache, jnp.int32(t))
+        given = {k: v.clone() for k, v in cache.items()}
+        got, cache = attention.mla_decode(params, tcfg, torch.from_numpy(xs[:, t:t + 1]), cache,
+                                          t if t % 2 else torch.tensor(t))
+        assert all(torch.equal(given[k], v) for k, v in zip(sorted(given), tree_leaves(given)))
+        close(got, want)
+        for k in ("c_kv", "k_rope"):
+            close(cache[k], jcache[k])
+    assert not cache["c_kv"][:, 10:].any() and cache["c_kv"][:, :10].abs().sum(-1).all()
+
+
+def test_mla_decode_matches_mla_apply():
+    """The latent-cache decode of a sequence equals the full-rank prefill
+    of it, position by position (the absorption is exact algebra)."""
+    _, tcfg, _, params = mla_setup(6)
+    x = torch.from_numpy(normal(np.random.default_rng(13), 2, 9, tcfg.d_model))
+    full = attention.mla_apply(params, tcfg, x)
+    cache = attention.mla_cache_init(tcfg, 2, 9, torch.float32, "cpu")
+    steps = []
+    for t in range(9):
+        out, cache = attention.mla_decode(params, tcfg, x[:, t:t + 1], cache, t)
+        steps.append(out)
+    torch.testing.assert_close(torch.cat(steps, dim=1), full, atol=2e-5, rtol=1e-5)
+
+
+def test_mla_decode_refuses_a_position_past_the_cache():
+    """JAX's ``dynamic_update_slice`` clamps a position of ``max_len`` or
+    more to the last slot; the port raises instead."""
+    _, tcfg, _, params = mla_setup(7)
+    x = torch.from_numpy(normal(np.random.default_rng(14), 2, 1, tcfg.d_model))
+    cache = attention.mla_cache_init(tcfg, 2, 4, torch.float32, "cpu")
+    for pos in (4, 9, -1):
+        with pytest.raises(IndexError, match="outside the latent cache"):
+            attention.mla_decode(params, tcfg, x, cache, pos)
+    with pytest.raises(IndexError):
+        attention.mla_decode(params, tcfg, x, cache, torch.tensor(4))

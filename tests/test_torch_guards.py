@@ -4,9 +4,8 @@
 * Entry points default to the card and raise where there is none.
 * CPU tensors go through the plain versions and count no kernel launch;
   the router accepts nothing but CUDA and CPU tensors.
-* Every reference arch id either builds a ``Model`` (ported) or raises
-  ``NotImplementedError`` naming its ROADMAP item; so do the MoE and
-  encoder-decoder families.
+* Every reference arch id builds its reduced ``Model`` on the CPU, the MoE
+  and encoder-decoder families included.
 * Each kernel module's ctypes signatures match the C prototypes of its source.
 """
 
@@ -133,7 +132,8 @@ def test_lm_entry_points_raise_without_a_card(no_cuda):
     from repro_torch.launch import serve
     from repro_torch.models.zoo import Model, params_from_jax
 
-    for arch in ("mamba2-130m", "qwen3-1.7b", "internvl2-26b", "zamba2-7b"):
+    for arch in ("mamba2-130m", "qwen3-1.7b", "internvl2-26b", "zamba2-7b", "deepseek-v3-671b",
+                 "seamless-m4t-large-v2"):
         model = Model(get_config(arch).reduced())
         with pytest.raises(RuntimeError, match="no CUDA device"):
             model.init(torch.Generator().manual_seed(0))
@@ -152,7 +152,8 @@ def test_train_entry_point_raises_without_a_card(no_cuda):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--mode", "lm", "--steps", "1", "--batch", "1", "--seq", "4"])
-    for arch in ("smollm-135m", "internvl2-26b", "zamba2-7b"):
+    for arch in ("smollm-135m", "internvl2-26b", "zamba2-7b", "llama4-scout-17b-a16e",
+                 "seamless-m4t-large-v2"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--mode", "lm", "--arch", arch, "--steps", "1", "--batch", "1",
                         "--seq", "4"])
@@ -187,27 +188,24 @@ REFERENCE_ARCH_IDS = (
 
 @pytest.mark.parametrize("arch", REFERENCE_ARCH_IDS)
 def test_unported_arch_ids_raise(arch):
-    """A ported id builds its reduced ``Model`` on the CPU; an unported one
-    raises, naming its ROADMAP Queue 1 item (15b, 15c)."""
+    """No reference id is left unported: each builds its reduced ``Model``
+    on the CPU, and its params land there.  (The name dates from when the
+    MoE and encoder-decoder ids raised.)"""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.models.zoo import Model
-
-    assert (arch in ARCH_IDS) != (arch in UNPORTED_ARCH_IDS)
-    if arch in UNPORTED_ARCH_IDS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            get_config(arch)
-        return
     from repro_torch.tree import tree_leaves
 
+    assert arch in ARCH_IDS and UNPORTED_ARCH_IDS == ()
     model = Model(get_config(arch).reduced(), remat=False)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     assert all(t.device.type == "cpu" for t in tree_leaves(params))
 
 
 def test_only_the_ssm_family_builds_a_model():
-    """The MoE and encoder-decoder families still raise, in ``Model`` and in
-    ``count_params_config`` (ROADMAP Queue 1 items 15b and 15c); the dense,
-    VLM, SSM and hybrid families build."""
+    """Every family builds a ``Model`` and counts its params, the MoE and
+    encoder-decoder families made from a dense config included; an
+    unknown id raises ``KeyError``.  (The name dates from when only the SSM
+    family built.)"""
     import dataclasses
 
     from repro_torch.configs import ArchType, MoEConfig
@@ -217,12 +215,12 @@ def test_only_the_ssm_family_builds_a_model():
     moe = dataclasses.replace(cfg, arch_type=ArchType.MOE, moe=MoEConfig(4, 2, 64))
     encdec = dataclasses.replace(cfg, arch_type=ArchType.ENCDEC, encoder_layers=2,
                                  frontend="audio")
-    for family, item in ((moe, "15b"), (encdec, "15c")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            Model(family)
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            count_params_config(family)
-    for arch in ("smollm-135m", "internvl2-26b", "mamba2-130m", "zamba2-7b"):
+    assert count_params_config(moe) > count_params_config(moe, active_only=True) > 0
+    assert count_params_config(encdec) > count_params_config(cfg)
+    for family in (moe, encdec):
+        Model(family)
+    for arch in ("smollm-135m", "internvl2-26b", "mamba2-130m", "zamba2-7b", "deepseek-v3-671b",
+                 "llama4-scout-17b-a16e", "seamless-m4t-large-v2"):
         assert count_params_config(get_config(arch)) > 0
         Model(get_config(arch))
     with pytest.raises(KeyError):
