@@ -236,6 +236,23 @@ exit code and no result line:
              seamless-m4t-large-v2 uncut: prefill at B=8 x 2,048 with 512
              frames, ``encode_for_decode`` and 16 + 64 tokens, a train step.
              The cuts are printed in ``reduced``; this path runs no kernel.
+27. GRU contract — the GRU kernels at every input the reference takes: (a)
+             float32 at N = 65, 96 (3 clients), 128, 256, 1024 and 7000 (the
+             wide kernels; at 7000 the backward's tile in device scratch),
+             bfloat16 and float16 at N = 32 and 128, and 70,000 clients of
+             (B=1, T=4, N=4) in one call, each against its plain
+             version (float32 at phase 3's tolerances, bf16/f16 within one
+             unit in the last place times max(1, |ref|)) and bit for bit on a
+             repeat; (b) device times at the ARC shape (C=35, B=128, T=24),
+             float32 at N = 128 and bfloat16 at N = 32, beside the plain
+             version, the bound and cuDNN's GRU, and phase 3's N = 32 times
+             beside their earlier times; (c) federated-arc at hidden 128
+             (dropout 0), one round of one epoch, card against CPU (params
+             1e-4; the CPU's round runs in a child process on 3 threads,
+             started before phase 20), the round time, the wide kernels'
+             launches; (d) DP over the 189
+             hospitals at batch 512 in one chunk (96,768 per-example clients)
+             against chunks of 64 (round loss 1e-5, params 1e-4), peak memory.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -243,6 +260,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -250,6 +268,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -390,6 +409,10 @@ def main() -> int:
     for kernel, n in run_privacy_phase(torch, dev, K, cohort).items():
         launches[kernel] += n
 
+    # Phase 27's CPU round runs in a child process from here on, beside the
+    # host-bound phases 20-26.
+    cpu_round = start_wide_arc_cpu_round()
+
     # -- 20. the async runtime at full width -----------------------------------
     for kernel, n in run_async_phase(torch, K, cohort).items():
         launches[kernel] += n
@@ -416,6 +439,10 @@ def main() -> int:
 
     # -- 26. the MoE decoders with MLA, and the encoder-decoder -----------------
     for kernel, n in run_moe_encdec_phase(torch, K, SK).items():
+        launches[kernel] += n
+
+    # -- 27. the GRU kernels' whole contract: any N, bf16/f16, > 65,535 clients -
+    for kernel, n in run_contract_phase(torch, dev, K, cohort, cpu_round).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -499,6 +526,7 @@ def check_kernels(torch, dev, K) -> list[dict]:
     # for one client, the ARC cohort's 35 and all 189 in one launch.
     b, t, n = 128, 24, 32
     times = gru_times(torch, dev, K)
+    PHASE3_GRU_TIMES.update(times)
     xg, w, bias, dy = gru_inputs(torch, dev, None, b, t, n, seed=100)
     h = K.gru_scan(xg, w, bias)
     fwd_plain = time_ms(torch, lambda: gru_scan_ref(xg, w, bias), iters=20)
@@ -596,9 +624,9 @@ def gru_stage_ms(torch, dev, K, c, b, t, n) -> dict[str, float]:
     calls = 20 if c > COHORT else 100
     return {
         "recur": graph_ms(torch, lambda: K._stage(
-            "gru_bwd_recur", (c, b, t, n), (xg, w, bias, h, dy), (dxg, dgn)), calls=calls),
+            "gru_bwd_recur", (c, b, t, n), (xg, w, bias, h, dy), (dxg, dgn, None)), calls=calls),
         "dw_and_reduce": graph_ms(torch, lambda: K._stage(
-            "gru_bwd_dw", (c, b, t, n, K.slice_rows(n)), (h, dxg, dgn), (partial, dw, db)),
+            "gru_bwd_dw", (c, b, t, n, K.slice_rows(n, b * t)), (h, dxg, dgn), (partial, dw, db)),
             calls=calls),
     }
 
@@ -611,14 +639,15 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def work(b: int, t: int, n: int) -> tuple[int, int, int, int]:
-    """Bytes each kernel must move (inputs once, outputs once) and its float ops.
+def work(b: int, t: int, n: int, elem: int = 4) -> tuple[int, int, int, int]:
+    """Bytes each kernel must move (inputs once, outputs once, ``elem`` bytes
+    an element) and its float ops.
 
     Forward per (row, step): the (1,N)x(N,3N) product (2*N*3N) and ~20 ops per
     unit for biases, two sigmoids, tanh and the blend.  Backward: the gate
     rebuild, d_gh W^T and h^T d_gh products (3 * 2*N*3N) and ~40 ops per unit.
     """
-    f = 4
+    f = elem
     w_bytes = f * (n * 3 * n + 3 * n)
     fwd_bytes = f * (b * t * 3 * n + b * t * n) + w_bytes
     bwd_bytes = f * (2 * b * t * 3 * n + 2 * b * t * n) + 2 * w_bytes
@@ -672,18 +701,18 @@ def graph_ms(torch, fn, calls: int = 100, replays: int = 10) -> float:
     return ms
 
 
-def cudnn_gru_ms(torch, dev, b, t, f, n) -> tuple[float, float]:
-    """One cuDNN GRU layer (torch.nn.GRU) at the same B, T, F, N: forward, and
-    backward alone.  A yardstick only; the port never calls it."""
-    gru = torch.nn.GRU(f, n, batch_first=True).to(dev)
-    x = torch.randn(b, t, f, device=dev, requires_grad=True)
+def cudnn_gru_ms(torch, dev, b, t, f, n, dtype=None, iters: int = 500) -> tuple[float, float]:
+    """One cuDNN GRU layer (torch.nn.GRU) at the same B, T, F, N (and dtype):
+    forward, and backward alone.  A yardstick only; the port never calls it."""
+    gru = torch.nn.GRU(f, n, batch_first=True).to(dev, dtype)
+    x = torch.randn(b, t, f, device=dev, dtype=dtype, requires_grad=True)
     with torch.no_grad():
-        fwd = time_ms(torch, lambda: gru(x), iters=500)
+        fwd = time_ms(torch, lambda: gru(x), iters=iters)
     out, _ = gru(x)
     dy = torch.randn_like(out)
     params = [x, *gru.parameters()]
     bwd = time_ms(
-        torch, lambda: torch.autograd.grad(out, params, dy, retain_graph=True), iters=500
+        torch, lambda: torch.autograd.grad(out, params, dy, retain_graph=True), iters=iters
     )
     return fwd, bwd
 
@@ -4024,6 +4053,295 @@ def run_moe_encdec_phase(torch, K, SK) -> dict[str, int]:
     launches = {**gru_counts(K), "ssd_chunk_scan": SK.ssd_chunk_scan.launches,
                 "ssd_chunk_scan_bwd": SK.ssd_chunk_scan_bwd.launches}
     emit(phase="moe_encdec_seconds", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the GRU kernels' whole contract (any N, bfloat16 and float16,
+# more than 65,535 clients a launch)
+# ---------------------------------------------------------------------------
+
+CONTRACT_CASES = (
+    # name, dtype, C (None = no client axis), B, T, N
+    ("n65", "float32", None, 128, 24, 65),
+    ("n96-clients", "float32", 3, 100, 24, 96),
+    ("n128", "float32", None, 128, 24, 128),
+    ("n256", "float32", None, 64, 24, 256),
+    ("n1024", "float32", None, 16, 8, 1024),
+    ("n7000", "float32", None, 2, 3, 7000),    # the backward's row tile in device scratch
+    ("bf16-n32", "bfloat16", None, 128, 24, 32),
+    ("bf16-n128", "bfloat16", None, 128, 24, 128),
+    ("f16-n32", "float16", None, 128, 24, 32),
+    ("f16-n128", "float16", None, 128, 24, 128),
+    ("c70000", "float32", 70000, 1, 4, 4),      # more clients than grid y's 65,535
+)
+# Phase 3's device times of the N = 32 float32 kernels at C = 1, 35 and 189,
+# measured before these kernels took other dtypes and sizes (H100 80GB HBM3,
+# 700 W), printed beside this run's: those kernels' code is unchanged.
+N32_MS_BEFORE = {"gru_scan": (0.00880, 0.0472, 0.2324), "gru_scan_bwd": (0.0281, 0.1569, 0.7592)}
+PHASE3_GRU_TIMES: dict = {}    # filled by check_kernels (phase 3)
+WIDE_HIDDEN = 128              # the federated-arc round of (c)
+CPU_ROUND_THREADS = 3          # (c)'s CPU round, a child beside phases 20-26 (8 cores)
+DP_WIDE_BATCH = 512            # (d): 189 clients x 512 = 96,768 per-example clients in one chunk
+DP_WIDE_CHUNK = 64
+
+
+def contract_inputs(torch, dev, c, b, t, n, dtype: str, seed: int, w_scale=None):
+    """``gru_inputs`` in ``dtype``, W_hh at std min(0.3, 1/sqrt(N)) unless
+    ``w_scale`` says otherwise: phase 3's 0.3 is a chaotic recurrence above
+    N = 64, where float32 rounding alone grows past 1e-5 in 24 steps."""
+    g = torch.Generator().manual_seed(seed)
+    lead = () if c is None else (c,)
+    to = getattr(torch, dtype)
+
+    def normal(*shape, scale=1.0):
+        return (torch.randn(*lead, *shape, generator=g) * scale).to(to).to(dev)
+
+    ws = min(0.3, n ** -0.5) if w_scale is None else w_scale
+    return (normal(b, t, 3 * n), normal(n, 3 * n, scale=ws), normal(3 * n, scale=0.1),
+            normal(b, t, n))
+
+
+def ulp_err(torch, got, ref) -> float:
+    """max |got - ref| in units of the last place of got's dtype, each element
+    scaled by max(1, |ref|)."""
+    eps = torch.finfo(got.dtype).eps
+    return float(((got.float() - ref.float()).abs() / (eps * ref.float().abs().clamp(min=1.0)))
+                 .max())
+
+
+def check_contract_kernels(torch, dev, K) -> None:
+    """(a) Each case on the card against the plain versions and bit for bit
+    on a repeat: float32 at phase 3's tolerances, bfloat16 and float16 within
+    one unit in the last place (times max(1, |ref|)), outputs in the
+    activations' dtype, dW and db in the weights'."""
+    from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref
+
+    names = ("fwd", "dx", "dw", "db")
+    for i, (case, dtype, c, b, t, n) in enumerate(CONTRACT_CASES):
+        xg, w, bias, dy = contract_inputs(torch, dev, c, b, t, n, dtype, seed=2700 + i)
+        h, h2 = K.gru_scan(xg, w, bias), K.gru_scan(xg, w, bias)
+        got = K.gru_scan_bwd(xg, w, bias, h, dy)
+        again = K.gru_scan_bwd(xg, w, bias, h, dy)
+        torch.cuda.synchronize()
+        ref = (gru_scan_ref(xg, w, bias), *gru_scan_bwd_ref(xg, w, bias, h, dy))
+        if dtype == "float32":
+            err = {k: max_err(g, r) for k, g, r in zip(names, (h, *got), ref)}
+            limit = {"fwd": FWD_TOL, "dx": DX_TOL,
+                     "dw": DW_TOL * max(1.0, float(ref[2].abs().max())),
+                     "db": DW_TOL * max(1.0, float(ref[3].abs().max()))}
+        else:
+            err = {k: ulp_err(torch, g, r) for k, g, r in zip(names, (h, *got), ref)}
+            limit = dict.fromkeys(names, 1.0)
+        same = torch.equal(h, h2) and all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        dtypes = sorted({str(x.dtype) for x in (h, *got)})
+        emit(phase="contract_kernels", case=case, dtype=dtype, C=c, B=b, T=t, N=n,
+             unit="abs" if dtype == "float32" else "ulps", err=err, limit=limit,
+             bitwise_repeat=same, dtypes=dtypes)
+        require(all(err[k] <= limit[k] for k in names), f"contract {case}: error {err}")
+        require(same, f"contract {case}: two runs differ")
+        require(dtypes == [str(getattr(torch, dtype))], f"contract {case}: dtypes {dtypes}")
+        del xg, w, bias, dy, h, h2, got, again, ref
+
+    # Not gated: why the cases above scale W_hh.  At phase 3's 0.3 and N =
+    # 256 the plain version on the card and on the CPU disagree as much as
+    # the kernel and the plain version do.
+    xg, w, bias, _ = contract_inputs(torch, dev, None, 64, 24, 256, "float32", seed=2790,
+                                     w_scale=0.3)
+    plain_card = gru_scan_ref(xg, w, bias)
+    emit(phase="contract_conditioning", N=256, w_scale=0.3,
+         kernel_vs_plain=max_err(K.gru_scan(xg, w, bias), plain_card),
+         plain_card_vs_plain_cpu=max_err(plain_card.cpu(),
+                                         gru_scan_ref(xg.cpu(), w.cpu(), bias.cpu())))
+
+
+def contract_times(torch, dev, K) -> None:
+    """(b) Device times at the ARC cohort's shape (C=35, B=128, T=24): float32
+    at N = 128 (the wide kernels) and bfloat16 at N = 32, beside the plain
+    version, the bound (bytes at the dtype's size) and cuDNN's GRU layer at
+    the same rows (C·B, shared weights); and phase 3's N = 32 float32 times
+    beside their times before the wide kernels and dtypes were added."""
+    from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref
+
+    b, t = 128, 24
+    for dtype, n in (("float32", WIDE_HIDDEN), ("bfloat16", 32)):
+        xg, w, bias, dy = contract_inputs(torch, dev, COHORT, b, t, n, dtype, seed=2750 + n)
+        h = K.gru_scan(xg, w, bias)
+        device_ms = {"gru_scan": graph_ms(torch, lambda: K.gru_scan(xg, w, bias), calls=20),
+                     "gru_scan_bwd": graph_ms(torch, lambda: K.gru_scan_bwd(xg, w, bias, h, dy),
+                                              calls=20)}
+        plain_ms = {"gru_scan": time_ms(torch, lambda: gru_scan_ref(xg, w, bias), 5, 2),
+                    "gru_scan_bwd": time_ms(torch, lambda: gru_scan_bwd_ref(xg, w, bias, h, dy),
+                                            5, 2)}
+        fb, fo, bb, bo = work(b, t, n, elem=xg.element_size())
+        bounds = {"gru_scan": bound_ms(COHORT * fb, COHORT * fo),
+                  "gru_scan_bwd": bound_ms(COHORT * bb, COHORT * bo)}
+        cudnn_fwd, cudnn_bwd = cudnn_gru_ms(torch, dev, COHORT * b, t, n, n,
+                                            dtype=getattr(torch, dtype), iters=50)
+        emit(phase="contract_timing", dtype=dtype, shape={"C": COHORT, "B": b, "T": t, "N": n},
+             device_ms=device_ms, plain_ms=plain_ms,
+             bound_ms={k: v[0] for k, v in bounds.items()},
+             bound_by={k: v[1] for k, v in bounds.items()},
+             cudnn_gru_fwd_ms=cudnn_fwd, cudnn_gru_bwd_ms=cudnn_bwd)
+        del xg, w, bias, dy, h
+    emit(phase="contract_n32_times", unit="device ms at C = 1, 35, 189 (B=128, T=24, N=32)",
+         this_run={k: [PHASE3_GRU_TIMES[f"C{c}"][k]["device_ms"] for c in (1, COHORT, AC_COHORT)]
+                   for k in N32_MS_BEFORE},
+         before=N32_MS_BEFORE)
+
+
+def contract_federation(torch, cohort, cfg, exp, device, **config):
+    """One federated round of ``cfg`` on the full cohort, seed 0, from the
+    seed-0 init on ``device``: (Federation, params0)."""
+    from repro_torch.data.pipeline import build_client_datasets
+    from repro_torch.federated.api import Federation, FederationConfig
+    from repro_torch.models.gru import init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    fed = Federation(
+        FederationConfig(rounds=1, local_epochs=1, batch_size=exp.batch_size, seed=0, **config),
+        build_client_datasets(cohort), make_loss_fn(cfg),
+        AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device=device,
+    )
+    return fed, init_gru(torch.Generator().manual_seed(0), cfg, device)
+
+
+def wide_arc_round(torch, cohort, device: str):
+    """(c)'s round: federated-arc at hidden 128 (dropout 0, so the card and
+    the CPU draw nothing), one round of one epoch, resident staging, from
+    the seed-0 init.  -> (Federation, result, host seconds of ``run``)."""
+    from repro_torch.experiments.paper import ExperimentConfig, policies_for
+    from repro_torch.models.gru import GRUConfig
+
+    exp = ExperimentConfig(rounds=1, local_epochs=1)
+    fed, params0 = contract_federation(torch, cohort, GRUConfig(hidden_dim=WIDE_HIDDEN,
+                                                                 dropout=0.0),
+                                       exp, device, **policies_for("federated-arc", exp))
+    t0 = time.perf_counter()
+    result = fed.run(params0)
+    return fed, result, time.perf_counter() - t0
+
+
+def wide_arc_cpu_round(out: str) -> None:
+    """(c)'s round on the CPU, in a child process (``start_wide_arc_cpu_round``):
+    saves its params, round loss and seconds to ``out``."""
+    import torch
+
+    from repro_torch.experiments.paper import ExperimentConfig, build_cohort
+
+    _, result, seconds = wide_arc_round(torch, build_cohort(ExperimentConfig(), seed=0), "cpu")
+    torch.save({"params": result.params, "loss": result.history[0].mean_local_loss,
+                "seconds": seconds}, out)
+
+
+def start_wide_arc_cpu_round() -> tuple[subprocess.Popen, Path]:
+    """A child process running ``wide_arc_cpu_round`` on CPU_ROUND_THREADS
+    threads into a fresh temporary directory: (process, that directory).
+    At exit it is killed if still running, and the directory removed."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    code = (f"import sys\nsys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+            "import torch, chip_smoke\n"
+            f"torch.set_num_threads({CPU_ROUND_THREADS})\n"
+            f"chip_smoke.wide_arc_cpu_round({str(tmp / 'round.pt')!r})\n")
+    with open(tmp / "log", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                                stderr=subprocess.STDOUT)
+
+    def stop() -> None:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, tmp
+
+
+def run_contract_phase(torch, dev, K, cohort, cpu_round=None) -> dict[str, int]:
+    """Phase 27: (a) the kernels against their plain versions, (b) times,
+    (c) federated-arc at hidden 128 on the card against the CPU (the CPU's
+    round from ``cpu_round``, started here if None), (d) a DP round of the
+    189 hospitals at batch 512 in one chunk (96,768 per-example clients)
+    against chunks of 64.  Returns the launches of (c) and (d)."""
+    from repro_torch.experiments.paper import ExperimentConfig, policies_for
+    from repro_torch.models.gru import GRUConfig
+    from repro_torch.privacy.dp import DPConfig
+
+    t_phase = time.perf_counter()
+    cpu_round = cpu_round or start_wide_arc_cpu_round()
+    check_contract_kernels(torch, dev, K)
+    contract_times(torch, dev, K)
+    launches = {"gru_scan": 0, "gru_scan_bwd": 0}
+
+    # (c) federated-arc, one round of one epoch at hidden 128, on the card
+    # against the CPU's round from the child process.
+    torch.cuda.synchronize()
+    reset_gru_counts(K)
+    fed, card, card_s = wide_arc_round(torch, cohort, "cuda")
+    torch.cuda.synchronize()
+    counts, stats = gru_counts(K), dict(fed.cohort_trainer.last_round_stats)
+    proc, tmp = cpu_round
+    rc = proc.wait(timeout=1200)
+    require(rc == 0, f"hidden-128 arc round on the CPU exited {rc}: "
+            f"{(tmp / 'log').read_text()[-2000:]}")
+    cpu = torch.load(tmp / "round.pt")
+    shutil.rmtree(tmp)
+    diff = param_diff(card.params, cpu["params"])
+    loss_gap = abs(card.history[0].mean_local_loss - cpu["loss"])
+    emit(phase="contract_arc_round", setting="federated-arc", hidden_dim=WIDE_HIDDEN,
+         dropout=0.0, staging=fed.config.staging, clients=len(card.history[0].participant_ids),
+         round_time_s=card.history[0].round_time_s, run_s=card_s, cpu_run_s=cpu["seconds"],
+         cpu_threads=CPU_ROUND_THREADS, cohort_steps=stats["cohort_steps"],
+         peak_device_bytes=stats["peak_device_bytes"], card_vs_cpu_max_param_diff=diff,
+         card_vs_cpu_loss_gap=loss_gap, launches=counts)
+    require(diff <= PARITY_TOL, f"hidden-128 arc round: card against CPU {diff}")
+    require(math.isfinite(card.history[0].mean_local_loss), "hidden-128 arc round: loss")
+    check_launches("hidden-128 arc round", counts, stats["cohort_steps"], 0)
+    for k in launches:
+        launches[k] += counts[k]
+    del fed, card, cpu
+
+    # (d) DP over all 189 hospitals at batch 512: one chunk of 96,768
+    # per-example clients on the kernels' client axis, then chunks of 64.
+    exp = ExperimentConfig(rounds=1, local_epochs=1, batch_size=DP_WIDE_BATCH)
+    privacy = DPConfig(clip_norm=1.0, noise_multiplier=1.0)
+    runs = []
+    for chunk in (None, DP_WIDE_CHUNK):
+        fed, params0 = contract_federation(torch, cohort, GRUConfig(), exp, "cuda",
+                                           privacy=privacy, cohort_chunk=chunk,
+                                           **policies_for("federated-ac", exp))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_gru_counts(K)
+        t0 = time.perf_counter()
+        result = fed.run(params0)
+        torch.cuda.synchronize()
+        runs.append((result, dict(fed.cohort_trainer.last_round_stats), gru_counts(K),
+                     time.perf_counter() - t0, torch.cuda.max_memory_allocated()))
+        for k in launches:
+            launches[k] += runs[-1][2][k]
+        del fed
+    (whole, w_stats, w_counts, w_s, w_peak), (chunked, c_stats, c_counts, c_s, c_peak) = runs
+    diff = param_diff(whole.params, chunked.params)
+    loss_gap = abs(whole.history[0].mean_local_loss - chunked.history[0].mean_local_loss)
+    emit(phase="contract_dp_round", setting="federated-ac",
+         clients=len(whole.history[0].participant_ids), batch_size=DP_WIDE_BATCH,
+         privacy=privacy.to_state(),
+         one_chunk={"per_example_clients": w_stats["per_example_clients"],
+                    "round_time_s": whole.history[0].round_time_s, "run_s": w_s,
+                    "peak_memory_bytes": w_peak, "launches": w_counts,
+                    "cohort_steps": w_stats["cohort_steps"]},
+         chunks_of_64={"per_example_clients": c_stats["per_example_clients"],
+                       "round_time_s": chunked.history[0].round_time_s, "run_s": c_s,
+                       "peak_memory_bytes": c_peak, "launches": c_counts},
+         epsilon=whole.history[0].epsilon, max_param_diff=diff, loss_gap=loss_gap)
+    require(w_stats["per_example_clients"] == 189 * DP_WIDE_BATCH > 65535,
+            f"DP round: {w_stats['per_example_clients']} per-example clients in one chunk")
+    require(loss_gap <= DP_PARITY_TOL, f"DP round: one chunk against 64s, loss gap {loss_gap}")
+    require(diff <= PARITY_TOL, f"DP round: one chunk against 64s, params {diff}")
+    require(math.isfinite(whole.history[0].mean_local_loss), "DP round: loss")
+    check_launches("one-chunk DP round", w_counts, w_stats["cohort_steps"], 0)
+    emit(phase="contract_seconds", seconds=time.perf_counter() - t_phase, launches=launches)
     return launches
 
 

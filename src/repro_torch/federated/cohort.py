@@ -33,8 +33,9 @@ Parity with the sequential engine holds by construction:
 
 With ``dp`` (DP-SGD, ``privacy/dp.py``) a step's gradients come from
 ``dp_value_and_grad``: each client's batch of B becomes B per-example
-clients of batch 1 on the GRU kernels' client axis (C·B of them, which
-``MAX_CHUNK`` bounds), clipped, summed and noised per client; a client's
+clients of batch 1 on the GRU kernels' client axis (C·B of them, bounded
+only by ``cohort_chunk`` and memory), clipped, summed and noised per
+client; a client's
 generator draws its shared dropout masks and then its noise, only on its
 valid steps.  ``dp=None`` runs the unprotected step untouched.
 
@@ -83,10 +84,10 @@ round's one all-reduce then sums the ranks' partial sums, so a sharded round
 equals the one-process round within rounding, not bit for bit (as in the
 reference).  The per-client losses ride in the same all-reduce, each rank
 adding zeros for the clients it did not train (exact), so every rank
-returns the same params and losses.  ``cohort_chunk`` and
-``MAX_CHUNK`` bound a rank's share of a chunk; DP runs a rank's share as
-per-example clients.  A rank with no participant in a chunk (or a round)
-trains nothing there and adds zeros to the all-reduce.
+returns the same params and losses.  ``cohort_chunk`` bounds a rank's
+share of a chunk; DP runs a rank's share as per-example clients.  A rank
+with no participant in a chunk (or a round) trains nothing there and adds
+zeros to the all-reduce.
 """
 
 from __future__ import annotations
@@ -125,8 +126,6 @@ from repro_torch.tree import PyTree, tree_leaves, tree_map
 LossFn = Callable[..., Any]  # loss(params, batch, generators) -> (C,) tensor
 
 STAGING_MODES = ("rebuild", "resident")
-# The GRU kernels put the client axis on the grid's y dimension.
-MAX_CHUNK = 65535
 
 
 def client_generators(
@@ -535,10 +534,8 @@ class CohortTrainer:
         cuda = self.device.type == "cuda"
         resident = self.staging == "resident"
         # Under a mesh, resident staging trains a client on the rank holding
-        # its row, so the rows are attached first; otherwise nothing is
-        # uploaded before the chunk bound below is checked.
-        meshed = resident and self.mesh is not None
-        dcohort = self._ensure_device_cohort(clients) if meshed else None
+        # its row, so the rows are attached before the owners are known.
+        dcohort = self._ensure_device_cohort(clients) if resident else None
         starts = range(0, len(clients), chunk)
         owners = self._owners(clients, starts, chunk, dcohort)
         rank = 0 if self.mesh is None else self.mesh.rank
@@ -546,15 +543,6 @@ class CohortTrainer:
         # clients is batch_size per-example clients.
         share = max(int(np.bincount(owners[s : s + chunk]).max()) for s in starts)
         launched = share * (1 if self.dp is None else self.batch_size)
-        if launched > MAX_CHUNK:
-            what = ("clients" if self.dp is None
-                    else f"per-example clients (DP at batch {self.batch_size})")
-            raise ValueError(
-                f"a chunk of {launched} {what} is above {MAX_CHUNK}, the GRU kernels' grid "
-                "y dimension; set cohort_chunk"
-            )
-        if resident and not meshed:
-            dcohort = self._ensure_device_cohort(clients)
         pooled = resident and dcohort.is_pooled
         pool_before = (0, 0, 0, 0)
         if pooled:

@@ -3,19 +3,26 @@
 ``gru_scan`` replaces the JAX package's Pallas ``gru_scan`` and
 ``gru_scan_bwd`` replaces its ``gru_scan_bwd``.  Each takes either one
 client, ``x_gates (B, T, 3N)`` with ``w_hh (N, 3N)``, or a client axis,
-``x_gates (C, B, T, 3N)`` with per-client ``w_hh (C, N, 3N)``.
+``x_gates (C, B, T, 3N)`` with per-client ``w_hh (C, N, 3N)``, at any hidden
+size N >= 1 and any number of clients.
 
-On CUDA tensors a wrapper checks dtype (float32), shape and contiguity,
-allocates its outputs and scratch with ``torch.empty``, launches the
-kernel on PyTorch's current stream and adds one to its ``launches`` count.
-On CPU tensors it returns the plain version from ``ref.py`` and counts
-nothing.
+On CUDA tensors a wrapper checks dtypes, shape and contiguity, allocates
+its outputs and scratch with ``torch.empty``, launches the kernels on
+PyTorch's current stream and adds one to its ``launches`` count.  The
+activations (``x_gates``, ``h_seq``, ``dy``) are float32, bfloat16 or
+float16, one type for all; ``w_hh`` and ``b_hh`` are any of the three and
+reach the kernels as float32.  The kernels compute in float32 and store
+``h_seq`` and ``dx_gates`` in the activations' type; ``dw_hh`` and ``db_hh``
+are float32 sums returned in ``w_hh``'s and ``b_hh``'s types, as the
+reference does.  Other dtypes raise ``TypeError``.  On CPU tensors a wrapper
+returns the plain version from ``ref.py`` and counts nothing.
 
 ``gru_scan_bwd`` runs in two stages on the card: the reverse recurrence
-(``dx_gates`` and ``dgn``, the n-part of ``d_gh``), then ``dW_hh`` and
-``db_hh`` summed over slices of the B*T rows.  ``stage_recur`` and
-``stage_dw`` launch one stage each, so that the card's checks can hold each
-against its plain twin in ``ref.py``; they count nothing.
+(``dx_gates``, and float32 ``dgn``, the n-part of ``d_gh``, or all of
+``d_gh`` below float32), then ``dW_hh`` and ``db_hh`` summed over slices of
+the B*T rows.  ``stage_recur`` and ``stage_dw`` launch one stage each on
+float32 tensors, so that the card's checks can hold each against its plain
+twin in ``ref.py``; they count nothing.
 """
 
 from __future__ import annotations
@@ -32,21 +39,33 @@ from repro_torch.kernels.gru_scan.ref import (
     gru_scan_ref,
 )
 
-MAX_HIDDEN = 64
+# The activation types the kernels take, by the code their entry points read.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+NARROW = 64   # up to this hidden size the warp-per-row kernels run; above, the wide ones
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Pointers and the stream as c_void_p: a bare Python int would pass as 32 bits.
 _SIGNATURES = {
-    "gru_scan_fwd": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "gru_scan_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
-    "gru_bwd_recur": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "gru_scan_fwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "gru_scan_bwd": ([_P] * 11 + [_I] * 6 + [_P], _I),
+    "gru_wide_scratch": ([_I] * 4 + [_P], _I),
+    "gru_bwd_recur": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "gru_bwd_dw": ([_P] * 6 + [_I] * 5 + [_P], _I),
 }
 
 
-def slice_rows(n: int) -> int:
-    """Rows (b, t) per block of the backward's dW/db stage (34 KB of shared memory)."""
-    return 64 if n <= 32 else 32
+def slice_rows(n: int, rows: int) -> int:
+    """Rows (b, t) a slice of the backward's dW/db stage, of ``rows`` = B*T.
+
+    Up to N = 64 a block sums its whole slice in one chunk of 34 KB of shared
+    memory or less; above, it stages 64 rows at a time for one tile of the
+    product, and slices grow so that there are at most 8 of them (each writes
+    an (N+1, 3N) float32 partial)."""
+    if n <= 32:
+        return 64
+    if n <= NARROW:
+        return 32
+    return 64 * max(1, -(-rows // (64 * 8)))
 
 
 def _library() -> ctypes.CDLL:
@@ -92,16 +111,33 @@ def _check_bwd_shapes(x_gates, w_hh, b_hh, h_seq, dy):
     return c, b, t, n
 
 
-def _check_cuda_inputs(n: int, *tensors: torch.Tensor) -> None:
-    for x in tensors:
-        if x.dtype != torch.float32:
-            raise TypeError(f"the gru_scan kernels take float32 tensors, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError("the gru_scan kernels take contiguous tensors")
+def _check_cuda_inputs(acts, params=()) -> int:
+    """The kernels' code for the activations' dtype, after checking every tensor."""
+    code = DTYPES.get(acts[0].dtype)
+    if code is None or any(x.dtype != acts[0].dtype for x in acts):
+        raise TypeError("the gru_scan kernels take float32, bfloat16 or float16 activations "
+                        f"of one dtype, got {sorted({str(x.dtype) for x in acts})}")
+    for x in params:
+        if x.dtype not in DTYPES:
+            raise TypeError(f"the gru_scan kernels take float32, bfloat16 or float16 weights, "
+                            f"got {x.dtype}")
+    tensors = (*acts, *params)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("the gru_scan kernels take contiguous tensors")
     if len({x.device for x in tensors}) != 1:
         raise ValueError("the gru_scan kernels take tensors on one device")
-    if n > MAX_HIDDEN:
-        raise ValueError(f"hidden size {n} above the largest supported, {MAX_HIDDEN}")
+    return code
+
+
+def _wide_scratch(c: int, b: int, n: int, bwd: bool, device) -> torch.Tensor | None:
+    """Device memory for a wide recurrence's row tiles where they do not fit
+    in shared memory (very large N), else None."""
+    if n <= NARROW:
+        return None
+    floats = ctypes.c_longlong()
+    backend.check(_library().gru_wide_scratch(c, b, n, int(bwd), ctypes.addressof(floats)),
+                  "gru_wide_scratch")
+    return torch.empty(floats.value, dtype=torch.float32, device=device) if floats.value else None
 
 
 def gru_scan(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
@@ -109,13 +145,16 @@ def gru_scan(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> t
     c, b, t, n = _check_shapes(x_gates, w_hh, b_hh)
     if backend.route(x_gates, w_hh, b_hh) == "cpu":
         return gru_scan_ref(x_gates, w_hh, b_hh)
-    _check_cuda_inputs(n, x_gates, w_hh, b_hh)
+    code = _check_cuda_inputs((x_gates,), (w_hh, b_hh))
     h_seq = torch.empty((*x_gates.shape[:-1], n), dtype=x_gates.dtype, device=x_gates.device)
     if h_seq.numel() == 0:
         return h_seq
+    w32, b32 = w_hh.float(), b_hh.float()
+    scratch = _wide_scratch(c, b, n, False, x_gates.device)
     err = _library().gru_scan_fwd(
-        x_gates.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h_seq.data_ptr(),
-        c, b, t, n, backend.stream_handle(x_gates.device),
+        x_gates.data_ptr(), w32.data_ptr(), b32.data_ptr(), h_seq.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), c, b, t, n, code,
+        backend.stream_handle(x_gates.device),
     )
     backend.check(err, "gru_scan")
     gru_scan.launches += 1
@@ -133,17 +172,18 @@ def gru_scan_bwd(
     c, b, t, n = _check_bwd_shapes(x_gates, w_hh, b_hh, h_seq, dy)
     if backend.route(x_gates, w_hh, b_hh, h_seq, dy) == "cpu":
         return gru_scan_bwd_ref(x_gates, w_hh, b_hh, h_seq, dy)
-    _check_cuda_inputs(n, x_gates, w_hh, b_hh, h_seq, dy)
+    code = _check_cuda_inputs((x_gates, h_seq, dy), (w_hh, b_hh))
     dxg = torch.empty_like(x_gates)
-    dw = torch.empty_like(w_hh)
-    db = torch.empty_like(b_hh)
+    dw = torch.empty(w_hh.shape, dtype=torch.float32, device=w_hh.device)
+    db = torch.empty(b_hh.shape, dtype=torch.float32, device=b_hh.device)
     if x_gates.numel() == 0:
-        return dxg, dw.zero_(), db.zero_()
-    dgn, partial = _scratch(h_seq, c, b, t, n)
-    _stage("gru_scan_bwd", (c, b, t, n, slice_rows(n)),
-           (x_gates, w_hh, b_hh, h_seq, dy), (dxg, dgn, partial, dw, db))
+        return dxg, dw.zero_().to(w_hh.dtype), db.zero_().to(b_hh.dtype)
+    dgo, partial = _scratch(h_seq, c, b, t, n)
+    _stage("gru_scan_bwd", (c, b, t, n, slice_rows(n, b * t), code),
+           (x_gates, w_hh.float(), b_hh.float(), h_seq, dy),
+           (dxg, dgo, partial, dw, db, _wide_scratch(c, b, n, True, x_gates.device)))
     gru_scan_bwd.launches += 1
-    return dxg, dw, db
+    return dxg, dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -152,18 +192,27 @@ def gru_scan_bwd(
 
 
 def _stage(name: str, dims: tuple[int, ...], tensors, outs) -> None:
-    """Launch C entry point ``name`` on ``tensors`` (inputs, then outputs ``outs``)."""
+    """Launch C entry point ``name`` on ``tensors`` (inputs, then outputs and
+    scratch ``outs``; None passes a null pointer)."""
     err = getattr(_library(), name)(
-        *(x.data_ptr() for x in (*tensors, *outs)), *dims,
+        *(None if x is None else x.data_ptr() for x in (*tensors, *outs)), *dims,
         backend.stream_handle(tensors[0].device))
     backend.check(err, name)
 
 
 def _scratch(h_seq: torch.Tensor, c: int, b: int, t: int, n: int):
-    """``dgn`` (h_seq's shape) and the dW/db stage's per-slice partials."""
-    slices = -(-(b * t) // slice_rows(n))
-    return (torch.empty_like(h_seq),
+    """The recurrence's float32 ``d_gh`` output (``dgn``, h_seq's shape, for
+    float32 activations; all of ``d_gh``, ``(..., B, T, 3N)``, below) and the
+    dW/db stage's per-slice partials."""
+    slices = -(-(b * t) // slice_rows(n, b * t))
+    width = n if h_seq.dtype == torch.float32 else 3 * n
+    return (torch.empty((*h_seq.shape[:-1], width), dtype=torch.float32, device=h_seq.device),
             torch.empty((c, slices, n + 1, 3 * n), dtype=torch.float32, device=h_seq.device))
+
+
+def _check_f32(*tensors: torch.Tensor) -> None:
+    if _check_cuda_inputs(tensors) != DTYPES[torch.float32]:
+        raise TypeError("the backward's stage wrappers take float32 tensors")
 
 
 def stage_recur(x_gates, w_hh, b_hh, h_seq, dy) -> tuple[torch.Tensor, torch.Tensor]:
@@ -171,10 +220,10 @@ def stage_recur(x_gates, w_hh, b_hh, h_seq, dy) -> tuple[torch.Tensor, torch.Ten
     c, b, t, n = _check_bwd_shapes(x_gates, w_hh, b_hh, h_seq, dy)
     if backend.route(x_gates, w_hh, b_hh, h_seq, dy) == "cpu":
         return gru_bwd_recur_ref(x_gates, w_hh, b_hh, h_seq, dy)
-    _check_cuda_inputs(n, x_gates, w_hh, b_hh, h_seq, dy)
+    _check_f32(x_gates, w_hh, b_hh, h_seq, dy)
     dxg, dgn = torch.empty_like(x_gates), torch.empty_like(h_seq)
-    _stage("gru_bwd_recur", (c, b, t, n),
-           (x_gates, w_hh, b_hh, h_seq, dy), (dxg, dgn))
+    _stage("gru_bwd_recur", (c, b, t, n), (x_gates, w_hh, b_hh, h_seq, dy),
+           (dxg, dgn, _wide_scratch(c, b, n, True, x_gates.device)))
     return dxg, dgn
 
 
@@ -190,11 +239,11 @@ def stage_dw(h_seq, dx_gates, dgn) -> tuple[torch.Tensor, torch.Tensor]:
     if backend.route(h_seq, dx_gates, dgn) == "cpu":
         return gru_bwd_dw_ref(h_seq, dx_gates, dgn)
     c = lead[0] if lead else 1
-    _check_cuda_inputs(n, h_seq, dx_gates, dgn)
+    _check_f32(h_seq, dx_gates, dgn)
     dw = torch.empty((*lead, n, 3 * n), dtype=torch.float32, device=h_seq.device)
     db = torch.empty((*lead, 3 * n), dtype=torch.float32, device=h_seq.device)
     _, partial = _scratch(h_seq, c, b, t, n)
-    _stage("gru_bwd_dw", (c, b, t, n, slice_rows(n)), (h_seq, dx_gates, dgn),
+    _stage("gru_bwd_dw", (c, b, t, n, slice_rows(n, b * t)), (h_seq, dx_gates, dgn),
            (partial, dw, db))
     return dw, db
 

@@ -41,7 +41,7 @@ from repro_torch.data.pipeline import ArrayDataset, ClientDataset, build_client_
 from repro_torch.data.synth_eicu import CohortConfig, generate_cohort  # noqa: E402
 from repro_torch.experiments import paper  # noqa: E402
 from repro_torch.federated.api import Federation, FederationConfig  # noqa: E402
-from repro_torch.federated.cohort import MAX_CHUNK, CohortTrainer, client_generators  # noqa: E402
+from repro_torch.federated.cohort import CohortTrainer, client_generators  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamW, apply_updates  # noqa: E402
@@ -391,9 +391,6 @@ def test_errors(model):
         trainer().train_cohort(params0, clients, rng, [])
     with pytest.raises(ValueError, match="cohort_chunk"):
         trainer(cohort_chunk=0).train_cohort(params0, clients, rng, gens)
-    many = clients * (MAX_CHUNK + 1)
-    with pytest.raises(ValueError, match="65535"):
-        trainer().train_cohort(params0, many, rng, gens * len(many))
     with pytest.raises(ValueError, match="unknown staging"):
         trainer(staging="lazy")
     # the client axis over several processes is ported: "auto" in one

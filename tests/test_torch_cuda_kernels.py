@@ -7,7 +7,10 @@ no JAX, so it also runs on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: gru_scan forward and dx_gates 1e-5; dW_hh / db_hh 1e-4 times
-max(1, max|ref|), as sums over B*T terms taken in another order; the
+max(1, max|ref|), as sums over B*T terms taken in another order; in
+bfloat16 and float16, one unit in the last place of the dtype times
+max(1, |ref|), the kernels and the plain versions both computing in
+float32 and rounding once; the
 backward's two stage kernels against their plain twins the same;
 ssd_chunk_scan and ssd_chunk_scan_bwd, and each of their stages against its
 plain stage in ref.py, 1e-4 times max(1, max|ref|), as sums over up to L*N
@@ -142,15 +145,62 @@ def test_autograd_runs_both_kernels(cuda):
     assert max_err(grads[0], ref[0]) <= 1e-5
 
 
+def ulps(got, ref) -> float:
+    """max |got - ref| in units of the last place of got's dtype, times
+    max(1, |ref|) elementwise."""
+    eps = torch.finfo(got.dtype).eps
+    return float(((got.float() - ref.float()).abs() / (eps * ref.float().abs().clamp(min=1))).max())
+
+
+@pytest.mark.parametrize("dtype,lead,b,t,n", [
+    (torch.float32, (), 16, 6, 65), (torch.float32, (3,), 20, 5, 128),
+    (torch.float32, (), 2, 3, 1024), (torch.float32, (2,), 1, 4, 96),
+    (torch.float32, (), 2, 3, 7000),   # the backward's row tile in device scratch
+    (torch.bfloat16, (), 16, 6, 32), (torch.bfloat16, (2,), 9, 5, 128),
+    (torch.float16, (), 16, 6, 32), (torch.float16, (2,), 9, 5, 128),
+    (torch.float32, (70000,), 1, 4, 4), (torch.bfloat16, (70000,), 1, 4, 4),
+])
+def test_every_hidden_size_dtype_and_client_count(cuda, dtype, lead, b, t, n):
+    """The kernels take any N (the wide ones above 64), bfloat16 and float16,
+    and more than 65,535 clients, against the plain versions: float32 as
+    above, below it one unit in the last place of the dtype times max(1,
+    |ref|); two runs the same bits; GRUScan's gradients in the inputs' dtype.
+    W_hh is drawn at std min(0.3, 1/sqrt(N)): at 0.3 the recurrence is
+    chaotic above N ~ 64, and float32 rounding alone, the plain version on
+    the card against itself on the CPU, grows past 1e-5 in a few steps."""
+    xg, w, bias, dy = inputs(cuda, b, t, n, seed=n, lead=lead)
+    w = w * min(1.0, 1.0 / (0.3 * n ** 0.5))
+    xg, w, bias, dy = (a.to(dtype) for a in (xg, w, bias, dy))
+    before = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
+    h, h2 = kernel.gru_scan(xg, w, bias), kernel.gru_scan(xg, w, bias)
+    got, again = (kernel.gru_scan_bwd(xg, w, bias, h, dy) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    ref = (gru_scan_ref(xg, w, bias), *gru_scan_bwd_ref(xg, w, bias, h, dy))
+    for g, r in zip((h, *got), ref):
+        assert g.dtype == r.dtype == dtype and g.shape == r.shape
+    if dtype == torch.float32:
+        assert max_err(h, ref[0]) <= 1e-5 and max_err(got[0], ref[1]) <= 1e-5
+        for g, r in zip(got[1:], ref[2:]):
+            assert max_err(g, r) <= 1e-4 * max(1.0, float(r.abs().max()))
+    else:
+        assert all(ulps(g, r) <= 1.0 for g, r in zip((h, *got), ref))
+    assert torch.equal(h, h2) and all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    leaves = [x.clone().requires_grad_(True) for x in (xg, w, bias)]
+    grads = torch.autograd.grad(GRUScan.apply(*leaves), leaves, dy)
+    assert [g.dtype for g in grads] == [dtype] * 3
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     xg, w, bias, _ = inputs(cuda, 4, 3, 2)
     with pytest.raises(TypeError):
         kernel.gru_scan(xg.double(), w.double(), bias.double())
     with pytest.raises(ValueError):
         kernel.gru_scan(xg.transpose(0, 1), w, bias)
-    big = inputs(cuda, 2, 2, kernel.MAX_HIDDEN + 1)
-    with pytest.raises(ValueError):
-        kernel.gru_scan(*big[:3])
+    # Above N = 64 the wide kernels run: no hidden size is refused.
+    wide = inputs(cuda, 2, 2, 65)
+    assert max_err(kernel.gru_scan(*wide[:3]), gru_scan_ref(*wide[:3])) <= 1e-5
     with pytest.raises(ValueError):
         kernel.gru_scan(xg, w.cpu(), bias)
 

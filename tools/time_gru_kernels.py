@@ -7,8 +7,8 @@ at B=128, T=24, N=32, for one client and for 35 clients in one launch.
 ``--src`` names the ``src`` directory whose ``repro_torch`` is built and
 timed (default: this checkout's), so that two trees can be timed in turns
 on one card, each in its own process.  The timing is ``chip_smoke.py``'s
-``gru_times``, and, where the tree's backward has stage wrappers, its
-``gru_stage_ms``; ``--steps`` adds the forward's and the backward stages'
+``gru_times``, and, where the tree's backward has this tree's stage
+entry points, its ``gru_stage_ms``; ``--steps`` adds the forward's and the backward stages'
 device times at each T listed (B=128, N=32, one client and 35), which
 separates a launch's fixed cost from its cost a step.  Prints the card's
 name and power limit, then one JSON line, which also holds ptxas' registers
@@ -27,14 +27,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+TEMPLATE_ARG = re.compile(r"(f)|13__nv_bfloat16|6__half|Li(\d+)E|Lb([01])E")
+
+
+def template_args(mangled: str) -> str:
+    """``<float,4,true>`` from the mangled template arguments ``IfLi4ELb1EE``."""
+    names = []
+    for m in TEMPLATE_ARG.finditer(mangled):
+        if m.group(1):
+            names.append("float")
+        elif m.group(2):
+            names.append(m.group(2))
+        elif m.group(3):
+            names.append("true" if m.group(3) == "1" else "false")
+        else:
+            names.append("bf16" if "bfloat16" in m.group(0) else "half")
+    return f"<{','.join(names)}>" if names else ""
+
+
 def ptxas_report(log: str) -> dict[str, str]:
-    """``kernel<U> -> "R registers, S bytes spill stores, L bytes spill loads"``
-    from an ``nvcc -Xptxas -v`` log."""
+    """``kernel<args> -> "R registers, S bytes spill stores, L bytes spill
+    loads"`` from an ``nvcc -Xptxas -v`` log."""
     out, name = {}, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
-            k = re.search(r"\d+((?:gru|ssd)_\w*?kernel)(?:ILi(\d+)EE)?", m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else m.group(1)
+            k = re.search(r"\d+((?:gru|ssd)_\w*?kernel)((?:I(?:f|13__nv_bfloat16|6__half|Li\d+E"
+                          r"|Lb[01]E)+E)?)", m.group(1))
+            name = k.group(1) + template_args(k.group(2)) if k else m.group(1)
             out[name] = ""
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             out[name] += f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
@@ -86,7 +105,9 @@ def main() -> int:
     out["fwd_device_ms_by_T"] = {
         f"C{c}": {t: chip_smoke.graph_ms(torch, fwd_call(torch, dev, K, c, 128, t)) for t in steps}
         for c in (1, chip_smoke.COHORT)}
-    if hasattr(K, "stage_recur"):  # the two-stage backward: each stage's device time
+    # The two-stage backward with this tree's stage entry points (each taking
+    # the wide kernels' scratch): each stage's device time.
+    if hasattr(K, "stage_recur") and "gru_wide_scratch" in K._SIGNATURES:
         out["bwd_stage_device_ms"] = {
             f"C{c}": chip_smoke.gru_stage_ms(torch, dev, K, c, 128, 24, 32)
             for c in (1, chip_smoke.COHORT)}
