@@ -132,8 +132,8 @@ exit code and no result line:
              time) equal to ``BENCH_async.json``'s; then one profiled flush
              of the recruited federation: the device's idle share.
 21. control plane — ``launch/federation_service.py`` at full width:
-             (a) ``job_spec_for("federated-arc", ExperimentConfig(rounds=3))``
-             submitted uninterrupted (A); through the CLI in a subprocess
+             (a) ``job_spec_for("federated-arc", ExperimentConfig(rounds=2))``
+             (cut from 3 rounds) submitted uninterrupted (A); through the CLI in a subprocess
              with ``--preempt-after 1`` (exit 75), then ``resume`` through
              the CLI (exit 0) (B); in a subprocess killed with SIGKILL once
              its first snapshot has landed, then resumed (C);
@@ -148,8 +148,8 @@ exit code and no result line:
              run's, params within 1e-5; (c) (a)'s job with DP (clip 1, noise
              1), 2 rounds, cut after round 1: the epsilons exactly the
              uninterrupted run's, params within 1e-5; (d)
-             ``run_service_overhead(device="cuda")`` at its defaults (not
-             gated: host timing noise).  Every run launches both GRU kernels;
+             ``run_service_overhead(device="cuda")`` at 2 repeats, not its
+             3 (not gated: host timing noise).  Every run launches both GRU kernels;
              the subprocesses report their counts.
 22. observability — ``repro_torch.obs`` at full width: (a) federated-arc
              (35 recruited, 4 local epochs, resident, 2 rounds) with a
@@ -168,7 +168,7 @@ exit code and no result line:
              ``torch_profile/`` trace holds both GRU kernels' device events
              and its profiler no error, ``jit.*`` counts each child's
              library load, the final params are an untraced job's bit for
-             bit; (d) ``run_obs_overhead`` (one repeat of 3 async flushes,
+             bit; (d) ``run_obs_overhead`` (one repeat of 2 async flushes,
              not 3 of 10) and
              ``run_facade_overhead``, the async run's per-phase host time
              from its trace (not gated: host timing noise).
@@ -253,6 +253,32 @@ exit code and no result line:
              launches; (d) DP over the 189
              hospitals at batch 512 in one chunk (96,768 per-example clients)
              against chunks of 64 (round loss 1e-5, params 1e-4), peak memory.
+28. SSD contract — the SSD kernels at every input the reference takes: (a)
+             bfloat16 and float16 at the Mamba2 train shape and zamba2-7b's
+             (float32 there is phase 3's), all three dtypes above every old
+             size (L=512, P=128, N=256; H=12, B=8, NC=2), 70,000 and
+             131,073 (batch, chunk) rows at L=8, H=2, P=N=4 as (1, NC) and
+             (B, 1), a ragged ``ssd_full`` in bf16/f16: the forward, the
+             entry states, the backward and each ``stage_*`` against the
+             plain versions (above 1,000 chunks the stage compositions),
+             twice bit for bit; float32 within SSD_TOL, below it one unit in
+             the last place (``ulp_err``) of the plain versions computed in
+             float64 and rounded once to the dtype, the float32 plain
+             versions' errors printed beside; not gated, the kernels and the
+             float32 plain versions against float64 at zamba2's shape in
+             float32 (ROADMAP Queue 3); ``ops.ssd_full`` under autograd in
+             bf16, f16 and mixed dtypes, one launch each way; (b)
+             mamba2-130m with a user's SSMConfig (head_dim 128, d_state 256,
+             chunk 512) in float32 at B=2, S=700 (two chunks, the second
+             ragged), card against CPU (the CPU's run in a child process on
+             3 threads, started before phase 23) under phases 7 and 10's
+             gates, then in bf16 a prefill at B=8 x 2,048 and a train step
+             at phase 11's size, timed, with peak memory and one launch a
+             layer each way; (c) device times in bf16 at the Mamba2 and
+             zamba2 shapes and in float32 above the old sizes, beside the
+             plain versions and the bounds (bytes at 2 B an element below
+             float32; below it the tile products of two 16-bit inputs at
+             the dtype's tensor-core rate, the rest in 3xTF32).
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -277,6 +303,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_3XTF32_FLOPS = 495e12 / 3   # H100 SXM dense TF32 on the tensor cores, three products per product
+PEAK_16BIT_FLOPS = 989e12    # H100 SXM dense bf16 and fp16 on the tensor cores
 FWD_TOL = 1e-5
 DX_TOL = 1e-5
 DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in another order
@@ -425,6 +452,10 @@ def main() -> int:
     for kernel, n in run_observability_phase(torch, K, cohort).items():
         launches[kernel] += n
 
+    # Phase 28's CPU side (the user's Mamba2 config) runs in a child process
+    # from here on, beside phases 23-27.
+    ssd_user_child = start_cpu_child("ssd_user_cpu", SSD_USER_THREADS)
+
     # -- 23. the population sweep, the paper's tables, the analysis ------------
     for kernel, n in run_tables_phase(torch, K, SK).items():
         launches[kernel] += n
@@ -443,6 +474,10 @@ def main() -> int:
 
     # -- 27. the GRU kernels' whole contract: any N, bf16/f16, > 65,535 clients -
     for kernel, n in run_contract_phase(torch, dev, K, cohort, cpu_round).items():
+        launches[kernel] += n
+
+    # -- 28. the SSD kernels' whole contract: bf16/f16, any L/P/N, > 65,535 rows -
+    for kernel, n in run_ssd_contract_phase(torch, dev, SK, ssd_user_child).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -845,7 +880,7 @@ def ssd_timing(torch, dev, SK, case: str, shape, seed: int) -> dict:
         "pass": ("ssd_stage_pass", (*dims, 0), (carry, args[2]), ()),
         "y": ("ssd_stage_y", dims, (x, dt, args[2], cm, g, local), (torch.empty_like(x),)),
     })
-    nbytes, ops, ops_full, mma = ssd_work(b, nc, l_len, h, p, n)
+    nbytes, ops, ops_full, mma, _ = ssd_work(b, nc, l_len, h, p, n)
     row = dict(ssd_chunk_scan_ms=ms, with_states_ms=ms_states, plain_ms=plain, bytes=nbytes,
                flops_causal=ops, flops_full_block=ops_full, flops_tile_products=mma,
                bound_bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
@@ -1000,11 +1035,12 @@ def ssd_bwd_timing(torch, dev, SK, case: str, args) -> dict:
         "cb": ("ssd_stage_cb", (b, nc, l_len, n), (bc, cc), (g,)),
         "carry": ("ssd_stage_local", (*dims, 1), (dy, cum, cum, cc), (ds,)),
         "pass_reverse": ("ssd_stage_pass", (*dims, 1), (carry, cum), ()),
-        "head": ("ssd_stage_head", dims, (xc, dtc, cum, bc, cc, states, ds, g, dy), grads[:3]),
+        "head": ("ssd_stage_head", dims, (xc, dtc, cum, bc, cc, states, ds, g, dy),
+                 (*grads[:3], None)),
         "dg": ("ssd_stage_dg", (b, nc, l_len, h, p), (xc, dtc, cum, dy), (g,)),
         "dbc": ("ssd_stage_dbc", dims, (xc, dtc, cum, bc, cc, states, ds, g, dy), grads[3:]),
     })
-    nbytes, ops, mma = ssd_bwd_work(b, nc, l_len, h, p, n)
+    nbytes, ops, mma, _ = ssd_bwd_work(b, nc, l_len, h, p, n)
     row = dict(ssd_chunk_scan_bwd_ms=ms, plain_ms=plain, bytes=nbytes, flops=ops,
                flops_tile_products=mma, bound_bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                bound_ops_ms=ops / PEAK_F32_FLOPS * 1e3, bound_tc_ms=tensor_core_ms(ops, mma),
@@ -1015,11 +1051,15 @@ def ssd_bwd_timing(torch, dev, SK, case: str, args) -> dict:
     return row
 
 
-def tensor_core_ms(ops: int, mma: int) -> float:
+def tensor_core_ms(ops: int, mma: int, mma16: int = 0, elem: int = 4) -> float:
     """The least time for ``ops`` float ops of which ``mma`` are tile products
-    run on the tensor cores in 3xTF32: those at 495/3 TFLOP/s, the rest at
-    67 TFLOP/s on the CUDA cores."""
-    return (mma / PEAK_3XTF32_FLOPS + (ops - mma) / PEAK_F32_FLOPS) * 1e3
+    on the tensor cores: in 3xTF32 at 495/3 TFLOP/s, except, with 16-bit
+    inputs (``elem`` 2), the ``mma16`` of them whose operands are both
+    16-bit inputs, which one bf16/fp16 product a product takes exactly, at
+    989 TFLOP/s; the rest of ``ops`` at 67 TFLOP/s on the CUDA cores."""
+    exact = mma16 if elem == 2 else 0
+    return (exact / PEAK_16BIT_FLOPS + (mma - exact) / PEAK_3XTF32_FLOPS
+            + (ops - mma) / PEAK_F32_FLOPS) * 1e3
 
 
 def ssd_side(name: str) -> str | None:
@@ -1042,13 +1082,16 @@ def stage_ms(torch, SK, stages: dict[str, tuple]) -> dict[str, float]:
             for name, spec in stages.items()}
 
 
-def ssd_bwd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int, int]:
-    """Bytes the backward must move, its float ops over the causal pairs, and
-    how many of those are tile products (the kernels' tensor-core work).
+def ssd_bwd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int,
+                 elem: int = 4) -> tuple[int, int, int, int]:
+    """Bytes the backward must move, its float ops over the causal pairs, how
+    many of those are tile products (the kernels' tensor-core work), and how
+    many of those take two of the inputs (C B^T and dW = dy x^T).
 
-    Bytes: x, dy, dt, cum, B, C and the entry states read once; dx, ddt,
-    dcum, dB and dC written once.  Scratch that one implementation keeps
-    (the kernels' G, dG and dS) is not the function's.
+    Bytes: x, dy, dt, cum, B, C (``elem`` bytes an element) and the float32
+    entry states read once; dx, ddt, dcum, dB and dC written once.  Scratch
+    that one implementation keeps (the kernels' G, dG and dS) is not the
+    function's.
     Per (batch, chunk) and causal pair, shared by the heads: C B^T
     recomputed, and dC = dG B, dB = dG^T C from the head-summed dG (2N
     each).  Per head and pair: dW = dy x^T and dx = W^T dy (2P each) and ~10
@@ -1059,27 +1102,31 @@ def ssd_bwd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[i
     tile products are the 2N and 2P per pair and the 2NP per row.
     """
     rows = b * nc * l_len
-    bytes_ = 4 * (3 * rows * h * p + 4 * rows * h + 4 * rows * n + b * nc * h * p * n)
+    bytes_ = elem * (3 * rows * h * p + 4 * rows * h + 4 * rows * n) + 4 * b * nc * h * p * n
     pairs = l_len * (l_len + 1) // 2
     per_head = pairs * (4 * p + 10) + l_len * (8 * n * p + 2 * n + 2 * p + 10)
     mma_per_head = pairs * 4 * p + l_len * 8 * n * p
     return (bytes_, b * nc * (3 * 2 * n * pairs + h * per_head),
-            b * nc * (3 * 2 * n * pairs + h * mma_per_head))
+            b * nc * (3 * 2 * n * pairs + h * mma_per_head),
+            b * nc * pairs * (2 * n + h * 2 * p))
 
 
-def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, int, int, int]:
-    """Bytes the call must move (float32 inputs read once, y written once),
+def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int,
+             elem: int = 4) -> tuple[int, int, int, int, int]:
+    """Bytes the call must move (inputs of ``elem`` bytes an element read
+    once, y written once),
     its float ops counting the causal pairs l >= m of each L x L block that
-    the scan needs (and, beside it, the full L x L block), and how many of the
+    the scan needs (and, beside it, the full L x L block), how many of the
     causal count are tile products (C B^T, W x, C S and the state update:
-    the kernels' tensor-core work).
+    the kernels' tensor-core work), and how many of those take two of the
+    inputs (C B^T).
 
     Per (batch, chunk): C B^T once, 2N per pair (shared by the heads).  Per
     head: the weights exp(cum_l - cum_m) dt_m G (a subtraction, an exp and
     two products: 4 per pair) and W x (2P per pair); the carried-state term
     C S and the state update (2NP per row each) and the per-row decays (4).
     """
-    bytes_ = 4 * (2 * b * nc * l_len * h * p + 2 * b * nc * l_len * h + 2 * b * nc * l_len * n)
+    bytes_ = elem * (2 * b * nc * l_len * h * p + 2 * b * nc * l_len * h + 2 * b * nc * l_len * n)
 
     def ops_for(pairs: int, tile_products_only: bool = False) -> int:
         per_head = pairs * 2 * p + l_len * 4 * n * p
@@ -1088,7 +1135,8 @@ def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int) -> tuple[int, 
         return b * nc * (2 * n * pairs + h * per_head)
 
     causal = l_len * (l_len + 1) // 2
-    return bytes_, ops_for(causal), ops_for(l_len * l_len), ops_for(causal, True)
+    return (bytes_, ops_for(causal), ops_for(l_len * l_len), ops_for(causal, True),
+            b * nc * 2 * n * causal)
 
 
 
@@ -2635,8 +2683,10 @@ def run_control_plane_phase(torch, K) -> dict[str, int]:
     def records(run_dir):
         return read_records(str(run_dir / "records.jsonl"))
 
-    # (a) the sync arc job, four ways
-    exp = ExperimentConfig(rounds=3)
+    # (a) the sync arc job, four ways.  Cut to 2 rounds (3 before) to keep
+    # the script inside its time limit: B is still preempted after round 1
+    # and C killed after its first snapshot, each resumed to the end.
+    exp = ExperimentConfig(rounds=2)
     spec = job_spec_for("federated-arc", exp, seed=0)
     sizes = {c.client_id: c.n_train for c in build_client_datasets(build_cohort(exp, seed=0))}
     run_a, run_b, run_c = (work / name for name in ("A", "B", "C"))
@@ -2786,9 +2836,10 @@ def run_control_plane_phase(torch, K) -> dict[str, int]:
             f"DP params differ by {dp_fields['max_param_diff']}")
     torch.cuda.empty_cache()
 
-    # (d) the control plane's overhead against a direct run (not gated)
+    # (d) the control plane's overhead against a direct run (not gated; 2
+    # repeats, not 3, for the script's time limit)
     report, counts_h, seconds_h = in_process("service overhead", run_service_overhead,
-                                             device="cuda", verbose=False)
+                                             repeats=2, device="cuda", verbose=False)
     emit(phase="service_overhead", **report, seconds=seconds_h, launches=counts_h)
     shutil.rmtree(work, ignore_errors=True)
     emit(phase="control_plane_seconds", seconds=time.perf_counter() - t_phase)
@@ -3038,7 +3089,7 @@ def run_observability_phase(torch, K, cohort) -> dict[str, int]:
     require(job_bitwise, "the traced, profiled, resumed job's params differ from an "
             "untraced job's")
 
-    # (d) the overhead probes (not gated).  Cut: one repeat of 3 async
+    # (d) the overhead probes (not gated).  Cut: one repeat of 2 async
     # flushes, not 3 of 10 (each repeat ~15 s), to keep the script inside its
     # time limit.
     # Under constant latency every flush re-dispatches all 189 clients
@@ -3047,7 +3098,7 @@ def run_observability_phase(torch, K, cohort) -> dict[str, int]:
     reset_gru_counts(K)
     t0 = time.perf_counter()
     sample = work / "obs_async_trace.json"
-    obs = run_obs_overhead(repeats=1, flushes=3, verbose=False, device="cuda",
+    obs = run_obs_overhead(repeats=1, flushes=2, verbose=False, device="cuda",
                            trace_path=str(sample))
     obs_seconds = time.perf_counter() - t0
     obs_counts = add(gru_counts(K))
@@ -4102,19 +4153,12 @@ def contract_inputs(torch, dev, c, b, t, n, dtype: str, seed: int, w_scale=None)
             normal(b, t, n))
 
 
-def ulp_err(torch, got, ref) -> float:
-    """max |got - ref| in units of the last place of got's dtype, each element
-    scaled by max(1, |ref|)."""
-    eps = torch.finfo(got.dtype).eps
-    return float(((got.float() - ref.float()).abs() / (eps * ref.float().abs().clamp(min=1.0)))
-                 .max())
-
-
 def check_contract_kernels(torch, dev, K) -> None:
     """(a) Each case on the card against the plain versions and bit for bit
     on a repeat: float32 at phase 3's tolerances, bfloat16 and float16 within
     one unit in the last place (times max(1, |ref|)), outputs in the
     activations' dtype, dW and db in the weights'."""
+    from repro_torch.kernels.accuracy import ulp_err
     from repro_torch.kernels.gru_scan.ref import gru_scan_bwd_ref, gru_scan_ref
 
     names = ("fwd", "dx", "dw", "db")
@@ -4131,7 +4175,7 @@ def check_contract_kernels(torch, dev, K) -> None:
                      "dw": DW_TOL * max(1.0, float(ref[2].abs().max())),
                      "db": DW_TOL * max(1.0, float(ref[3].abs().max()))}
         else:
-            err = {k: ulp_err(torch, g, r) for k, g, r in zip(names, (h, *got), ref)}
+            err = {k: ulp_err(g, r) for k, g, r in zip(names, (h, *got), ref)}
             limit = dict.fromkeys(names, 1.0)
         same = torch.equal(h, h2) and all(torch.equal(a, b_) for a, b_ in zip(got, again))
         dtypes = sorted({str(x.dtype) for x in (h, *got)})
@@ -4235,14 +4279,20 @@ def wide_arc_cpu_round(out: str) -> None:
 
 
 def start_wide_arc_cpu_round() -> tuple[subprocess.Popen, Path]:
-    """A child process running ``wide_arc_cpu_round`` on CPU_ROUND_THREADS
-    threads into a fresh temporary directory: (process, that directory).
-    At exit it is killed if still running, and the directory removed."""
+    """Phase 27's CPU round in a child process (``start_cpu_child``)."""
+    return start_cpu_child("wide_arc_cpu_round", CPU_ROUND_THREADS)
+
+
+def start_cpu_child(function: str, threads: int) -> tuple[subprocess.Popen, Path]:
+    """A child process running ``chip_smoke.<function>(out)`` on ``threads``
+    threads, ``out`` being ``out.pt`` in a fresh temporary directory:
+    (process, that directory).  At exit it is killed if still running, and
+    the directory removed."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     code = (f"import sys\nsys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
             "import torch, chip_smoke\n"
-            f"torch.set_num_threads({CPU_ROUND_THREADS})\n"
-            f"chip_smoke.wide_arc_cpu_round({str(tmp / 'round.pt')!r})\n")
+            f"torch.set_num_threads({threads})\n"
+            f"chip_smoke.{function}({str(tmp / 'out.pt')!r})\n")
     with open(tmp / "log", "w") as log:
         proc = subprocess.Popen([sys.executable, "-c", code], stdout=log,
                                 stderr=subprocess.STDOUT)
@@ -4284,7 +4334,7 @@ def run_contract_phase(torch, dev, K, cohort, cpu_round=None) -> dict[str, int]:
     rc = proc.wait(timeout=1200)
     require(rc == 0, f"hidden-128 arc round on the CPU exited {rc}: "
             f"{(tmp / 'log').read_text()[-2000:]}")
-    cpu = torch.load(tmp / "round.pt")
+    cpu = torch.load(tmp / "out.pt")
     shutil.rmtree(tmp)
     diff = param_diff(card.params, cpu["params"])
     loss_gap = abs(card.history[0].mean_local_loss - cpu["loss"])
@@ -4342,6 +4392,450 @@ def run_contract_phase(torch, dev, K, cohort, cpu_round=None) -> dict[str, int]:
     require(math.isfinite(whole.history[0].mean_local_loss), "DP round: loss")
     check_launches("one-chunk DP round", w_counts, w_stats["cohort_steps"], 0)
     emit(phase="contract_seconds", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the SSD kernels' whole contract (bfloat16 and float16, any chunk,
+# head and state size, more than 65,535 (batch, chunk) rows a launch)
+# ---------------------------------------------------------------------------
+
+SSD_CONTRACT_CASES = (
+    # name, dtypes, B, NC, L, H, P, N (float32 at the first two: phase 3)
+    ("mamba2", ("bfloat16", "float16"), 8, 8, 256, 24, 64, 128),     # the train slice's call
+    ("zamba2", ("bfloat16", "float16"), 8, 8, 256, 112, 64, 64),     # zamba2-7b's prefill call
+    ("above", ("float32", "bfloat16", "float16"), 8, 2, 512, 12, 128, 256),  # (b)'s heads, S=1,024
+    ("chunks-70000", ("float32",), 1, 70_000, 8, 2, 4, 4),
+    ("batch-70000", ("float32", "bfloat16"), 70_000, 1, 8, 2, 4, 4),
+    ("chunks-131073", ("float32",), 1, 131_073, 8, 2, 4, 4),
+    ("batch-131073", ("float32", "float16"), 131_073, 1, 8, 2, 4, 4),
+)
+SSD_CONTRACT_TIMED = (("mamba2", "bfloat16"), ("zamba2", "bfloat16"), ("above", "float32"))
+SSD_USER_SSM = {"head_dim": 128, "d_state": 256, "chunk_size": 512}   # (b): above every old size
+SSD_USER_PROMPT = 700          # (b)'s float32 parity: two chunks of 512, the second ragged
+SSD_USER_THREADS = 3           # (b)'s CPU side, a child beside phases 23-27
+SSD_OUT_NAMES = ("y", "dx", "ddt", "dcum", "db", "dc")
+
+
+def ssd_contract_inputs(torch, dev, shape, dtype: str, seed: int):
+    """``ssd_inputs`` chunked, cum formed in float32, all five in ``dtype``;
+    dy standard normal in ``dtype``."""
+    x, dt, a, bm, cm = ssd_inputs(torch, dev, shape, seed)
+    to = getattr(torch, dtype)
+    args = [t.to(to) for t in (x, dt, torch.cumsum(dt * a, dim=2), bm, cm)]
+    dy = torch.randn(tuple(x.shape), generator=torch.Generator().manual_seed(seed + 1))
+    return args, dy.to(dev).to(to)
+
+
+def ssd_out_err(torch, dtype: str, got, ref) -> float:
+    """Phase 3's scaled error in float32; below it ``ulp_err``."""
+    from repro_torch.kernels.accuracy import ulp_err
+
+    return scaled_err(got, ref) if dtype == "float32" else ulp_err(got, ref)
+
+
+def check_ssd_contract_case(torch, dev, SK, case, dtype, shape, seed) -> dict:
+    """One case of (a): the forward with its entry states and the backward
+    against the plain versions (above 1,000 chunks the stage compositions,
+    one pass over the chunks), two runs bit for bit, each stage (not at the
+    chunk-row cases, whose composite runs every stage kernel); below float32
+    also the plain versions in float64 arithmetic, rounded once to the
+    dtype, against which both the kernels and the float32 plain versions
+    are measured.  -> the emitted row."""
+    from repro_torch.kernels.accuracy import ulp_err
+    from repro_torch.kernels.ssd import ref
+
+    b, nc = shape[:2]
+    args, dy = ssd_contract_inputs(torch, dev, shape, dtype, seed)
+    (y, states), (y2, states2) = (SK.ssd_chunk_scan(*args, return_states=True) for _ in range(2))
+    got, again = (SK.ssd_chunk_scan_bwd(*args, states, dy) for _ in range(2))
+    torch.cuda.synchronize()
+    if nc > 1000:
+        y_ref, s_ref = ref.ssd_chunk_scan_stages_ref(*args)
+        want = ref.ssd_chunk_scan_bwd_stages_ref(*args, states, dy)
+    else:
+        y_ref, s_ref = ref.ssd_chunk_scan_ref(*args), ref.ssd_chunk_states_ref(*args)
+        want = ref.ssd_chunk_scan_bwd_ref(*args, states, dy)
+    outs, refs = (y, *got), (y_ref, *want)
+    err = {k: ssd_out_err(torch, dtype, g, r) for k, g, r in zip(SSD_OUT_NAMES, outs, refs)}
+    err["states"] = scaled_err(states, s_ref)
+    row = dict(case=case, dtype=dtype, B=b, NC=nc, L=shape[2], H=shape[3], P=shape[4],
+               N=shape[5], unit="abs/max(1,|ref|)" if dtype == "float32" else "ulps",
+               err=err, finite=all(bool(torch.isfinite(t).all()) for t in (*outs, states)),
+               dtypes=sorted({str(t.dtype) for t in outs}) + [str(states.dtype)],
+               bitwise_repeat=torch.equal(y, y2) and torch.equal(states, states2)
+               and all(torch.equal(g, a) for g, a in zip(got, again)))
+    del y2, states2, again
+    if dtype != "float32":
+        wide = [t.double() for t in (*args, states, dy)]
+        refs64 = [r.to(y.dtype) for r in (ref.ssd_chunk_scan_ref(*wide[:5]),
+                                          *ref.ssd_chunk_scan_bwd_ref(*wide))]
+        row["kernel_vs_f64"] = {k: ulp_err(g, r) for k, g, r in
+                                zip(SSD_OUT_NAMES, outs, refs64)}
+        row["plain_vs_f64"] = {k: ulp_err(g, r) for k, g, r in
+                               zip(SSD_OUT_NAMES, refs, refs64)}
+        del wide, refs64
+    if nc <= 1000:
+        row["stages"] = check_ssd_contract_stages(torch, SK, dtype, args, states, dy)
+    emit(phase="ssd_contract_kernels", **row)
+    return row
+
+
+def check_ssd_contract_stages(torch, SK, dtype, args, states, dy) -> dict:
+    """Each ``stage_*`` against its plain stage on the same inputs and twice
+    bit for bit: float32 outputs (G, the states, dS, dG) scaled, the
+    dtype's (y, dx, ddt, dcum, dB, dC) in ulps, with the plain stage's
+    float64 answer as the composite's.  -> errors and whether every repeat
+    was the same bits."""
+    from repro_torch.kernels.accuracy import ulp_err
+
+    xc, dtc, cum, bc, cc = args
+    stages = forward_stages(SK, xc, dtc, cum, bc, cc) + backward_stages(
+        SK, xc, dtc, cum, bc, cc, states, dy)
+    tup = lambda t: (t,) if torch.is_tensor(t) else t
+    row, same = {"err": {}, "kernel_vs_f64": {}, "plain_vs_f64": {}}, True
+    for name, kernel_fn, plain_fn, inputs, mask in stages:
+        got, again, want = (tup(f(*inputs)) for f in (kernel_fn, kernel_fn, plain_fn))
+        low = [g.dtype != torch.float32 for g in got]
+        want64 = tup(plain_fn(*(t.double() for t in inputs))) if any(low) else want
+        for i, (g, a, r, r64) in enumerate(zip(got, again, want, want64)):
+            if mask == "causal":
+                g, a, r = torch.tril(g), torch.tril(a), torch.tril(r)
+            key = f"{name}.{i}" if len(want) > 1 else name
+            if low[i]:
+                r64 = r64.to(g.dtype)
+                row["err"][key] = ulp_err(g, r)
+                row["kernel_vs_f64"][key] = ulp_err(g, r64)
+                row["plain_vs_f64"][key] = ulp_err(r.to(g.dtype), r64)
+            else:
+                row["err"][key] = scaled_err(g, r)
+            same = same and torch.equal(g, a)
+        del got, again, want, want64
+    row["bitwise_repeat"] = same
+    return row
+
+
+def ssd_full_plain(torch, x, dt, a, bm, cm, chunk: int, wide: bool = False):
+    """``ops.ssd_full`` with the plain chunked scan in place of the kernel:
+    the same padding, chunking and cumsum, in the inputs' dtype; with
+    ``wide`` the scan in float64 arithmetic on those same chunked inputs."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan_ref
+
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    nc = -(-s // chunk)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, nc * chunk - s))
+    xc, dtc = pad(x).reshape(b, nc, chunk, h, p), pad(dt).reshape(b, nc, chunk, h)
+    cum = torch.cumsum(dtc * a[None, None, None, :], dim=2)
+    args = (xc, dtc, cum, pad(bm).reshape(b, nc, chunk, n), pad(cm).reshape(b, nc, chunk, n))
+    y = ssd_chunk_scan_ref(*(t.double() if wide else t for t in args))
+    return y.reshape(b, nc * chunk, h, p)[:, :s]
+
+
+def check_ssd_contract_ragged(torch, dev, failures: list) -> None:
+    """(a) A ragged S = 300 at chunk 256 through ``ops.ssd_full`` in bfloat16
+    and float16 within one unit in the last place of the same padding
+    around the plain scan in float64 arithmetic (the float32 plain scan's
+    error printed beside it)."""
+    from repro_torch.kernels.accuracy import ulp_err
+    from repro_torch.kernels.ssd.ops import ssd_full
+
+    b, s, h, p, n, chunk = SSD_RAGGED
+    for dtype in ("bfloat16", "float16"):
+        to = getattr(torch, dtype)
+        x, dt, a, bm, cm = (t.to(to) for t in ssd_inputs(torch, dev, (b, s, h, p, n), seed=2810))
+        y, y2 = ssd_full(x, dt, a, bm, cm, chunk=chunk), ssd_full(x, dt, a, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        e = ulp_err(y, ssd_full_plain(torch, x, dt, a, bm, cm, chunk))
+        e64 = ulp_err(y, ssd_full_plain(torch, x, dt, a, bm, cm, chunk, wide=True).to(to))
+        same = torch.equal(y, y2)
+        emit(phase="ssd_contract_kernels", case="ragged-ssd_full", dtype=dtype, B=b, S=s, H=h,
+             P=p, N=n, chunk=chunk, unit="ulps", err={"y": e}, kernel_vs_f64={"y": e64},
+             dtypes=[str(y.dtype)], bitwise_repeat=same)
+        if not (e64 <= 1.0 and same and y.dtype == to):
+            failures.append(f"ragged ssd_full {dtype}: {e64} ulps from float64, repeat {same}, "
+                            f"{y.dtype}")
+
+
+def ssd_contract_gate(row: dict) -> list[str]:
+    """What (a) holds one case to.  float32: every output and the states
+    within SSD_TOL of the plain versions.  bfloat16 and float16: every
+    output and stage output within one unit in the last place of the plain
+    versions computed in float64 and rounded once to the dtype
+    (``kernel_vs_f64``; the float32 plain versions' errors are printed
+    beside it, not gated).  The states within SSD_TOL; outputs finite, in
+    the inputs' dtype; two runs the same bits; each stage the same."""
+    def over(part: dict) -> dict:
+        f64 = part.get("kernel_vs_f64", {})
+        return {k: f64.get(k, v) for k, v in part["err"].items()
+                if (f64[k] > 1.0 if k in f64 else v > SSD_TOL)}
+
+    bad = []
+    top = dict(row, err={k: v for k, v in row["err"].items() if k != "states"})
+    if row["err"]["states"] > SSD_TOL:
+        bad.append(f"states {row['err']['states']}")
+    if over(top):
+        bad.append(f"errors {over(top)}")
+    if "stages" in row:
+        if over(row["stages"]):
+            bad.append(f"stages {over(row['stages'])}")
+        if not row["stages"]["bitwise_repeat"]:
+            bad.append("a stage's two runs differ")
+    if not row["finite"]:
+        bad.append("non-finite outputs")
+    if not row["bitwise_repeat"]:
+        bad.append("two runs differ")
+    if row["dtypes"] != [f"torch.{row['dtype']}", "torch.float32"]:
+        bad.append(f"dtypes {row['dtypes']}")
+    return [f"ssd contract {row['case']} {row['dtype']}: {b}" for b in bad]
+
+
+def check_ssd_queue3(torch, dev, SK) -> None:
+    """Not gated (ROADMAP Queue 3): at zamba2's shape in float32, the kernels
+    and the float32 plain versions each against the plain versions computed
+    in float64, every output scaled by max(1, max|ref|)."""
+    from repro_torch.kernels.ssd import ref
+
+    shape = next(c[2:] for c in SSD_CONTRACT_CASES if c[0] == "zamba2")
+    args, dy = ssd_contract_inputs(torch, dev, shape, "float32", seed=2890)
+    y, states = SK.ssd_chunk_scan(*args, return_states=True)
+    got = (y, *SK.ssd_chunk_scan_bwd(*args, states, dy))
+    plain = (ref.ssd_chunk_scan_ref(*args), *ref.ssd_chunk_scan_bwd_ref(*args, states, dy))
+    a64 = [t.double() for t in args]
+    f64 = (ref.ssd_chunk_scan_ref(*a64), *ref.ssd_chunk_scan_bwd_ref(*a64, states.double(),
+                                                                      dy.double()))
+    emit(phase="ssd_contract_f64", case="zamba2", dtype="float32",
+         shape=dict(zip(("B", "NC", "L", "H", "P", "N"), shape)),
+         kernel_vs_f64={k: scaled_err(g.double(), r) for k, g, r in zip(SSD_OUT_NAMES, got, f64)},
+         plain_vs_f64={k: scaled_err(p.double(), r) for k, p, r in zip(SSD_OUT_NAMES, plain, f64)},
+         kernel_vs_plain={k: scaled_err(g, p) for k, g, p in zip(SSD_OUT_NAMES, got, plain)},
+         max_abs_f64={k: float(r.abs().max()) for k, r in zip(SSD_OUT_NAMES, f64)})
+
+
+def ssd_contract_times(torch, dev, SK) -> None:
+    """(c) Device times of the forward and the backward call (back-to-back
+    calls under CUDA events, as phase 3), the plain versions' times and the
+    bounds (bytes at the dtype's element size; operations in 3xTF32, but
+    below float32 the products of two inputs at the dtype's rate), bfloat16
+    at the Mamba2 and zamba2 shapes and float32 above the old sizes."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan_bwd_ref, ssd_chunk_scan_ref
+
+    shapes = {c[0]: c[2:] for c in SSD_CONTRACT_CASES}
+    for i, (case, dtype) in enumerate(SSD_CONTRACT_TIMED):
+        shape = shapes[case]
+        args, dy = ssd_contract_inputs(torch, dev, shape, dtype, seed=2850 + i)
+        states = SK.ssd_chunk_scan(*args, return_states=True)[1]
+        ms = time_ms(torch, lambda: SK.ssd_chunk_scan(*args), iters=20, warmup=3)
+        bwd_ms = time_ms(torch, lambda: SK.ssd_chunk_scan_bwd(*args, states, dy), iters=10,
+                         warmup=2)
+        plain = time_ms(torch, lambda: ssd_chunk_scan_ref(*args), iters=3, warmup=1)
+        bwd_plain = time_ms(torch, lambda: ssd_chunk_scan_bwd_ref(*args, states, dy), iters=2,
+                            warmup=1)
+        elem = args[0].element_size()
+        nbytes, ops, _, mma, mma16 = ssd_work(*shape, elem=elem)
+        bwd_bytes, bwd_ops, bwd_mma, bwd_mma16 = ssd_bwd_work(*shape, elem=elem)
+        emit(phase="ssd_contract_timing", case=case, dtype=dtype,
+             shape=dict(zip(("B", "NC", "L", "H", "P", "N"), shape)),
+             ssd_chunk_scan_ms=ms, ssd_chunk_scan_bwd_ms=bwd_ms, plain_ms=plain,
+             bwd_plain_ms=bwd_plain, bytes=nbytes, bwd_bytes=bwd_bytes,
+             bound_bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+             bound_tc_ms=tensor_core_ms(ops, mma, mma16, elem),
+             bwd_bound_bytes_ms=bwd_bytes / PEAK_BYTES_PER_S * 1e3,
+             bwd_bound_tc_ms=tensor_core_ms(bwd_ops, bwd_mma, bwd_mma16, elem), library_ms=None,
+             library_note="no single PyTorch call computes the chunk scan or its backward")
+        del args, dy, states
+
+
+def ssd_user_config(dtype: str):
+    """mamba2-130m's widths with a user's SSMConfig above every old size."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-130m")
+    return dataclasses.replace(cfg, dtype=dtype,
+                               ssm=dataclasses.replace(cfg.ssm, **SSD_USER_SSM))
+
+
+def ssd_user_parity_run(torch, device: str) -> dict:
+    """(b)'s float32 run at phases 7 and 10's depth and batch (B=2, at
+    S=SSD_USER_PROMPT, so that a state carries between chunks; the seed-0
+    init drawn on the CPU): hidden states and prefill logits, the loss and
+    every gradient leaf."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.tree import tree_map
+
+    cfg = ssd_user_config("float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    params = tree_map(lambda t: t.to(device), params)
+    s = SSD_USER_PROMPT
+    toks = prompt_tokens(torch, cfg.vocab_size, 2, s, seed=s).to(device)
+    with torch.inference_mode():
+        hidden = Model(cfg).hidden(params, {"tokens": toks})[0]
+    logits = make_prefill_step(Model(cfg))(params, {"tokens": toks})
+    batch = {k: v.to(device) for k, v in lm_batch(torch, cfg.vocab_size, 2, s, seed=s).items()}
+    loss, grads = loss_and_grads(torch, Model(cfg, remat=False), params, batch)
+    return {"hidden": hidden.cpu(), "logits": logits.cpu(), "loss": loss.cpu(),
+            "grads": [g.cpu() for g in grads], "paths": leaf_paths(params)}
+
+
+def ssd_user_cpu(out: str) -> None:
+    """(b)'s CPU side, in a child process (``start_cpu_child``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    run = ssd_user_parity_run(torch, "cpu")
+    torch.save({**run, "seconds": time.perf_counter() - t0}, out)
+
+
+def run_ssd_user_config(torch, SK, cpu_child, failures: list) -> None:
+    """(b) The user's config on the card against the CPU (the child's run),
+    under phases 7 and 10's gates; then, in the published bfloat16, prefill
+    at B=8 x 2,048 and one train step at phase 11's size, timed, with peak
+    memory and exactly one forward (and one backward) launch a layer."""
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.optim.adamw import AdamW
+
+    t0 = time.perf_counter()
+    card = ssd_user_parity_run(torch, "cuda")
+    card_s = time.perf_counter() - t0
+    proc, tmp = cpu_child
+    rc = proc.wait(timeout=1200)
+    require(rc == 0, f"(b)'s CPU run exited {rc}: {(tmp / 'log').read_text()[-2000:]}")
+    cpu = torch.load(tmp / "out.pt")
+    shutil.rmtree(tmp)
+    e = {k: scaled_err(card[k], cpu[k]) for k in ("hidden", "logits", "loss")}
+    e["grads"] = max(scaled_err(g, r) for g, r in zip(card["grads"], cpu["grads"]))
+    by_leaf = sorted(((leaf_err(g, r), q) for q, g, r in
+                      zip(cpu["paths"], card["grads"], cpu["grads"])), reverse=True)
+    decay = [(v, q) for v, q in by_leaf if q.endswith(DECAY_LEAVES)]
+    other = [(v, q) for v, q in by_leaf if not q.endswith(DECAY_LEAVES)]
+    cfg = ssd_user_config("float32")
+    emit(phase="ssd_user_config_parity", arch=cfg.name, ssm=SSD_USER_SSM, B=2,
+         S=SSD_USER_PROMPT, dtype="float32", card_vs_cpu_scaled_err=e,
+         grad_leaf_err_worst=other[:4], grad_leaf_err_decay=decay, card_s=card_s,
+         cpu_s=cpu["seconds"], cpu_threads=SSD_USER_THREADS)
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (card["hidden"], card["logits"], card["loss"], *card["grads"]))
+    if not finite:
+        failures.append("user config: non-finite card outputs")
+    if max(e.values()) > MAMBA_TOL or other[0][0] > MAMBA_TOL or decay[0][0] > DECAY_GRAD_TOL:
+        failures.append(f"user config: card against CPU {e}, by leaf {other[0]}, {decay[0]}")
+    del card, cpu
+
+    # The published dtype at phases 8 and 11's size.
+    cfg = ssd_user_config("bfloat16")
+    layers = cfg.num_layers
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    toks = prompt_tokens(torch, cfg.vocab_size, SERVE_B, SERVE_PROMPT, seed=0).cuda()
+    prefill = make_prefill_step(Model(cfg))
+    prefill(params, {"tokens": toks})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = SK.ssd_chunk_scan.launches
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = SK.ssd_chunk_scan.launches - before
+    prefill_peak = torch.cuda.max_memory_allocated()
+    model = Model(cfg, remat=False)
+    opt = AdamW(TRAIN_LR)
+    opt_state = opt.init(params)
+    batch = {k: v.cuda() for k, v in
+             lm_batch(torch, cfg.vocab_size, TRAIN_B, TRAIN_SEQ, seed=0).items()}
+    step = make_train_step(model, opt)
+    params, opt_state, metrics = step(params, opt_state, batch)  # warm-up
+    first_loss = float(metrics["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+    t0 = time.perf_counter()
+    params, opt_state, metrics = step(params, opt_state, batch)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    step_launches = (SK.ssd_chunk_scan.launches - before[0],
+                     SK.ssd_chunk_scan_bwd.launches - before[1])
+    emit(phase="ssd_user_config_slice", arch=cfg.name, ssm=SSD_USER_SSM, dtype=cfg.dtype,
+         B=SERVE_B, prompt=SERVE_PROMPT, prefill_s=prefill_s,
+         prefill_tokens_per_s=SERVE_B * SERVE_PROMPT / prefill_s,
+         prefill_peak_mem_gb=prefill_peak / 1e9, prefill_ssd_launches=prefill_launches,
+         train_B=TRAIN_B, train_seq=TRAIN_SEQ, step_s=step_s,
+         train_tokens_per_s=TRAIN_B * TRAIN_SEQ / step_s,
+         step_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=[first_loss, loss],
+         step_ssd_launches=step_launches)
+    if not (bool(torch.isfinite(logits).all()) and math.isfinite(loss)):
+        failures.append("user config bf16: non-finite prefill logits or loss")
+    if prefill_launches != layers or step_launches != (layers, layers):
+        failures.append(f"user config bf16: SSD launches {prefill_launches}, {step_launches}, "
+                        f"expected {layers} and {(layers, layers)}")
+
+
+def run_ssd_public_ops(torch, dev, failures: list) -> None:
+    """The public ops at every dtype: ``ops.ssd_full`` under autograd at the
+    ragged shape in bfloat16, float16 and with mixed dtypes (x bfloat16, the
+    rest float32), a standard normal cotangent, one forward and one backward
+    launch each; gradients finite and in their inputs' dtypes.  In float16
+    A is a constant: its gradient sums over every position and leaves
+    float16's range."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ops import ssd_full
+
+    b, s, h, p, n, chunk = SSD_RAGGED
+    base = ssd_inputs(torch, dev, (b, s, h, p, n), seed=2820)
+    cot = torch.randn((b, s, h, p), generator=torch.Generator().manual_seed(2821)).to(dev)
+    for name, dtypes in (("bfloat16", ("bfloat16",) * 5), ("float16", ("float16",) * 5),
+                         ("mixed", ("bfloat16", "float32", "float32", "float32", "float32"))):
+        args = [t.to(getattr(torch, d)) for t, d in zip(base, dtypes)]
+        leaves = [a.requires_grad_(True) for i, a in enumerate(args)
+                  if not (name == "float16" and i == 2)]
+        before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+        y = ssd_full(*args, chunk=chunk)
+        grads = torch.autograd.grad(y, leaves, cot.to(y.dtype))
+        after = (SK.ssd_chunk_scan.launches - before[0], SK.ssd_chunk_scan_bwd.launches - before[1])
+        ok = (after == (1, 1) and y.dtype == leaves[0].dtype
+              and all(g.dtype == a.dtype and bool(torch.isfinite(g).all())
+                      for g, a in zip(grads, leaves)))
+        emit(phase="ssd_contract_ops", case=name, B=b, S=s, H=h, P=p, N=n, chunk=chunk,
+             launches=after, dtypes=[str(g.dtype) for g in grads], ok=ok)
+        if not ok:
+            failures.append(f"ssd_full under autograd, {name}: launches {after}")
+
+
+def run_ssd_contract_phase(torch, dev, SK, cpu_child=None) -> dict[str, int]:
+    """Phase 28: (a) every dtype, the sizes above the old limits and more
+    than 65,535 rows against the plain versions, a ragged ``ssd_full``, and
+    (not gated) the float64 answer at zamba2's shape; the public ops under
+    autograd at every dtype and (b) a Mamba2 at a user's config above every
+    old size, both counted; (c) times.  Every failure is gathered and the
+    phase fails at its end.  Returns the launches of the counted paths."""
+    t_phase = time.perf_counter()
+    cpu_child = cpu_child or start_cpu_child("ssd_user_cpu", SSD_USER_THREADS)
+    failures: list[str] = []
+    for i, (case, dtypes, *shape) in enumerate(SSD_CONTRACT_CASES):
+        for j, dtype in enumerate(dtypes):
+            row = check_ssd_contract_case(torch, dev, SK, case, dtype, tuple(shape),
+                                          seed=2800 + 10 * i + j)
+            failures += ssd_contract_gate(row)
+            torch.cuda.empty_cache()
+    check_ssd_contract_ragged(torch, dev, failures)
+    check_ssd_queue3(torch, dev, SK)
+    torch.cuda.synchronize()
+
+    SK.ssd_chunk_scan.launches = 0
+    SK.ssd_chunk_scan_bwd.launches = 0
+    run_ssd_public_ops(torch, dev, failures)
+    run_ssd_user_config(torch, SK, cpu_child, failures)
+    torch.cuda.synchronize()
+    launches = {"ssd_chunk_scan": SK.ssd_chunk_scan.launches,
+                "ssd_chunk_scan_bwd": SK.ssd_chunk_scan_bwd.launches}
+    torch.cuda.empty_cache()
+
+    ssd_contract_times(torch, dev, SK)
+    emit(phase="ssd_contract_seconds", seconds=time.perf_counter() - t_phase, launches=launches,
+         failures=failures)
+    require(not failures, "; ".join(failures))
     return launches
 
 

@@ -1,9 +1,16 @@
 // Mamba2 SSD chunked scan, forward and backward, for Hopper (sm_90a).  Plain
 // C interface, loaded with ctypes by repro_torch/kernels/ssd/kernel.py.  All
-// tensors are float32 and contiguous:
+// tensors are contiguous:
 //
 //   x, dy (B, NC, L, H, P)   dt, cum (B, NC, L, H)   Bm, Cm (B, NC, L, N)
 //   states, dS (B, NC, H, P, N)   G, dG (B, NC, L, L)
+//
+// x, dt, cum, Bm, Cm and dy, and the outputs y, dx, ddt, dcum, dB and dC,
+// are float32, bfloat16 or float16 (the storage type T, one for all of
+// them); the entry states, G, dG and the dS carries are always float32.
+// Every load of a T tensor is widened to float32 on its way into shared
+// memory, every product, exp, mask and decay is float32, and each output is
+// rounded to T once, at its store, as the reference does.
 //
 // Replaces the Pallas kernels repro/kernels/ssd/kernel.py::ssd_chunk_scan
 // (bodies _ssd_kernel and _ssd_kernel_with_states) and ::ssd_chunk_scan_bwd
@@ -39,7 +46,8 @@
 // every tile product runs on the tensor cores in 3xTF32, three TF32 products
 // per product (at most 165 TFLOP/s), so the arithmetic these kernels run is
 // bound at ~0.13 ms forward and ~0.25 ms backward (chip_smoke.py prints both
-// bounds).
+// bounds).  In bfloat16 and float16 the bytes halve and the arithmetic, all
+// float32, stays: operations bound them further still.
 //
 // Design.  The chunked algorithm (arXiv:2405.21060, section 6): per-chunk
 // work in parallel, only the P x N state carry in sequence.
@@ -82,22 +90,74 @@
 //      rows allow, else 4-byte), double-buffered, in 64-column rows whose
 //      4-float groups are XOR-swizzled by the row, so that both fragment
 //      access patterns (lanes along rows, or along columns) hit 32 banks.
+//      A 16-bit tile goes through registers instead (16-byte loads of 8
+//      elements, widened, stored as two float4), so it is staged when issued.
+//   5. Below float32 every tile product is exact (warp_mma_exact): one
+//      operand is a 16-bit input's, exact in TF32, the other is split into
+//      three TF32 parts, and each 8-deep step is added on the CUDA cores.
+//      3xTF32 and the tensor cores' long accumulation chains leave ~8e-5 of
+//      max|dB| at zamba2's shape, several 16-bit last places; this path
+//      stays within one of the float64 answer.  The float32 kernels keep
+//      3xTF32, their earlier bits.
+//
+// Any shape.  Up to L = 256, P = 64 and N = 128 every launch is the one the
+// kernels had when those were their limits.  Above them:
+//
+//   - P is taken in 64-column tiles: a "virtual head" (h, p-tile) on the grid
+//     of the local, y and head kernels, and one more step a head in the dG
+//     and dB/dC kernels, whose products sum over P.  ddt and dcum sum over P
+//     too: above P = 64 the head kernel writes one float32 partial a p-tile
+//     and ssd_sum_parts_kernel adds them in order and rounds once.
+//   - N is taken in 64-column halves, any number of them: G's product runs
+//     them through a two-stage ring, and the local kernel takes 128 columns
+//     of the state a block (a grid axis of column groups).
+//   - The per-row arrays (the local kernel's row scales, the y and head
+//     kernels' cum and dt rows) are sized from L at launch in dynamic shared
+//     memory, never below the 256 rows they had; the head kernel's arrays
+//     fill its shared memory at L = 16,320, the longest chunk taken.
+//   - Grid y and z hold at most 65,535: the (batch, chunk) rows, and the
+//     batch rows and chunks of the local and pass kernels, run in launches
+//     of at most 65,535 each, the kernels offset by the run's first row (the
+//     state pass by whole batch rows, so a carry never crosses a launch).
 //
 // Sums are taken in a fixed order and there are no atomics, so two runs give
 // the same bits.  Entries above the diagonal, and past L, are set to zero
 // before exp is evaluated (cum_l - cum_m is large and positive there).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int TILE = 64;         // rows of a tile; columns of a shared tile
 constexpr int TILE_FLOATS = TILE * TILE;
 constexpr int THREADS = 256;     // 8 warps
-constexpr int MAX_L = 256;
-constexpr int MAX_P = 64;
-constexpr int MAX_N = 128;
+constexpr int MIN_ROWS = 256;    // the per-row arrays' least length (floats)
+constexpr int MAX_GRID = 65535;  // grid y and z
+constexpr size_t MAX_SMEM = 232448;  // a block's dynamic shared memory on this card
+
+__host__ __device__ __forceinline__ int tiles_of(int L) { return (L + TILE - 1) / TILE; }
+__host__ __device__ __forceinline__ int p_tiles(int P) { return (P + TILE - 1) / TILE; }
+__host__ __device__ __forceinline__ int n_groups(int N) { return (N + 2 * TILE - 1) / (2 * TILE); }
+// Length of the per-row arrays of a chunk of L rows.
+__host__ __device__ __forceinline__ int rows_of(int L) {
+  return tiles_of(L) * TILE > MIN_ROWS ? tiles_of(L) * TILE : MIN_ROWS;
+}
+
+// T tensors in and out of float32 (round to nearest even on the way out).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
 // ---------------------------------------------------------------------------
 // Shared tiles: 64 rows of 64 floats.  Element (r, c) lives at
@@ -157,7 +217,39 @@ __device__ __forceinline__ void load_tile(float* tile, const float* __restrict__
   }
 }
 
-// `count` floats with stride `ld` into vec[0, 64), zero past count.
+// The same from a 16-bit matrix, through registers, widened to float32: 8
+// elements (16 bytes) a load when rows start 16-byte aligned and cols is a
+// multiple of 8, else one at a time.  The tile is written when this returns.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src, size_t ld,
+                                          int rows, int cols) {
+  static_assert(sizeof(T) == 2, "16-bit tiles only");
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) & 15) == 0) && (ld % 8 == 0) &&
+                   (cols % 8 == 0);
+  if (vec) {
+    for (int e = threadIdx.x; e < TILE * TILE / 8; e += THREADS) {
+      const int r = e >> 3;
+      const int c = (e & 7) << 3;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (r < rows && c < cols) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + r * ld + c);
+        const T* v = reinterpret_cast<const T*>(&raw);
+        lo = make_float4(to_f32(v[0]), to_f32(v[1]), to_f32(v[2]), to_f32(v[3]));
+        hi = make_float4(to_f32(v[4]), to_f32(v[5]), to_f32(v[6]), to_f32(v[7]));
+      }
+      *reinterpret_cast<float4*>(tile + at(r, c)) = lo;
+      *reinterpret_cast<float4*>(tile + at(r, c + 4)) = hi;
+    }
+  } else {
+    for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
+      const int r = e >> 6;
+      const int c = e & 63;
+      tile[at(r, c)] = (r < rows && c < cols) ? to_f32(src[r * ld + c]) : 0.f;
+    }
+  }
+}
+
+// `count` values with stride `ld` into vec[0, 64), zero past count.
 __device__ __forceinline__ void load_vec(float* vec, const float* __restrict__ src, size_t ld,
                                          int count) {
   for (int e = threadIdx.x; e < TILE; e += THREADS) {
@@ -167,6 +259,11 @@ __device__ __forceinline__ void load_vec(float* vec, const float* __restrict__ s
       vec[e] = 0.f;
     }
   }
+}
+template <typename T>
+__device__ __forceinline__ void load_vec(float* vec, const T* __restrict__ src, size_t ld,
+                                         int count) {
+  for (int e = threadIdx.x; e < TILE; e += THREADS) vec[e] = e < count ? to_f32(src[e * ld]) : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -237,6 +334,84 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 }
 
+// The three TF32 parts of v, smallest first: lo + mid + hi carries all 24 bits
+// of v (hi = tf32(v), mid = tf32(v - hi), lo = tf32(v - hi - mid), each
+// difference exact in float32).
+__device__ __forceinline__ void split3_tf32(float v, uint32_t (&part)[3]) {
+  uint32_t unused;
+  split_tf32(v, part[2], part[1]);
+  split_tf32((v - __uint_as_float(part[2])) - __uint_as_float(part[1]), part[0], unused);
+}
+
+// The TF32 parts of v in P registers: P = 1 for a value that TF32 holds
+// exactly (a 16-bit input's), P = 3 otherwise.
+template <int P>
+__device__ __forceinline__ void tf32_parts(float v, uint32_t (&part)[P]) {
+  if constexpr (P == 1) {
+    part[0] = __float_as_uint(v);
+  } else {
+    split3_tf32(v, part);
+  }
+}
+
+// One warp, below float32: acc += A B as warp_mma, with every product exact.
+// The storage type's values are exact in TF32 (bfloat16 and float16 carry
+// at most 11 significant bits), so at most one operand needs parts: kSplit
+// 0 takes both whole (16-bit inputs both), 1 splits B and 2 splits A into
+// three TF32 parts, and each part's product is exact in the float32 sum.
+// Each 8-deep step sums on the tensor cores into a fresh accumulator,
+// smallest parts first, and is added to acc on the CUDA cores (round to
+// nearest): a long chain of tensor-core additions loses a little at each
+// one, always the same way.  No product is dropped, unlike 3xTF32's lo*lo.
+template <int kSplit, int NT, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma_exact(float (&acc)[NT][4], FA fa, FB fb) {
+  constexpr int PA = kSplit == 2 ? 3 : 1, PB = kSplit == 1 ? 3 : 1;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < TILE; k0 += 8) {
+    uint32_t a[4][PA], b[NT][2][PB];
+    tf32_parts<PA>(fa(g, k0 + t), a[0]);
+    tf32_parts<PA>(fa(g + 8, k0 + t), a[1]);
+    tf32_parts<PA>(fa(g, k0 + t + 4), a[2]);
+    tf32_parts<PA>(fa(g + 8, k0 + t + 4), a[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tf32_parts<PB>(fb(k0 + t, 8 * j + g), b[j][0]);
+      tf32_parts<PB>(fb(k0 + t + 4, 8 * j + g), b[j][1]);
+    }
+    float d[NT][4];
+    zero(d);
+#pragma unroll
+    for (int pa = 0; pa < PA; ++pa)
+#pragma unroll
+      for (int pb = 0; pb < PB; ++pb)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint32_t af[4] = {a[0][pa], a[1][pa], a[2][pa], a[3][pa]};
+          const uint32_t bf[2] = {b[j][0][pb], b[j][1][pb]};
+          mma_tf32(d[j], af, bf);
+        }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += d[j][i];
+  }
+}
+
+// acc += A B: in the float32 kernels warp_mma (3xTF32, their earlier bits);
+// below float32 warp_mma_exact<kSplit>, kSplit naming the operand that is not
+// a 16-bit input's (1: B, 2: A, 0: neither).
+template <typename T, int kSplit, int NT, typename FA, typename FB>
+__device__ __forceinline__ void tile_mma(float (&acc)[NT][4], FA fa, FB fb) {
+  if constexpr (std::is_same<T, float>::value) {
+    warp_mma<NT>(acc, fa, fb);
+  } else {
+    warp_mma_exact<kSplit, NT>(acc, fa, fb);
+  }
+}
+
 // The causal tile pair (lt, mt), mt <= lt, of index p in row order.
 __device__ __forceinline__ void pair_of(int p, int& lt, int& mt) {
   lt = 0;
@@ -254,40 +429,48 @@ __device__ __forceinline__ int warp_col0(int width) {
 
 // ===========================================================================
 // Forward 1 and backward 1: G = C B^T, one causal 64 x 64 tile (lt, mt) of one
-// (batch, chunk) per block.  grid (tiles (tiles + 1) / 2, B NC).  The depth N
-// is staged in two 64-column halves, the second in flight while the first is
-// used.  kBackward only names the launch (a profile tells the two apart).
+// (batch, chunk) per block.  grid (tiles (tiles + 1) / 2, rows of the run).
+// The depth N is staged in 64-column halves through a two-stage ring, the
+// next half in flight while one is used.  kBackward only names the launch (a
+// profile tells the two apart).
 // ===========================================================================
 
-template <bool kBackward>
+template <typename T, bool kBackward>
 __global__ void __launch_bounds__(THREADS)
-ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm, float* __restrict__ G,
-              int L, int N) {
+ssd_cb_kernel(const T* __restrict__ bm, const T* __restrict__ cm, float* __restrict__ G,
+              int L, int N, int row0) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);  // per half: C tile, B tile
+  float* smem = reinterpret_cast<float*>(smem4);  // per stage: C tile, B tile
   int lt, mt;
   pair_of(blockIdx.x, lt, mt);
-  const size_t bc = blockIdx.y;
+  const size_t bc = (size_t)row0 + blockIdx.y;
   const int l0 = lt * TILE, m0 = mt * TILE;
   const int lrows = min(TILE, L - l0), mrows = min(TILE, L - m0);
   const int halves = (N + TILE - 1) / TILE;
-  for (int hf = 0; hf < halves; ++hf) {
-    float* cs = smem + 2 * hf * TILE_FLOATS;
+  auto issue = [&](int hf) {
+    float* cs = smem + 2 * (hf & 1) * TILE_FLOATS;
     const int cols = min(TILE, N - hf * TILE);
     load_tile(cs, cm + (bc * L + l0) * N + hf * TILE, N, lrows, cols);
     load_tile(cs + TILE_FLOATS, bm + (bc * L + m0) * N + hf * TILE, N, mrows, cols);
     cp_commit();
-  }
+  };
+  issue(0);
   const int rm = warp_row0(), cn = warp_col0(TILE);
   float acc[4][4];
   zero(acc);
   for (int hf = 0; hf < halves; ++hf) {
-    if (halves - hf == 2) cp_wait<1>(); else cp_wait<0>();
+    if (hf + 1 < halves) {
+      issue(hf + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
     __syncthreads();
-    const float* cs = smem + 2 * hf * TILE_FLOATS;
+    const float* cs = smem + 2 * (hf & 1) * TILE_FLOATS;
     const float* bs = cs + TILE_FLOATS;
-    warp_mma<4>(acc, [&](int r, int k) { return cs[at(rm + r, k)]; },
-                [&](int k, int n) { return bs[at(cn + n, k)]; });
+    tile_mma<T, 0>(acc, [&](int r, int k) { return cs[at(rm + r, k)]; },
+                   [&](int k, int n) { return bs[at(cn + n, k)]; });
+    if (hf + 2 < halves) __syncthreads();  // the next issue overwrites this stage
   }
   float* gt = G + bc * L * L;
 #pragma unroll
@@ -303,40 +486,46 @@ ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm, float*
 // Forward 2 and backward 2: out[b, k, h] (P x N) = sum_l s_l X_l^T Y_l for the
 // chunks k in [c0, c0 + gridDim.y).  Forward: X = x, Y = B, s = indec (the
 // chunk-local state); backward: X = dy, Y = C, s = e (the carry F_k).
-// grid (H, chunks, B).  Over l by 64-row tiles, double-buffered.
+// grid (H x p-tiles x column groups, chunks, batch rows of the run): a block
+// forms 64 rows p and 128 columns n of one head's output.  Over l by 64-row
+// tiles, double-buffered.
 // ===========================================================================
 
-template <bool kBackward>
+template <typename T, bool kBackward>
 __global__ void __launch_bounds__(THREADS)
-ssd_local_kernel(const float* __restrict__ xs_src, const float* __restrict__ dt,
-                 const float* __restrict__ cum, const float* __restrict__ ys_src,
-                 float* __restrict__ out, int NC, int L, int H, int P, int N, int c0) {
+ssd_local_kernel(const T* __restrict__ xs_src, const T* __restrict__ dt,
+                 const T* __restrict__ cum, const T* __restrict__ ys_src,
+                 float* __restrict__ out, int NC, int L, int H, int P, int N, int c0, int b0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x (X, Y half 0, Y half 1)
-  float* scale = smem + 6 * TILE_FLOATS;          // (MAX_L)
-  const int h = blockIdx.x;
+  float* scale = smem + 6 * TILE_FLOATS;          // (rows_of(L))
+  const int groups = p_tiles(P) * n_groups(N);
+  const int h = blockIdx.x / groups;
+  const int p0 = (blockIdx.x % groups) / n_groups(N) * TILE;
+  const int n0 = (blockIdx.x % n_groups(N)) * 2 * TILE;
   const int c = c0 + blockIdx.y;
-  const size_t bc = (size_t)blockIdx.z * NC + c;
-  const int tiles = (L + TILE - 1) / TILE;
-  const int halves = (N + TILE - 1) / TILE;
+  const size_t bc = ((size_t)b0 + blockIdx.z) * NC + c;
+  const int tiles = tiles_of(L);
+  const int prow = min(TILE, P - p0), ncols = min(2 * TILE, N - n0);
+  const int halves = (ncols + TILE - 1) / TILE;
 
   auto issue = [&](int kt) {
     float* st = smem + (kt & 1) * 3 * TILE_FLOATS;
     const int rows = min(TILE, L - kt * TILE);
     const size_t row = bc * L + kt * TILE;
-    load_tile(st, xs_src + (row * H + h) * P, (size_t)H * P, rows, P);
+    load_tile(st, xs_src + (row * H + h) * P + p0, (size_t)H * P, rows, prow);
     for (int hf = 0; hf < halves; ++hf)
-      load_tile(st + (1 + hf) * TILE_FLOATS, ys_src + row * N + hf * TILE, N, rows,
-                min(TILE, N - hf * TILE));
+      load_tile(st + (1 + hf) * TILE_FLOATS, ys_src + row * N + n0 + hf * TILE, N, rows,
+                min(TILE, ncols - hf * TILE));
     cp_commit();
   };
   issue(0);
-  const float cum_last = cum[(bc * L + L - 1) * H + h];
-  for (int l = threadIdx.x; l < MAX_L; l += THREADS) {
+  const float cum_last = to_f32(cum[(bc * L + L - 1) * H + h]);
+  for (int l = threadIdx.x; l < rows_of(L); l += THREADS) {
     float s = 0.f;
     if (l < L) {
-      const float cl = cum[(bc * L + l) * H + h];
-      s = kBackward ? expf(cl) : expf(cum_last - cl) * dt[(bc * L + l) * H + h];
+      const float cl = to_f32(cum[(bc * L + l) * H + h]);
+      s = kBackward ? expf(cl) : expf(cum_last - cl) * to_f32(dt[(bc * L + l) * H + h]);
     }
     scale[l] = s;
   }
@@ -355,18 +544,18 @@ ssd_local_kernel(const float* __restrict__ xs_src, const float* __restrict__ dt,
     const float* xt = smem + (kt & 1) * 3 * TILE_FLOATS;
     const float* yt = xt + (1 + cn / TILE) * TILE_FLOATS;
     const float* sc = scale + kt * TILE;
-    if (cn < N)  // warp-uniform: the second half exists only for N > 64
-      warp_mma<8>(acc, [&](int r, int k) { return sc[k] * xt[at(k, rm + r)]; },
-                  [&](int k, int n) { return yt[at(k, n)]; });
+    if (cn < ncols)  // warp-uniform: the second half exists only for 64 < ncols
+      tile_mma<T, 2>(acc, [&](int r, int k) { return sc[k] * xt[at(k, rm + r)]; },
+                     [&](int k, int n) { return yt[at(k, n)]; });
     __syncthreads();
   }
-  float* o = out + (bc * H + h) * P * N;
+  float* o = out + (bc * H + h) * P * N + (size_t)p0 * N + n0;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int p = rm + acc_row(i), n = cn + acc_col(j, i);
-      if (p < P && n < N) o[(size_t)p * N + n] = acc[j][i];
+      if (p < prow && n < ncols) o[(size_t)p * N + n] = acc[j][i];
     }
 }
 
@@ -376,17 +565,17 @@ ssd_local_kernel(const float* __restrict__ xs_src, const float* __restrict__ dt,
 // v = buf[k]; buf[k] = s; s = s exp(cum_last of k) + v, from s = 0.  The
 // forward turns chunk-local states into entry states S_k; the backward turns
 // F_k into dS_k.  The last chunk visited is only written (its v is unused).
-// grid (ceil(P N / 256), H, B).
+// grid (ceil(P N / 256), H, batch rows of the run).
 // ===========================================================================
 
-template <bool kBackward>
+template <typename T, bool kBackward>
 __global__ void __launch_bounds__(THREADS)
-ssd_pass_kernel(float* __restrict__ buf, const float* __restrict__ cum, int NC, int L, int H,
-                int PN) {
+ssd_pass_kernel(float* __restrict__ buf, const T* __restrict__ cum, int NC, int L, int H,
+                int PN, int b0) {
   const int e = blockIdx.x * THREADS + threadIdx.x;
   if (e >= PN) return;
   const int h = blockIdx.y;
-  const size_t b = blockIdx.z;
+  const size_t b = (size_t)b0 + blockIdx.z;
   auto chunk = [&](int i) { return kBackward ? NC - 1 - i : i; };
   float s = 0.f;
   // Eight chunks' loads are issued before their stores, so they overlap.
@@ -397,7 +586,7 @@ ssd_pass_kernel(float* __restrict__ buf, const float* __restrict__ cum, int NC, 
       const int i = i0 + k, c = chunk(i);
       const bool more = i + 1 < NC;
       v[k] = more ? buf[((b * NC + c) * H + h) * PN + e] : 0.f;
-      cd[k] = more ? expf(cum[((b * NC + c) * L + L - 1) * H + h]) : 0.f;
+      cd[k] = more ? expf(to_f32(cum[((b * NC + c) * L + L - 1) * H + h])) : 0.f;
     }
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -411,27 +600,31 @@ ssd_pass_kernel(float* __restrict__ buf, const float* __restrict__ cum, int NC, 
 }
 
 // ===========================================================================
-// Forward 4: y for one (batch, chunk, head, 64-row query tile t).
-// grid (tiles, H, B NC).  One pipeline of steps, each staged while the one
-// before is used: first the carried term C S_k^T, one step per half of N
-// (C and S_k), then scaled by e_l; then one step per key tile j <= t (G[t][j]
-// and x_j): y += (G decay dt_m) x_j, the weights formed in place of G
-// before the product.  Four tiles of shared memory, so three blocks share an
-// SM.
+// Forward 4: y for one (batch, chunk, head, 64-row query tile t) and 64
+// columns p of P.  grid (tiles, H x p-tiles, rows of the run).  One pipeline
+// of steps, each staged while the one before is used: first the carried term
+// C S_k^T, one step per half of N (C and S_k), then scaled by e_l; then one
+// step per key tile j <= t (G[t][j] and x_j): y += (G decay dt_m) x_j, the
+// weights formed in place of G before the product.  Four tiles of shared
+// memory, so three blocks share an SM.
 // ===========================================================================
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-             const float* __restrict__ cum, const float* __restrict__ cm,
-             const float* __restrict__ G, const float* __restrict__ states,
-             float* __restrict__ y, int L, int H, int P, int N) {
+ssd_y_kernel(const T* __restrict__ x, const T* __restrict__ dt, const T* __restrict__ cum,
+             const T* __restrict__ cm, const float* __restrict__ G,
+             const float* __restrict__ states, T* __restrict__ y, int L, int H, int P, int N,
+             int row0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x 2 tiles
-  float* cum_s = smem + 4 * TILE_FLOATS;           // (MAX_L)
-  float* dt_s = cum_s + MAX_L;                     // (MAX_L)
+  const int LR = rows_of(L);
+  float* cum_s = smem + 4 * TILE_FLOATS;           // (LR)
+  float* dt_s = cum_s + LR;                        // (LR)
   const int t = blockIdx.x;
-  const int h = blockIdx.y;
-  const size_t bc = blockIdx.z;
+  const int h = blockIdx.y / p_tiles(P);
+  const int p0 = (blockIdx.y % p_tiles(P)) * TILE;
+  const int prow = min(TILE, P - p0);
+  const size_t bc = (size_t)row0 + blockIdx.z;
   const int l0 = t * TILE;
   const int lrows = min(TILE, L - l0);
   const int halves = (N + TILE - 1) / TILE;
@@ -442,20 +635,21 @@ ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     if (st < halves) {
       const int cols = min(TILE, N - st * TILE);
       load_tile(buf, cm + (bc * L + l0) * N + st * TILE, N, lrows, cols);
-      load_tile(buf + TILE_FLOATS, states + (bc * H + h) * P * N + st * TILE, N, P, cols);
+      load_tile(buf + TILE_FLOATS, states + ((bc * H + h) * P + p0) * N + st * TILE, N, prow,
+                cols);
     } else {
       const int j = st - halves;
       const int rows = min(TILE, L - j * TILE);
       load_tile(buf, G + bc * L * L + (size_t)l0 * L + j * TILE, L, lrows, rows);
-      load_tile(buf + TILE_FLOATS, x + ((bc * L + j * TILE) * H + h) * P, (size_t)H * P, rows,
-                P);
+      load_tile(buf + TILE_FLOATS, x + ((bc * L + j * TILE) * H + h) * P + p0, (size_t)H * P,
+                rows, prow);
     }
     cp_commit();
   };
   issue(0);
-  for (int l = threadIdx.x; l < MAX_L; l += THREADS) {
-    cum_s[l] = l < L ? cum[(bc * L + l) * H + h] : 0.f;
-    dt_s[l] = l < L ? dt[(bc * L + l) * H + h] : 0.f;
+  for (int l = threadIdx.x; l < LR; l += THREADS) {
+    cum_s[l] = l < L ? to_f32(cum[(bc * L + l) * H + h]) : 0.f;
+    dt_s[l] = l < L ? to_f32(dt[(bc * L + l) * H + h]) : 0.f;
   }
 
   const int rm = warp_row0(), cn = warp_col0(TILE);
@@ -472,8 +666,8 @@ ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     float* buf = smem + 2 * (st & 1) * TILE_FLOATS;
     const float* other = buf + TILE_FLOATS;
     if (st < halves) {
-      warp_mma<4>(acc, [&](int r, int k) { return buf[at(rm + r, k)]; },
-                  [&](int k, int n) { return other[at(cn + n, k)]; });
+      tile_mma<T, 1>(acc, [&](int r, int k) { return buf[at(rm + r, k)]; },
+                     [&](int k, int n) { return other[at(cn + n, k)]; });
       if (st == halves - 1) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -490,8 +684,8 @@ ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         *w = (gm <= gl && gl < L) ? *w * expf(cum_s[gl] - cum_s[gm]) * dt_s[gm] : 0.f;
       }
       __syncthreads();
-      warp_mma<4>(acc, [&](int r, int k) { return buf[at(rm + r, k)]; },
-                  [&](int k, int n) { return other[at(k, cn + n)]; });
+      tile_mma<T, 2>(acc, [&](int r, int k) { return buf[at(rm + r, k)]; },
+                     [&](int k, int n) { return other[at(k, cn + n)]; });
     }
     __syncthreads();  // the next step may overwrite this stage
   }
@@ -500,7 +694,8 @@ ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int l = rm + acc_row(i), p = cn + acc_col(j, i);
-      if (l < lrows && p < P) y[((bc * L + l0 + l) * H + h) * P + p] = acc[j][i];
+      if (l < lrows && p < prow)
+        y[((bc * L + l0 + l) * H + h) * P + p0 + p] = from_f32<T>(acc[j][i]);
     }
 }
 
@@ -513,8 +708,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ===========================================================================
 // Backward 4: dx, ddt and dcum of one (batch, chunk, head) on the 64 rows of
-// tile t.  grid (tiles, H, B NC).  One pipeline of steps, each step's tiles
-// staged while the step before is used:
+// tile t and 64 columns p of P.  grid (tiles, H x p-tiles, rows of the run).
+// One pipeline of steps, each step's tiles staged while the step before is
+// used:
 //
 // Phase 1, the carried state: V = B_t dS^T and Z = C_t S_k^T (64 x P, depth
 // N), one step per half of N for each.  dx starts at indec V; g_l = x_l . V_l
@@ -528,23 +724,31 @@ __device__ __forceinline__ float quad_sum(float v) {
 // registers, W written in place of G.  Every block does `tiles` dW
 // products, so the blocks of a chunk are balanced.  Six tiles of shared
 // memory (101 KB), so two blocks share an SM.
+//
+// Every sum over p here (dW, g, z, <dS_k, S_k+1>) covers the block's 64
+// columns: above P = 64 ddt and dcum leave as float32 partials, one a
+// p-tile, in ddt_part and dcum_part ((rows, L, H, p-tiles)), for
+// ssd_sum_parts_kernel.
 // ===========================================================================
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ cum, const float* __restrict__ bm,
-                    const float* __restrict__ cm, const float* __restrict__ states,
+ssd_bwd_head_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                    const T* __restrict__ cum, const T* __restrict__ bm,
+                    const T* __restrict__ cm, const float* __restrict__ states,
                     const float* __restrict__ ds, const float* __restrict__ G,
-                    const float* __restrict__ dy, float* __restrict__ dx,
-                    float* __restrict__ ddt, float* __restrict__ dcum, int NC, int L, int H,
-                    int P, int N) {
+                    const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ ddt,
+                    T* __restrict__ dcum, float* __restrict__ ddt_part,
+                    float* __restrict__ dcum_part, int NC, int L, int H, int P, int N,
+                    int row0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x 2 tiles
+  const int LR = rows_of(L);
   float* xt = smem + 4 * TILE_FLOATS;     // x rows of tile t
   float* yt = xt + TILE_FLOATS;           // dy rows of tile t
-  float* cum_s = yt + TILE_FLOATS;        // (MAX_L)
-  float* dt_s = cum_s + MAX_L;            // (MAX_L)
-  float* red_g = dt_s + MAX_L;            // (2, 64)  g_l halves
+  float* cum_s = yt + TILE_FLOATS;        // (LR)
+  float* dt_s = cum_s + LR;               // (LR)
+  float* red_g = dt_s + LR;               // (2, 64)  g_l halves
   float* red_z = red_g + 2 * TILE;        // (2, 64)  z_l halves
   float* red_r = red_z + 2 * TILE;        // (2, 64)  a pair's row sums, by column half
   float* red_c = red_r + 2 * TILE;        // (4, 64)  a pair's column sums, by row quarter
@@ -553,14 +757,17 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float* wred = col_q + TILE;             // (8)
 
   const int t = blockIdx.x;
-  const int h = blockIdx.y;
-  const size_t bc = blockIdx.z;
+  const int PT = p_tiles(P);
+  const int h = blockIdx.y / PT, pt = blockIdx.y % PT;
+  const int p0 = pt * TILE, prow = min(TILE, P - p0);
+  const size_t bc = (size_t)row0 + blockIdx.z;
   const int c = (int)(bc % NC);
-  const int tiles = (L + TILE - 1) / TILE;
+  const int tiles = tiles_of(L);
   const int halves = (N + TILE - 1) / TILE;
   const int l0 = t * TILE;
   const int lrows = min(TILE, L - l0);
   const size_t head = bc * H + h;  // (b, k, h) of states and dS
+  const size_t prows = (size_t)p0 * N;  // this block's rows p of a state
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int carried = 2 * halves;  // phase-1 steps: (B, dS) per half, then (C, S) per half
   const int steps = carried + tiles;
@@ -573,24 +780,26 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const int hf = st % halves;
       const int cols = min(TILE, N - hf * TILE);
       load_tile(buf, (zs ? cm : bm) + (bc * L + l0) * N + hf * TILE, N, lrows, cols);
-      load_tile(buf + TILE_FLOATS, (zs ? states : ds) + head * P * N + hf * TILE, N, P, cols);
+      load_tile(buf + TILE_FLOATS, (zs ? states : ds) + head * P * N + prows + hf * TILE, N,
+                prow, cols);
     } else {
       const int j = st - carried;
       const int lt = j >= t ? j : t, mt = j >= t ? t : j;
       load_tile(buf, G + bc * L * L + (size_t)lt * TILE * L + mt * TILE, L,
                 min(TILE, L - lt * TILE), min(TILE, L - mt * TILE));
       if (j != t)  // keys after t need dy_j; queries before t need x_j
-        load_tile(buf + TILE_FLOATS, (j > t ? dy : x) + ((bc * L + j * TILE) * H + h) * P,
-                  (size_t)H * P, min(TILE, L - j * TILE), P);
+        load_tile(buf + TILE_FLOATS,
+                  (j > t ? dy : x) + ((bc * L + j * TILE) * H + h) * P + p0, (size_t)H * P,
+                  min(TILE, L - j * TILE), prow);
     }
     cp_commit();
   };
-  load_tile(xt, x + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
-  load_tile(yt, dy + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
+  load_tile(xt, x + ((bc * L + l0) * H + h) * P + p0, (size_t)H * P, lrows, prow);
+  load_tile(yt, dy + ((bc * L + l0) * H + h) * P + p0, (size_t)H * P, lrows, prow);
   issue(0);  // x and dy of tile t join the first step's group
-  for (int l = threadIdx.x; l < MAX_L; l += THREADS) {
-    cum_s[l] = l < L ? cum[(bc * L + l) * H + h] : 0.f;
-    dt_s[l] = l < L ? dt[(bc * L + l) * H + h] : 0.f;
+  for (int l = threadIdx.x; l < LR; l += THREADS) {
+    cum_s[l] = l < L ? to_f32(cum[(bc * L + l) * H + h]) : 0.f;
+    dt_s[l] = l < L ? to_f32(dt[(bc * L + l) * H + h]) : 0.f;
   }
   if (threadIdx.x < TILE) {
     row_q[threadIdx.x] = 0.f;
@@ -599,10 +808,10 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   // <dS_k, S_k+1>: the last row's dcum term (dS of the last chunk is zero).
   const bool has_last = t == tiles - 1 && c + 1 < NC;
   if (has_last) {
-    const float* a = ds + head * P * N;
-    const float* s_next = states + (head + H) * P * N;
+    const float* a = ds + head * P * N + prows;
+    const float* s_next = states + (head + H) * P * N + prows;
     float part = 0.f;
-    for (int e = threadIdx.x; e < P * N; e += THREADS) part = fmaf(a[e], s_next[e], part);
+    for (int e = threadIdx.x; e < prow * N; e += THREADS) part = fmaf(a[e], s_next[e], part);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
     if (lane == 0) wred[warp] = part;
@@ -628,9 +837,9 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       auto fa = [&](int r, int k) { return buf[at(rm + r, k)]; };
       auto fb = [&](int k, int n) { return other[at(cn + n, k)]; };
       if (st < halves)
-        warp_mma<4>(vacc, fa, fb);
+        tile_mma<T, 1>(vacc, fa, fb);
       else
-        warp_mma<4>(zacc, fa, fb);
+        tile_mma<T, 1>(zacc, fa, fb);
       if (st == carried - 1) {
         if (has_last)
           for (int w = 0; w < THREADS / 32; ++w) last_dot += wred[w];
@@ -667,8 +876,8 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const float* xk = j < t ? other : xt;   // x rows of the key tile
       float dw[4][4];
       zero(dw);
-      warp_mma<4>(dw, [&](int r, int k) { return dyq[at(rm + r, k)]; },
-                  [&](int k, int n) { return xk[at(cn + n, k)]; });
+      tile_mma<T, 0>(dw, [&](int r, int k) { return dyq[at(rm + r, k)]; },
+                     [&](int k, int n) { return xk[at(cn + n, k)]; });
       float rp[2] = {0.f, 0.f};
       float cp[4][2];
 #pragma unroll
@@ -715,8 +924,8 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           col_q[r] += ((red_c[r] + red_c[TILE + r]) + red_c[2 * TILE + r]) + red_c[3 * TILE + r];
       }
       if (keys)  // dx[m][p] += sum_l W[l][m] dy[l][p]
-        warp_mma<4>(dxa, [&](int r, int k) { return buf[at(k, rm + r)]; },
-                    [&](int k, int n) { return dyq[at(k, cn + n)]; });
+        tile_mma<T, 2>(dxa, [&](int r, int k) { return buf[at(k, rm + r)]; },
+                       [&](int k, int n) { return dyq[at(k, cn + n)]; });
     }
     __syncthreads();  // the next step may overwrite this stage and the partial sums
   }
@@ -726,7 +935,8 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rm + acc_row(i), p = cn + acc_col(j, i);
-      if (r < lrows && p < P) dx[((bc * L + l0 + r) * H + h) * P + p] = dxa[j][i];
+      if (r < lrows && p < prow)
+        dx[((bc * L + l0 + r) * H + h) * P + p0 + p] = from_f32<T>(dxa[j][i]);
     }
   if (threadIdx.x < lrows) {
     const int r = threadIdx.x;
@@ -736,35 +946,68 @@ ssd_bwd_head_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     const float in_decay = expf(cum_s[L - 1] - cum_s[l]);
     float dc = row_q[r] - dt_s[l] * col_q[r] + expf(cum_s[l]) * z - g * in_decay * dt_s[l];
     if (l == L - 1) dc += last_dot;
-    ddt[(bc * L + l) * H + h] = col_q[r] + g * in_decay;
-    dcum[(bc * L + l) * H + h] = dc;
+    const size_t o = (bc * L + l) * H + h;
+    if (PT == 1) {
+      ddt[o] = from_f32<T>(col_q[r] + g * in_decay);
+      dcum[o] = from_f32<T>(dc);
+    } else {
+      ddt_part[o * PT + pt] = col_q[r] + g * in_decay;
+      dcum_part[o * PT + pt] = dc;
+    }
+  }
+}
+
+// ===========================================================================
+// Backward 4, above P = 64: ddt and dcum as the sums of their p-tiles'
+// float32 partials, in p-tile order, rounded once.  A grid-stride loop over
+// the (rows, L, H) entries.
+// ===========================================================================
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_sum_parts_kernel(const float* __restrict__ ddt_part, const float* __restrict__ dcum_part,
+                     T* __restrict__ ddt, T* __restrict__ dcum, size_t count, int PT) {
+  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < count;
+       i += (size_t)gridDim.x * THREADS) {
+    float a = 0.f, b = 0.f;
+    for (int q = 0; q < PT; ++q) {
+      a += ddt_part[i * PT + q];
+      b += dcum_part[i * PT + q];
+    }
+    ddt[i] = from_f32<T>(a);
+    dcum[i] = from_f32<T>(b);
   }
 }
 
 // ===========================================================================
 // Backward 5: dG[l][m] = sum_h dW_h[l][m] decay_h[l][m] dt_h[m] on one causal
 // tile (lt, mt) of one (batch, chunk), the heads in order, over G's scratch.
-// grid (tiles (tiles + 1) / 2, B NC).  A stage holds one head's dy rows of
-// the query tile, x rows of the key tile and their cum and dt.
+// grid (tiles (tiles + 1) / 2, rows of the run).  A stage holds one head's
+// dy rows of the query tile, x rows of the key tile (64 columns of P: above
+// P = 64 a head takes one step a p-tile) and their cum and dt.
 // ===========================================================================
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_bwd_dg_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ cum, const float* __restrict__ dy,
-                  float* __restrict__ dG, int L, int H, int P) {
+ssd_bwd_dg_kernel(const T* __restrict__ x, const T* __restrict__ dt, const T* __restrict__ cum,
+                  const T* __restrict__ dy, float* __restrict__ dG, int L, int H, int P,
+                  int row0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x (dy, x tiles; cum_l, cum_m, dt_m)
   constexpr int STAGE = 2 * TILE_FLOATS + 3 * TILE;
   int lt, mt;
   pair_of(blockIdx.x, lt, mt);
-  const size_t bc = blockIdx.y;
+  const size_t bc = (size_t)row0 + blockIdx.y;
   const int l0 = lt * TILE, m0 = mt * TILE;
   const int lrows = min(TILE, L - l0), mrows = min(TILE, L - m0);
+  const int PT = p_tiles(P);
+  const int steps = H * PT;  // (head, p-tile) in order
 
-  auto issue = [&](int h) {
-    float* st = smem + (h & 1) * STAGE;
-    load_tile(st, dy + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
-    load_tile(st + TILE_FLOATS, x + ((bc * L + m0) * H + h) * P, (size_t)H * P, mrows, P);
+  auto issue = [&](int hv) {
+    float* st = smem + (hv & 1) * STAGE;
+    const int h = hv / PT, p0 = (hv % PT) * TILE, prow = min(TILE, P - p0);
+    load_tile(st, dy + ((bc * L + l0) * H + h) * P + p0, (size_t)H * P, lrows, prow);
+    load_tile(st + TILE_FLOATS, x + ((bc * L + m0) * H + h) * P + p0, (size_t)H * P, mrows, prow);
     load_vec(st + 2 * TILE_FLOATS, cum + (bc * L + l0) * H + h, H, lrows);
     load_vec(st + 2 * TILE_FLOATS + TILE, cum + (bc * L + m0) * H + h, H, mrows);
     load_vec(st + 2 * TILE_FLOATS + 2 * TILE, dt + (bc * L + m0) * H + h, H, mrows);
@@ -774,15 +1017,15 @@ ssd_bwd_dg_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int rm = warp_row0(), cn = warp_col0(TILE);
   float acc[4][4];
   zero(acc);
-  for (int h = 0; h < H; ++h) {
-    if (h + 1 < H) {
-      issue(h + 1);
+  for (int hv = 0; hv < steps; ++hv) {
+    if (hv + 1 < steps) {
+      issue(hv + 1);
       cp_wait<1>();
     } else {
       cp_wait<0>();
     }
     __syncthreads();
-    const float* st = smem + (h & 1) * STAGE;
+    const float* st = smem + (hv & 1) * STAGE;
     const float* dys = st;
     const float* xs = st + TILE_FLOATS;
     const float* cl = st + 2 * TILE_FLOATS;
@@ -790,8 +1033,8 @@ ssd_bwd_dg_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     const float* dtm = cmv + TILE;
     float dw[4][4];
     zero(dw);
-    warp_mma<4>(dw, [&](int r, int k) { return dys[at(rm + r, k)]; },
-                [&](int k, int n) { return xs[at(cn + n, k)]; });
+    tile_mma<T, 0>(dw, [&](int r, int k) { return dys[at(rm + r, k)]; },
+                   [&](int k, int n) { return xs[at(cn + n, k)]; });
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -814,38 +1057,40 @@ ssd_bwd_dg_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 // ===========================================================================
 // Backward 6: dC or dB on the 64 rows of tile t and 64 columns (half nh) of
-// N, of one (batch, chunk).  grid (tiles x halves x 2, B NC).
+// N, of one (batch, chunk).  grid (tiles x halves x 2, rows of the run).
 //
 //   dC_t = sum_{j <= t} dG[t][j] B_j + sum_h (e_h dy_h,t) S_h
 //   dB_t = sum_{j >= t} dG[j][t]^T C_j + sum_h (indec_h x_h,t) dS_h
 //
-// One step per tile j, then one per head in order, each staged while the
-// one before is used; the heads' row scales e or indec are formed when a
-// step's cum and dt arrive.
+// One step per tile j, then one per head in order (above P = 64, one per
+// (head, p-tile): the depth of the second sum), each staged while the one
+// before is used; the heads' row scales e or indec are formed when a step's
+// cum and dt arrive.
 // ===========================================================================
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                   const float* __restrict__ cum, const float* __restrict__ bm,
-                   const float* __restrict__ cm, const float* __restrict__ states,
-                   const float* __restrict__ ds, const float* __restrict__ dG,
-                   const float* __restrict__ dy, float* __restrict__ db, float* __restrict__ dc,
-                   int NC, int L, int H, int P, int N) {
+ssd_bwd_dbc_kernel(const T* __restrict__ x, const T* __restrict__ dt, const T* __restrict__ cum,
+                   const T* __restrict__ bm, const T* __restrict__ cm,
+                   const float* __restrict__ states, const float* __restrict__ ds,
+                   const float* __restrict__ dG, const T* __restrict__ dy, T* __restrict__ db,
+                   T* __restrict__ dc, int NC, int L, int H, int P, int N, int row0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // 2 stages x (A, B tiles; cum, dt rows)
   constexpr int STAGE = 2 * TILE_FLOATS + 2 * TILE;
   const int halves = (N + TILE - 1) / TILE;
-  const int tiles = (L + TILE - 1) / TILE;
+  const int tiles = tiles_of(L);
+  const int PT = p_tiles(P);
   const bool want_db = blockIdx.x & 1;
   const int nh = (blockIdx.x >> 1) % halves;
   const int t = (blockIdx.x >> 1) / halves;
-  const size_t bc = blockIdx.y;
+  const size_t bc = (size_t)row0 + blockIdx.y;
   const int l0 = t * TILE;
   const int lrows = min(TILE, L - l0);
   const int ncols = min(TILE, N - nh * TILE);
   const int j0 = want_db ? t : 0;              // intra steps: tiles j0 .. j0 + intra - 1
   const int intra = want_db ? tiles - t : t + 1;
-  const int steps = intra + H;
+  const int steps = intra + H * PT;
 
   auto issue = [&](int s) {
     float* st = smem + (s & 1) * STAGE;
@@ -859,10 +1104,13 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       load_tile(st + TILE_FLOATS, (want_db ? cm : bm) + (bc * L + j * TILE) * N + nh * TILE, N,
                 jrows, ncols);
     } else {
-      const int h = s - intra;
-      load_tile(st, (want_db ? x : dy) + ((bc * L + l0) * H + h) * P, (size_t)H * P, lrows, P);
-      load_tile(st + TILE_FLOATS, (want_db ? ds : states) + (bc * H + h) * P * N + nh * TILE, N,
-                P, ncols);
+      const int hv = s - intra;
+      const int h = hv / PT, p0 = (hv % PT) * TILE, prow = min(TILE, P - p0);
+      load_tile(st, (want_db ? x : dy) + ((bc * L + l0) * H + h) * P + p0, (size_t)H * P, lrows,
+                prow);
+      load_tile(st + TILE_FLOATS,
+                (want_db ? ds : states) + ((bc * H + h) * P + p0) * N + nh * TILE, N, prow,
+                ncols);
       load_vec(st + 2 * TILE_FLOATS, cum + (bc * L + l0) * H + h, H, lrows);
       load_vec(st + 2 * TILE_FLOATS + TILE, dt + (bc * L + l0) * H + h, H, lrows);
     }
@@ -886,32 +1134,46 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     auto fb = [&](int k, int n) { return bs[at(k, cn + n)]; };
     if (s < intra) {
       if (want_db)
-        warp_mma<4>(acc, [&](int r, int k) { return as[at(k, rm + r)]; }, fb);
+        tile_mma<T, 2>(acc, [&](int r, int k) { return as[at(k, rm + r)]; }, fb);
       else
-        warp_mma<4>(acc, [&](int r, int k) { return as[at(rm + r, k)]; }, fb);
+        tile_mma<T, 2>(acc, [&](int r, int k) { return as[at(rm + r, k)]; }, fb);
     } else {
       // This thread's A rows rm + g and rm + g + 8, scaled by e or indec.
-      const int h = s - intra;
+      const int h = (s - intra) / PT;
       const float* cv = as + 2 * TILE_FLOATS;
       const float* dv = cv + TILE;
-      const float cum_last = cum[(bc * L + L - 1) * H + h];
+      const float cum_last = to_f32(cum[(bc * L + L - 1) * H + h]);
       float sc[2];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int r = rm + g + 8 * q;
         sc[q] = want_db ? expf(cum_last - cv[r]) * dv[r] : expf(cv[r]);
       }
-      warp_mma<4>(acc, [&](int r, int k) { return (r < 8 ? sc[0] : sc[1]) * as[at(rm + r, k)]; }, fb);
+      if constexpr (std::is_same<T, float>::value) {
+        warp_mma<4>(acc, [&](int r, int k) { return (r < 8 ? sc[0] : sc[1]) * as[at(rm + r, k)]; },
+                    fb);
+      } else {
+        // The scale is a row's: the product of the raw 16-bit rows (exact)
+        // and S or dS, then scaled into acc.
+        float part[4][4];
+        zero(part);
+        warp_mma_exact<1>(part, [&](int r, int k) { return as[at(rm + r, k)]; }, fb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] += sc[i >> 1] * part[j][i];
+      }
     }
     __syncthreads();  // the next step may overwrite this stage
   }
-  float* out = want_db ? db : dc;
+  T* out = want_db ? db : dc;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rm + acc_row(i), n = cn + acc_col(j, i);
-      if (r < lrows && n < ncols) out[(bc * L + l0 + r) * N + nh * TILE + n] = acc[j][i];
+      if (r < lrows && n < ncols)
+        out[(bc * L + l0 + r) * N + nh * TILE + n] = from_f32<T>(acc[j][i]);
     }
 }
 
@@ -920,94 +1182,157 @@ ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 // ---------------------------------------------------------------------------
 
 constexpr size_t kCbSmem = 4 * TILE_FLOATS * sizeof(float);
-constexpr size_t kLocalSmem = (6 * TILE_FLOATS + MAX_L) * sizeof(float);
-constexpr size_t kYSmem = (4 * TILE_FLOATS + 2 * MAX_L) * sizeof(float);
-constexpr size_t kHeadSmem = (6 * TILE_FLOATS + 2 * MAX_L + 12 * TILE + 8) * sizeof(float);
 constexpr size_t kDgSmem = 2 * (2 * TILE_FLOATS + 3 * TILE) * sizeof(float);
 constexpr size_t kDbcSmem = 2 * (2 * TILE_FLOATS + 2 * TILE) * sizeof(float);
+size_t local_smem(int L) { return (6 * TILE_FLOATS + rows_of(L)) * sizeof(float); }
+size_t y_smem(int L) { return (4 * TILE_FLOATS + 2 * rows_of(L)) * sizeof(float); }
+size_t head_smem(int L) {
+  return (6 * TILE_FLOATS + 2 * rows_of(L) + 12 * TILE + 8) * sizeof(float);
+}
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The head kernel's shared memory bounds L (16,320); grid y of the y and
+// head kernels bounds H times the p-tiles.
 bool shapes_ok(int B, int NC, int L, int H, int P, int N) {
-  return L >= 1 && L <= MAX_L && P >= 1 && P <= MAX_P && N >= 1 && N <= MAX_N && B >= 1 &&
-         NC >= 1 && H >= 1 && B <= 65535 && H <= 65535 && (size_t)B * NC <= 65535;
+  return L >= 1 && P >= 1 && N >= 1 && B >= 1 && NC >= 1 && H >= 1 &&
+         head_smem(L) <= MAX_SMEM && (long long)H * p_tiles(P) <= MAX_GRID &&
+         (long long)B * NC <= 0x7fffffff;
 }
 
-int tiles_of(int L) { return (L + TILE - 1) / TILE; }
+// f(first, count) for the runs of at most MAX_GRID of `total`, in order.
+template <typename F>
+cudaError_t in_runs(long long total, F f) {
+  for (long long first = 0; first < total; first += MAX_GRID) {
+    const cudaError_t err = f((int)first, (int)(total - first < MAX_GRID ? total - first : MAX_GRID));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
 
-cudaError_t launch_cb(const float* bm, const float* cm, float* G, int B, int NC, int L, int N,
+template <typename T>
+cudaError_t launch_cb(const T* bm, const T* cm, float* G, int B, int NC, int L, int N,
                       bool backward, cudaStream_t s) {
-  const auto kernel = backward ? ssd_cb_kernel<true> : ssd_cb_kernel<false>;
+  const auto kernel = backward ? ssd_cb_kernel<T, true> : ssd_cb_kernel<T, false>;
   cudaError_t err = allow_smem(kernel, kCbSmem);
   if (err != cudaSuccess) return err;
-  const int T = tiles_of(L);
-  kernel<<<dim3(T * (T + 1) / 2, B * NC), THREADS, kCbSmem, s>>>(bm, cm, G, L, N);
-  return cudaGetLastError();
+  const int tl = tiles_of(L);
+  return in_runs((long long)B * NC, [&](int r0, int rows) {
+    kernel<<<dim3(tl * (tl + 1) / 2, rows), THREADS, kCbSmem, s>>>(bm, cm, G, L, N, r0);
+    return cudaGetLastError();
+  });
 }
 
-cudaError_t launch_local(const float* xs, const float* dt, const float* cum, const float* ys,
-                         float* out, int B, int NC, int L, int H, int P, int N, int c0,
-                         int chunks, bool backward, cudaStream_t s) {
+template <typename T>
+cudaError_t launch_local(const T* xs, const T* dt, const T* cum, const T* ys, float* out, int B,
+                         int NC, int L, int H, int P, int N, int c0, int chunks, bool backward,
+                         cudaStream_t s) {
   if (chunks <= 0) return cudaSuccess;
-  const auto kernel = backward ? ssd_local_kernel<true> : ssd_local_kernel<false>;
-  cudaError_t err = allow_smem(kernel, kLocalSmem);
+  const auto kernel = backward ? ssd_local_kernel<T, true> : ssd_local_kernel<T, false>;
+  const size_t smem = local_smem(L);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(H, chunks, B), THREADS, kLocalSmem, s>>>(xs, dt, cum, ys, out, NC, L, H, P, N,
-                                                         c0);
-  return cudaGetLastError();
+  const int gx = H * p_tiles(P) * n_groups(N);
+  return in_runs(B, [&](int b0, int bs) {
+    return in_runs(chunks, [&](int k0, int ks) {
+      kernel<<<dim3(gx, ks, bs), THREADS, smem, s>>>(xs, dt, cum, ys, out, NC, L, H, P, N,
+                                                     c0 + k0, b0);
+      return cudaGetLastError();
+    });
+  });
 }
 
-cudaError_t launch_pass(float* buf, const float* cum, int B, int NC, int L, int H, int PN,
+template <typename T>
+cudaError_t launch_pass(float* buf, const T* cum, int B, int NC, int L, int H, int PN,
                         bool reverse, cudaStream_t s) {
-  const auto kernel = reverse ? ssd_pass_kernel<true> : ssd_pass_kernel<false>;
-  kernel<<<dim3((PN + THREADS - 1) / THREADS, H, B), THREADS, 0, s>>>(buf, cum, NC, L, H, PN);
-  return cudaGetLastError();
+  const auto kernel = reverse ? ssd_pass_kernel<T, true> : ssd_pass_kernel<T, false>;
+  return in_runs(B, [&](int b0, int bs) {
+    kernel<<<dim3((PN + THREADS - 1) / THREADS, H, bs), THREADS, 0, s>>>(buf, cum, NC, L, H, PN,
+                                                                         b0);
+    return cudaGetLastError();
+  });
 }
 
-cudaError_t launch_y(const float* x, const float* dt, const float* cum, const float* cm,
-                     const float* G, const float* states, float* y, int B, int NC, int L, int H,
-                     int P, int N, cudaStream_t s) {
-  cudaError_t err = allow_smem(ssd_y_kernel, kYSmem);
+template <typename T>
+cudaError_t launch_y(const T* x, const T* dt, const T* cum, const T* cm, const float* G,
+                     const float* states, T* y, int B, int NC, int L, int H, int P, int N,
+                     cudaStream_t s) {
+  const size_t smem = y_smem(L);
+  cudaError_t err = allow_smem(ssd_y_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  ssd_y_kernel<<<dim3(tiles_of(L), H, B * NC), THREADS, kYSmem, s>>>(x, dt, cum, cm, G, states,
-                                                                     y, L, H, P, N);
-  return cudaGetLastError();
+  return in_runs((long long)B * NC, [&](int r0, int rows) {
+    ssd_y_kernel<T><<<dim3(tiles_of(L), H * p_tiles(P), rows), THREADS, smem, s>>>(
+        x, dt, cum, cm, G, states, y, L, H, P, N, r0);
+    return cudaGetLastError();
+  });
 }
 
-cudaError_t launch_head(const float* x, const float* dt, const float* cum, const float* bm,
-                        const float* cm, const float* states, const float* ds, const float* G,
-                        const float* dy, float* dx, float* ddt, float* dcum, int B, int NC,
-                        int L, int H, int P, int N, cudaStream_t s) {
-  cudaError_t err = allow_smem(ssd_bwd_head_kernel, kHeadSmem);
+template <typename T>
+cudaError_t launch_head(const T* x, const T* dt, const T* cum, const T* bm, const T* cm,
+                        const float* states, const float* ds, const float* G, const T* dy,
+                        T* dx, T* ddt, T* dcum, float* parts, int B, int NC, int L, int H,
+                        int P, int N, cudaStream_t s) {
+  const size_t smem = head_smem(L);
+  cudaError_t err = allow_smem(ssd_bwd_head_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  ssd_bwd_head_kernel<<<dim3(tiles_of(L), H, B * NC), THREADS, kHeadSmem, s>>>(
-      x, dt, cum, bm, cm, states, ds, G, dy, dx, ddt, dcum, NC, L, H, P, N);
+  const int PT = p_tiles(P);
+  const size_t count = (size_t)B * NC * L * H;  // entries of ddt and of dcum
+  if (PT > 1 && parts == nullptr) return cudaErrorInvalidValue;
+  float* dcum_part = PT > 1 ? parts + count * PT : nullptr;
+  err = in_runs((long long)B * NC, [&](int r0, int rows) {
+    ssd_bwd_head_kernel<T><<<dim3(tiles_of(L), H * PT, rows), THREADS, smem, s>>>(
+        x, dt, cum, bm, cm, states, ds, G, dy, dx, ddt, dcum, parts, dcum_part, NC, L, H, P, N,
+        r0);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess || PT == 1) return err;
+  const size_t blocks = (count + THREADS - 1) / THREADS;
+  ssd_sum_parts_kernel<T><<<(unsigned)(blocks < (1u << 20) ? blocks : (1u << 20)), THREADS, 0,
+                            s>>>(parts, dcum_part, ddt, dcum, count, PT);
   return cudaGetLastError();
 }
 
-cudaError_t launch_dg(const float* x, const float* dt, const float* cum, const float* dy,
-                      float* dG, int B, int NC, int L, int H, int P, cudaStream_t s) {
-  cudaError_t err = allow_smem(ssd_bwd_dg_kernel, kDgSmem);
+template <typename T>
+cudaError_t launch_dg(const T* x, const T* dt, const T* cum, const T* dy, float* dG, int B,
+                      int NC, int L, int H, int P, cudaStream_t s) {
+  cudaError_t err = allow_smem(ssd_bwd_dg_kernel<T>, kDgSmem);
   if (err != cudaSuccess) return err;
-  const int T = tiles_of(L);
-  ssd_bwd_dg_kernel<<<dim3(T * (T + 1) / 2, B * NC), THREADS, kDgSmem, s>>>(x, dt, cum, dy, dG,
-                                                                           L, H, P);
-  return cudaGetLastError();
+  const int tl = tiles_of(L);
+  return in_runs((long long)B * NC, [&](int r0, int rows) {
+    ssd_bwd_dg_kernel<T><<<dim3(tl * (tl + 1) / 2, rows), THREADS, kDgSmem, s>>>(
+        x, dt, cum, dy, dG, L, H, P, r0);
+    return cudaGetLastError();
+  });
 }
 
-cudaError_t launch_dbc(const float* x, const float* dt, const float* cum, const float* bm,
-                       const float* cm, const float* states, const float* ds, const float* dG,
-                       const float* dy, float* db, float* dc, int B, int NC, int L, int H, int P,
-                       int N, cudaStream_t s) {
-  cudaError_t err = allow_smem(ssd_bwd_dbc_kernel, kDbcSmem);
+template <typename T>
+cudaError_t launch_dbc(const T* x, const T* dt, const T* cum, const T* bm, const T* cm,
+                       const float* states, const float* ds, const float* dG, const T* dy,
+                       T* db, T* dc, int B, int NC, int L, int H, int P, int N,
+                       cudaStream_t s) {
+  cudaError_t err = allow_smem(ssd_bwd_dbc_kernel<T>, kDbcSmem);
   if (err != cudaSuccess) return err;
   const int halves = (N + TILE - 1) / TILE;
-  ssd_bwd_dbc_kernel<<<dim3(tiles_of(L) * halves * 2, B * NC), THREADS, kDbcSmem, s>>>(
-      x, dt, cum, bm, cm, states, ds, dG, dy, db, dc, NC, L, H, P, N);
-  return cudaGetLastError();
+  return in_runs((long long)B * NC, [&](int r0, int rows) {
+    ssd_bwd_dbc_kernel<T><<<dim3(tiles_of(L) * halves * 2, rows), THREADS, kDbcSmem, s>>>(
+        x, dt, cum, bm, cm, states, ds, dG, dy, db, dc, NC, L, H, P, N, r0);
+    return cudaGetLastError();
+  });
+}
+
+// Calls f with a null pointer of the storage type that `dtype` names:
+// 0 float32, 1 bfloat16, 2 float16.
+template <typename F>
+int with_dtype(int dtype, F f) {
+  switch (dtype) {
+    case 0: return f(static_cast<float*>(nullptr));
+    case 1: return f(static_cast<__nv_bfloat16*>(nullptr));
+    case 2: return f(static_cast<__half*>(nullptr));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1019,97 +1344,147 @@ cudaError_t launch_dbc(const float* x, const float* dt, const float* cum, const 
   } while (0)
 #define SSD_CHECK_SHAPES(B, NC, L, H, P, N) \
   if (!shapes_ok(B, NC, L, H, P, N)) return (int)cudaErrorInvalidValue
+// The storage type T of the dtype code, and pointer p as a T pointer.
+#define SSD_T std::remove_pointer_t<decltype(tag)>
+#define SSD_AS(p) static_cast<SSD_T*>(p)
+#define SSD_AS_C(p) static_cast<const SSD_T*>(p)
 
 extern "C" {
 
+// Every entry point returns its launches' first cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for a shape or dtype code the kernels do
+// not take.  `dtype` names the storage type of the x, dt, cum, B, C and dy
+// tensors and of the outputs (0 float32, 1 bfloat16, 2 float16); the states,
+// G, dS and the parts are float32.
+
+// 1 if the kernels take these sizes, 0 if not (shapes_ok): the wrappers ask
+// before they allocate and launch, so that a shape refused here raises there.
+int ssd_takes_shape(int B, int NC, int L, int H, int P, int N) {
+  return shapes_ok(B, NC, L, H, P, N) ? 1 : 0;
+}
+
 // The forward: y (B, NC, L, H, P) and the entry states (B, NC, H, P, N),
 // which the caller allocates even when it does not keep them; g is scratch of
-// B NC L L floats.  Four launches.
-int ssd_chunk_scan_fwd(const float* x, const float* dt, const float* cum, const float* bm,
-                       const float* cm, float* y, float* states, float* g, int B, int NC, int L,
-                       int H, int P, int N, void* stream) {
+// B NC L L floats.  Four launches (more for more than 65,535 rows).
+int ssd_chunk_scan_fwd(const void* x, const void* dt, const void* cum, const void* bm,
+                       const void* cm, void* y, float* states, float* g, int B, int NC, int L,
+                       int H, int P, int N, int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, N);
   cudaStream_t s = (cudaStream_t)stream;
-  SSD_TRY(launch_cb(bm, cm, g, B, NC, L, N, false, s));
-  SSD_TRY(launch_local(x, dt, cum, bm, states, B, NC, L, H, P, N, 0, NC - 1, false, s));
-  SSD_TRY(launch_pass(states, cum, B, NC, L, H, P * N, false, s));
-  SSD_TRY(launch_y(x, dt, cum, cm, g, states, y, B, NC, L, H, P, N, s));
-  return 0;
+  return with_dtype(dtype, [&](auto tag) -> int {
+    SSD_TRY(launch_cb(SSD_AS_C(bm), SSD_AS_C(cm), g, B, NC, L, N, false, s));
+    SSD_TRY(launch_local(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(bm), states, B, NC,
+                         L, H, P, N, 0, NC - 1, false, s));
+    SSD_TRY(launch_pass(states, SSD_AS_C(cum), B, NC, L, H, P * N, false, s));
+    SSD_TRY(launch_y(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(cm), g, states,
+                     SSD_AS(y), B, NC, L, H, P, N, s));
+    return 0;
+  });
 }
 
 // The backward: dx, ddt, dcum (the shapes of x, dt, cum), db, dc (B, NC, L, N)
 // from the entry states and dy.  g is scratch of B NC L L floats (G, then dG)
-// and ds of B NC H P N floats (the carries F, then dS).  Six launches.
-int ssd_chunk_scan_bwd(const float* x, const float* dt, const float* cum, const float* bm,
-                       const float* cm, const float* states, const float* dy, float* dx,
-                       float* ddt, float* dcum, float* db, float* dc, float* g, float* ds, int B,
-                       int NC, int L, int H, int P, int N, void* stream) {
+// and ds of B NC H P N floats (the carries F, then dS); above P = 64, parts
+// is scratch of 2 B NC L H ceil(P / 64) floats (null otherwise).  Six
+// launches (seven above P = 64; more for more than 65,535 rows).
+int ssd_chunk_scan_bwd(const void* x, const void* dt, const void* cum, const void* bm,
+                       const void* cm, const float* states, const void* dy, void* dx, void* ddt,
+                       void* dcum, void* db, void* dc, float* g, float* ds, float* parts, int B,
+                       int NC, int L, int H, int P, int N, int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, N);
   cudaStream_t s = (cudaStream_t)stream;
-  SSD_TRY(launch_cb(bm, cm, g, B, NC, L, N, true, s));
-  SSD_TRY(launch_local(dy, dt, cum, cm, ds, B, NC, L, H, P, N, 1, NC - 1, true, s));
-  SSD_TRY(launch_pass(ds, cum, B, NC, L, H, P * N, true, s));
-  SSD_TRY(launch_head(x, dt, cum, bm, cm, states, ds, g, dy, dx, ddt, dcum, B, NC, L, H, P, N,
+  return with_dtype(dtype, [&](auto tag) -> int {
+    SSD_TRY(launch_cb(SSD_AS_C(bm), SSD_AS_C(cm), g, B, NC, L, N, true, s));
+    SSD_TRY(launch_local(SSD_AS_C(dy), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(cm), ds, B, NC, L,
+                         H, P, N, 1, NC - 1, true, s));
+    SSD_TRY(launch_pass(ds, SSD_AS_C(cum), B, NC, L, H, P * N, true, s));
+    SSD_TRY(launch_head(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(bm), SSD_AS_C(cm),
+                        states, ds, g, SSD_AS_C(dy), SSD_AS(dx), SSD_AS(ddt), SSD_AS(dcum),
+                        parts, B, NC, L, H, P, N, s));
+    SSD_TRY(launch_dg(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(dy), g, B, NC, L, H, P,
                       s));
-  SSD_TRY(launch_dg(x, dt, cum, dy, g, B, NC, L, H, P, s));
-  SSD_TRY(launch_dbc(x, dt, cum, bm, cm, states, ds, g, dy, db, dc, B, NC, L, H, P, N, s));
-  return 0;
+    SSD_TRY(launch_dbc(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(bm), SSD_AS_C(cm),
+                       states, ds, g, SSD_AS_C(dy), SSD_AS(db), SSD_AS(dc), B, NC, L, H, P, N,
+                       s));
+    return 0;
+  });
 }
 
-// The stages one launch each, so that each can be held against its plain
-// version (kernel.py's stage wrappers).  Not on the main path.
+// The stages one launch each (in runs above 65,535 rows), so that each can be
+// held against its plain version (kernel.py's stage wrappers).  Not on the
+// main path.
 
-int ssd_stage_cb(const float* bm, const float* cm, float* g, int B, int NC, int L, int N,
-                 void* stream) {
+int ssd_stage_cb(const void* bm, const void* cm, float* g, int B, int NC, int L, int N,
+                 int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, 1, 1, N);
-  return (int)launch_cb(bm, cm, g, B, NC, L, N, false, (cudaStream_t)stream);
+  return with_dtype(dtype, [&](auto tag) -> int {
+    return (int)launch_cb(SSD_AS_C(bm), SSD_AS_C(cm), g, B, NC, L, N, false,
+                          (cudaStream_t)stream);
+  });
 }
 
 // Every chunk's sum_l s_l X_l^T Y_l: backward = 0 for (x, B, indec), 1 for
 // (dy, C, e).
-int ssd_stage_local(const float* xs, const float* dt, const float* cum, const float* ys,
-                    float* out, int B, int NC, int L, int H, int P, int N, int backward,
+int ssd_stage_local(const void* xs, const void* dt, const void* cum, const void* ys, float* out,
+                    int B, int NC, int L, int H, int P, int N, int backward, int dtype,
                     void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, N);
-  return (int)launch_local(xs, dt, cum, ys, out, B, NC, L, H, P, N, 0, NC, backward != 0,
-                           (cudaStream_t)stream);
+  return with_dtype(dtype, [&](auto tag) -> int {
+    return (int)launch_local(SSD_AS_C(xs), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(ys), out, B, NC,
+                             L, H, P, N, 0, NC, backward != 0, (cudaStream_t)stream);
+  });
 }
 
-int ssd_stage_pass(float* buf, const float* cum, int B, int NC, int L, int H, int P, int N,
-                   int reverse, void* stream) {
+int ssd_stage_pass(float* buf, const void* cum, int B, int NC, int L, int H, int P, int N,
+                   int reverse, int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, N);
-  return (int)launch_pass(buf, cum, B, NC, L, H, P * N, reverse != 0, (cudaStream_t)stream);
+  return with_dtype(dtype, [&](auto tag) -> int {
+    return (int)launch_pass(buf, SSD_AS_C(cum), B, NC, L, H, P * N, reverse != 0,
+                            (cudaStream_t)stream);
+  });
 }
 
-int ssd_stage_y(const float* x, const float* dt, const float* cum, const float* cm,
-                const float* g, const float* states, float* y, int B, int NC, int L, int H,
-                int P, int N, void* stream) {
+int ssd_stage_y(const void* x, const void* dt, const void* cum, const void* cm, const float* g,
+                const float* states, void* y, int B, int NC, int L, int H, int P, int N,
+                int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, N);
-  return (int)launch_y(x, dt, cum, cm, g, states, y, B, NC, L, H, P, N, (cudaStream_t)stream);
+  return with_dtype(dtype, [&](auto tag) -> int {
+    return (int)launch_y(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(cm), g, states,
+                         SSD_AS(y), B, NC, L, H, P, N, (cudaStream_t)stream);
+  });
 }
 
-int ssd_stage_head(const float* x, const float* dt, const float* cum, const float* bm,
-                   const float* cm, const float* states, const float* ds, const float* g,
-                   const float* dy, float* dx, float* ddt, float* dcum, int B, int NC, int L,
-                   int H, int P, int N, void* stream) {
+int ssd_stage_head(const void* x, const void* dt, const void* cum, const void* bm,
+                   const void* cm, const float* states, const float* ds, const float* g,
+                   const void* dy, void* dx, void* ddt, void* dcum, float* parts, int B, int NC,
+                   int L, int H, int P, int N, int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, N);
-  return (int)launch_head(x, dt, cum, bm, cm, states, ds, g, dy, dx, ddt, dcum, B, NC, L, H, P,
-                          N, (cudaStream_t)stream);
+  return with_dtype(dtype, [&](auto tag) -> int {
+    return (int)launch_head(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(bm),
+                            SSD_AS_C(cm), states, ds, g, SSD_AS_C(dy), SSD_AS(dx), SSD_AS(ddt),
+                            SSD_AS(dcum), parts, B, NC, L, H, P, N, (cudaStream_t)stream);
+  });
 }
 
-int ssd_stage_dg(const float* x, const float* dt, const float* cum, const float* dy, float* dg,
-                 int B, int NC, int L, int H, int P, void* stream) {
+int ssd_stage_dg(const void* x, const void* dt, const void* cum, const void* dy, float* dg,
+                 int B, int NC, int L, int H, int P, int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, 1);
-  return (int)launch_dg(x, dt, cum, dy, dg, B, NC, L, H, P, (cudaStream_t)stream);
+  return with_dtype(dtype, [&](auto tag) -> int {
+    return (int)launch_dg(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(dy), dg, B, NC, L,
+                          H, P, (cudaStream_t)stream);
+  });
 }
 
-int ssd_stage_dbc(const float* x, const float* dt, const float* cum, const float* bm,
-                  const float* cm, const float* states, const float* ds, const float* dg,
-                  const float* dy, float* db, float* dc, int B, int NC, int L, int H, int P,
-                  int N, void* stream) {
+int ssd_stage_dbc(const void* x, const void* dt, const void* cum, const void* bm,
+                  const void* cm, const float* states, const float* ds, const float* dg,
+                  const void* dy, void* db, void* dc, int B, int NC, int L, int H, int P, int N,
+                  int dtype, void* stream) {
   SSD_CHECK_SHAPES(B, NC, L, H, P, N);
-  return (int)launch_dbc(x, dt, cum, bm, cm, states, ds, dg, dy, db, dc, B, NC, L, H, P, N,
-                         (cudaStream_t)stream);
+  return with_dtype(dtype, [&](auto tag) -> int {
+    return (int)launch_dbc(SSD_AS_C(x), SSD_AS_C(dt), SSD_AS_C(cum), SSD_AS_C(bm), SSD_AS_C(cm),
+                           states, ds, dg, SSD_AS_C(dy), SSD_AS(db), SSD_AS(dc), B, NC, L, H, P,
+                           N, (cudaStream_t)stream);
+  });
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@ slow but unambiguous.  ``ssd_chunk_scan_ref`` computes what the CUDA kernel
 computes, in the chunked layout, chunk by chunk; ``ssd_chunk_states_ref``
 gives the chunk-entry states the kernel writes with ``return_states``;
 ``ssd_chunk_scan_bwd_ref`` is the backward kernel's plain version, one
-reverse pass over the chunks from those states.  All compute in float32;
+reverse pass over the chunks from those states.  All compute in float32
+(float64 for float64 tensors, to measure the kernels' rounding);
 those three each run inside a ``recurrence`` range.
 
 The CUDA kernels compute the same functions in stages (``csrc/ssd.cu``):
@@ -27,6 +28,12 @@ import torch
 from repro_torch.kernels.backend import marks_recurrence
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The arithmetic type: float32, as the kernels compute; float64 for
+    float64 tensors (the card's checks of the kernels' rounding)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def ssd_ref(
     x: torch.Tensor,      # (B, S, H, P)
     dt: torch.Tensor,     # (B, S, H)   post-softplus
@@ -36,9 +43,9 @@ def ssd_ref(
 ) -> torch.Tensor:
     batch, s, h, p = x.shape
     n = b_mat.shape[-1]
-    x32, dt32, b32, c32 = (t.float() for t in (x, dt, b_mat, c_mat))
-    a32 = a.float()
-    state = x.new_zeros((batch, h, p, n), dtype=torch.float32)
+    x32, dt32, b32, c32 = (_wide(t) for t in (x, dt, b_mat, c_mat))
+    a32 = _wide(a)
+    state = x32.new_zeros((batch, h, p, n))
     ys = []
     for t in range(s):
         decay = torch.exp(dt32[:, t] * a32[None, :])                     # (B, H)
@@ -74,7 +81,7 @@ def ssd_chunk_scan_ref(
     """y (B, NC, L, H, P): the chunked dual form, one chunk at a time."""
     b, nc, l_len, h, p = xc.shape
     causal = _causal(l_len, xc.device)
-    x32, dt32, cum32, b32, c32 = (t.float() for t in (xc, dtc, cum, bc, cc))
+    x32, dt32, cum32, b32, c32 = (_wide(t) for t in (xc, dtc, cum, bc, cc))
     state = x32.new_zeros((b, h, p, bc.shape[-1]))
     ys = []
     for k in range(nc):
@@ -103,7 +110,7 @@ def ssd_chunk_states_ref(
     """Chunk-entry states S_k (B, NC, H, P, N) in float32.  S_0 = 0;
     S_{k+1} = S_k * exp(cum_k[-1]) + sum_l B_l (indec_l x_l)."""
     b, nc, l_len, h, p = xc.shape
-    x32, dt32, cum32, b32 = (t.float() for t in (xc, dtc, cum, bc))
+    x32, dt32, cum32, b32 = (_wide(t) for t in (xc, dtc, cum, bc))
     state = x32.new_zeros((b, h, p, bc.shape[-1]))
     entries = []
     for k in range(nc):
@@ -131,7 +138,7 @@ def ssd_chunk_scan_bwd_ref(
     b, nc, l_len, h, p = xc.shape
     causal = _causal(l_len, xc.device)
     x32, dt32, cum32, b32, c32, s32, dy32 = (
-        t.float() for t in (xc, dtc, cum, bc, cc, states, dy))
+        _wide(t) for t in (xc, dtc, cum, bc, cc, states, dy))
     ds = x32.new_zeros((b, h, p, bc.shape[-1]))  # cotangent of the state after the chunk
     outs = []
     for k in reversed(range(nc)):
@@ -200,19 +207,19 @@ def _indec(dtc: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
 
 def chunk_cb_ref(bc: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
     """G = C B^T of each (batch, chunk), shared by the heads: (B, NC, L, L)."""
-    return torch.einsum("bkln,bkmn->bklm", cc.float(), bc.float())
+    return torch.einsum("bkln,bkmn->bklm", _wide(cc), _wide(bc))
 
 
 def chunk_local_ref(xc, dtc, cum, bc) -> torch.Tensor:
     """Each chunk's own contribution to the state, sum_l indec_l x_l^T B_l."""
-    return torch.einsum("bklh,bklhp,bkln->bkhpn", _indec(dtc.float(), cum.float()),
-                        xc.float(), bc.float())
+    return torch.einsum("bklh,bklhp,bkln->bkhpn", _indec(_wide(dtc), _wide(cum)),
+                        _wide(xc), _wide(bc))
 
 
 def chunk_carry_ref(dy, cum, cc) -> torch.Tensor:
     """The backward's carry from each chunk's outputs, F_k = sum_l (e_l dy_l)^T C_l."""
-    return torch.einsum("bklh,bklhp,bkln->bkhpn", torch.exp(cum.float()), dy.float(),
-                        cc.float())
+    return torch.einsum("bklh,bklhp,bkln->bkhpn", torch.exp(_wide(cum)), _wide(dy),
+                        _wide(cc))
 
 
 def state_pass_ref(local: torch.Tensor, cum: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -222,30 +229,30 @@ def state_pass_ref(local: torch.Tensor, cum: torch.Tensor, reverse: bool = False
     Forward: chunk-local states to entry states S_k.  Reverse: F to dS_k, the
     cotangent of each chunk's exit state."""
     nc = local.shape[1]
-    decay = torch.exp(cum.float()[:, :, -1, :])[..., None, None]     # (B, NC, H, 1, 1)
-    s = torch.zeros_like(local[:, 0], dtype=torch.float32)
+    decay = torch.exp(_wide(cum)[:, :, -1, :])[..., None, None]     # (B, NC, H, 1, 1)
+    s = torch.zeros_like(_wide(local[:, 0]))
     out = [None] * nc
     for k in (reversed(range(nc)) if reverse else range(nc)):
         out[k] = s
-        s = s * decay[:, k] + local[:, k].float()
+        s = s * decay[:, k] + _wide(local[:, k])
     return torch.stack(out, dim=1)
 
 
 def chunk_y_ref(xc, dtc, cum, cc, g, states) -> torch.Tensor:
     """y from G and the entry states: (G decay dt_m) x + e_l C_l . S_k."""
-    x32, dt32, cum32, c32 = (t.float() for t in (xc, dtc, cum, cc))
-    w = g.float()[..., None] * _decay(cum32) * dt32[:, :, None, :, :]
+    x32, dt32, cum32, c32 = (_wide(t) for t in (xc, dtc, cum, cc))
+    w = _wide(g)[..., None] * _decay(cum32) * dt32[:, :, None, :, :]
     return (torch.einsum("bklmh,bkmhp->bklhp", w, x32)
-            + torch.einsum("bkln,bkhpn,bklh->bklhp", c32, states.float(), torch.exp(cum32)))
+            + torch.einsum("bkln,bkhpn,bklh->bklhp", c32, _wide(states), torch.exp(cum32)))
 
 
 def bwd_head_ref(xc, dtc, cum, bc, cc, states, ds, g, dy) -> tuple[torch.Tensor, ...]:
     """(dx, ddt, dcum) from G, the entry states S_k and dS_k; the last row's
     dcum term as <dS_k, S_k+1>."""
     x32, dt32, cum32, b32, c32, s32, ds32, dy32 = (
-        t.float() for t in (xc, dtc, cum, bc, cc, states, ds, dy))
+        _wide(t) for t in (xc, dtc, cum, bc, cc, states, ds, dy))
     decay = _decay(cum32)
-    g5 = g.float()[..., None]
+    g5 = _wide(g)[..., None]
     dw = torch.einsum("bklhp,bkmhp->bklmh", dy32, x32)
     q = dw * g5 * decay
     v = torch.einsum("bkln,bkhpn->bklhp", b32, ds32)
@@ -264,18 +271,18 @@ def bwd_head_ref(xc, dtc, cum, bc, cc, states, ds, g, dy) -> tuple[torch.Tensor,
 
 def bwd_dg_ref(xc, dtc, cum, dy) -> torch.Tensor:
     """dG = sum_h (dy_h x_h^T) decay_h dt_h[m]: (B, NC, L, L)."""
-    dw = torch.einsum("bklhp,bkmhp->bklmh", dy.float(), xc.float())
-    return torch.einsum("bklmh,bklmh,bkmh->bklm", dw, _decay(cum.float()), dtc.float())
+    dw = torch.einsum("bklhp,bkmhp->bklmh", _wide(dy), _wide(xc))
+    return torch.einsum("bklmh,bklmh,bkmh->bklm", dw, _decay(_wide(cum)), _wide(dtc))
 
 
 def bwd_dbc_ref(xc, dtc, cum, bc, cc, states, ds, dg, dy) -> tuple[torch.Tensor, torch.Tensor]:
     """(dB, dC): dG^T C + [indec x] [dS] and dG B + [e dy] [S], the heads summed."""
-    x32, dt32, cum32, dy32 = (t.float() for t in (xc, dtc, cum, dy))
-    dg32 = dg.float()
-    db = (torch.einsum("bklm,bkln->bkmn", dg32, cc.float())
-          + torch.einsum("bklh,bklhp,bkhpn->bkln", _indec(dt32, cum32), x32, ds.float()))
-    dc = (torch.einsum("bklm,bkmn->bkln", dg32, bc.float())
-          + torch.einsum("bklh,bklhp,bkhpn->bkln", torch.exp(cum32), dy32, states.float()))
+    x32, dt32, cum32, dy32 = (_wide(t) for t in (xc, dtc, cum, dy))
+    dg32 = _wide(dg)
+    db = (torch.einsum("bklm,bkln->bkmn", dg32, _wide(cc))
+          + torch.einsum("bklh,bklhp,bkhpn->bkln", _indec(dt32, cum32), x32, _wide(ds)))
+    dc = (torch.einsum("bklm,bkmn->bkln", dg32, _wide(bc))
+          + torch.einsum("bklh,bklhp,bkhpn->bkln", torch.exp(cum32), dy32, _wide(states)))
     return db, dc
 
 

@@ -15,7 +15,9 @@ backward's two stage kernels against their plain twins the same;
 ssd_chunk_scan and ssd_chunk_scan_bwd, and each of their stages against its
 plain stage in ref.py, 1e-4 times max(1, max|ref|), as sums over up to L*N
 and L*P products (and, for dB and dC, over the heads) taken in another
-order, on the tensor cores in 3xTF32.
+order, on the tensor cores in 3xTF32; in bfloat16 and float16 one unit in
+the last place, or as close to the float64 answer as the float32 plain
+version (``near``).
 
 The cohort engine's batched step: a client's loss and gradients do not
 depend on how many other clients share its step (C >= 2), bit for bit,
@@ -40,6 +42,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.accuracy import ulp_err, within_one_ulp  # noqa: E402
 from repro_torch.kernels.gru_scan import kernel  # noqa: E402
 from repro_torch.kernels.gru_scan.ops import GRUScan  # noqa: E402
 from repro_torch.kernels.gru_scan.ref import (  # noqa: E402
@@ -145,13 +148,6 @@ def test_autograd_runs_both_kernels(cuda):
     assert max_err(grads[0], ref[0]) <= 1e-5
 
 
-def ulps(got, ref) -> float:
-    """max |got - ref| in units of the last place of got's dtype, times
-    max(1, |ref|) elementwise."""
-    eps = torch.finfo(got.dtype).eps
-    return float(((got.float() - ref.float()).abs() / (eps * ref.float().abs().clamp(min=1))).max())
-
-
 @pytest.mark.parametrize("dtype,lead,b,t,n", [
     (torch.float32, (), 16, 6, 65), (torch.float32, (3,), 20, 5, 128),
     (torch.float32, (), 2, 3, 1024), (torch.float32, (2,), 1, 4, 96),
@@ -185,7 +181,7 @@ def test_every_hidden_size_dtype_and_client_count(cuda, dtype, lead, b, t, n):
         for g, r in zip(got[1:], ref[2:]):
             assert max_err(g, r) <= 1e-4 * max(1.0, float(r.abs().max()))
     else:
-        assert all(ulps(g, r) <= 1.0 for g, r in zip((h, *got), ref))
+        assert all(ulp_err(g, r) <= 1.0 for g, r in zip((h, *got), ref))
     assert torch.equal(h, h2) and all(torch.equal(a, b_) for a, b_ in zip(got, again))
     leaves = [x.clone().requires_grad_(True) for x in (xg, w, bias)]
     grads = torch.autograd.grad(GRUScan.apply(*leaves), leaves, dy)
@@ -297,16 +293,25 @@ def test_ssd_backward_stages_match_plain_stages(cuda, b, nc, l_len, h, p, n):
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """float64 (alone or mixed in), integers, non-contiguous input and mixed
+    devices; no chunk, head or state size up to the longest chunk."""
     args = ssd_inputs(cuda, 1, 1, 8, 2, 4, 4)
     with pytest.raises(TypeError):
         ssd_kernel.ssd_chunk_scan(*(a.double() for a in args))
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_chunk_scan(args[0].double(), *args[1:])
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_chunk_scan(args[0].to(torch.int32), *args[1:])
     with pytest.raises(ValueError):
         ssd_kernel.ssd_chunk_scan(args[0].transpose(3, 4).contiguous().transpose(3, 4), *args[1:])
     with pytest.raises(ValueError):
         ssd_kernel.ssd_chunk_scan(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError):
+        # One row past the longest chunk the kernels' shared memory holds.
+        ssd_kernel.ssd_chunk_scan(*ssd_inputs(cuda, 1, 1, 16_321, 1, 1, 1))
     for shape in ((1, 1, 257, 1, 4, 4), (1, 1, 8, 1, 65, 4), (1, 1, 8, 1, 4, 129)):
-        with pytest.raises(ValueError):
-            ssd_kernel.ssd_chunk_scan(*ssd_inputs(cuda, *shape))
+        xs = ssd_inputs(cuda, *shape)
+        assert scaled_err(ssd_kernel.ssd_chunk_scan(*xs), ssd_chunk_scan_ref(*xs)) <= 1e-4
     leaves = [a.requires_grad_(True) for a in args]
     y = ssd_ops.ssd_chunk_scan(*leaves)  # the backward kernel is ported: no NotImplementedError
     assert y.requires_grad and y.grad_fn is not None
@@ -368,9 +373,13 @@ def test_ssd_bwd_strong_decay_stays_finite(cuda):
 
 
 def test_ssd_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """float64, states other than float32, non-contiguous input, a wrong
+    shape and mixed devices; no chunk, head or state size."""
     args = ssd_bwd_inputs(cuda, 1, 2, 8, 2, 4, 4)
     with pytest.raises(TypeError):
-        ssd_kernel.ssd_chunk_scan_bwd(*(a.bfloat16() for a in args))
+        ssd_kernel.ssd_chunk_scan_bwd(*(a.double() for a in args))
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_chunk_scan_bwd(*args[:5], args[5].bfloat16(), args[6])
     with pytest.raises(ValueError):
         ssd_kernel.ssd_chunk_scan_bwd(*args[:6], args[6].transpose(3, 4).contiguous().transpose(3, 4))
     with pytest.raises(ValueError):
@@ -378,8 +387,103 @@ def test_ssd_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         ssd_kernel.ssd_chunk_scan_bwd(*args[:6], args[6].cpu())
     for shape in ((1, 1, 257, 1, 4, 4), (1, 1, 8, 1, 65, 4), (1, 1, 8, 1, 4, 129)):
-        with pytest.raises(ValueError):
-            ssd_kernel.ssd_chunk_scan_bwd(*ssd_bwd_inputs(cuda, *shape))
+        xs = ssd_bwd_inputs(cuda, *shape)
+        for g, r in zip(ssd_kernel.ssd_chunk_scan_bwd(*xs), ssd_chunk_scan_bwd_ref(*xs)):
+            assert scaled_err(g, r) <= 1e-4
+
+
+def near(got, plain, plain64) -> bool:
+    """A kernel output against its plain version: float32 within 1e-4 times
+    max(1, max|ref|); below it within one unit in the last place of the
+    plain version computed in float64 (``within_one_ulp``)."""
+    if got.dtype == torch.float32:
+        return scaled_err(got, plain) <= 1e-4
+    return within_one_ulp(got, plain64)
+
+
+@pytest.mark.parametrize("dtype,b,nc,l_len,h,p,n", [
+    (torch.bfloat16, 2, 2, 256, 24, 64, 128), (torch.float16, 2, 2, 256, 24, 64, 128),
+    (torch.bfloat16, 1, 3, 100, 3, 48, 33), (torch.float16, 1, 3, 100, 3, 20, 36),
+    (torch.float32, 1, 2, 512, 2, 128, 256), (torch.bfloat16, 1, 2, 512, 2, 128, 256),
+    (torch.float32, 1, 2, 320, 3, 72, 200), (torch.float16, 1, 2, 80, 2, 72, 136),
+    (torch.float32, 1, 70000, 8, 2, 4, 4), (torch.bfloat16, 70000, 1, 8, 2, 4, 4),
+    (torch.float32, 131073, 1, 4, 1, 2, 2),
+])
+def test_ssd_every_dtype_size_and_row_count(cuda, dtype, b, nc, l_len, h, p, n):
+    """bfloat16 and float16, L / P / N above 256 / 64 / 128 and more than
+    65,535 (batch, chunk) rows, against the plain versions (the stage
+    compositions above 65,535 chunks: one pass over them), as ``near``
+    says; the entry states within 1e-4; each stage the same; two runs the
+    same bits; one launch a call; SSDChunkScan's gradients in the inputs'
+    dtype."""
+    xs = [a.to(dtype) for a in ssd_inputs(cuda, b, nc, l_len, h, p, n)]
+    dy = torch.tensor(np.random.default_rng(1).normal(size=tuple(xs[0].shape)),
+                      dtype=torch.float32, device=cuda).to(dtype)
+    before = (ssd_kernel.ssd_chunk_scan.launches, ssd_kernel.ssd_chunk_scan_bwd.launches)
+    (y, states), (y2, states2) = (ssd_kernel.ssd_chunk_scan(*xs, return_states=True)
+                                  for _ in range(2))
+    got, again = (ssd_kernel.ssd_chunk_scan_bwd(*xs, states, dy) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (ssd_kernel.ssd_chunk_scan.launches, ssd_kernel.ssd_chunk_scan_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    if nc > 1000:
+        fwd, bwd = ssd_ref.ssd_chunk_scan_stages_ref, ssd_ref.ssd_chunk_scan_bwd_stages_ref
+        y_ref, s_ref = fwd(*xs)
+    else:
+        fwd, bwd = ssd_chunk_scan_ref, ssd_chunk_scan_bwd_ref
+        y_ref, s_ref = fwd(*xs), ssd_chunk_states_ref(*xs)
+    want = (y_ref, *bwd(*xs, states, dy))
+    wide = [t.double() for t in (*xs, states, dy)]
+    want64 = (want if dtype == torch.float32 else
+              (fwd(*wide[:5])[0] if nc > 1000 else fwd(*wide[:5]), *bwd(*wide)))
+    assert states.dtype == torch.float32 and scaled_err(states, s_ref) <= 1e-4
+    for g, r, r64, a in zip((y, *got), want, want64, (xs[0], *xs)):
+        assert g.dtype == a.dtype == dtype and g.shape == a.shape
+        assert bool(torch.isfinite(g).all()) and near(g, r, r64)
+    assert torch.equal(y, y2) and torch.equal(states, states2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    if b * nc <= 1000:
+        g_, local = ssd_ref.chunk_cb_ref(xs[3], xs[4]), ssd_ref.chunk_local_ref(*xs[:4])
+        ds = ssd_ref.state_pass_ref(ssd_ref.chunk_carry_ref(dy, xs[2], xs[4]), xs[2], reverse=True)
+        dg = ssd_ref.bwd_dg_ref(xs[0], xs[1], xs[2], dy)
+        for fn, plain, args, mask in (
+            (ssd_kernel.stage_cb, ssd_ref.chunk_cb_ref, (xs[3], xs[4]), torch.tril),
+            (ssd_kernel.stage_local, ssd_ref.chunk_local_ref, tuple(xs[:4]), None),
+            (ssd_kernel.stage_pass, ssd_ref.state_pass_ref, (local, xs[2]), None),
+            (ssd_kernel.stage_y, ssd_ref.chunk_y_ref,
+             (xs[0], xs[1], xs[2], xs[4], g_, states), None),
+            (ssd_kernel.stage_head, ssd_ref.bwd_head_ref, (*xs, states, ds, g_, dy), None),
+            (ssd_kernel.stage_dg, ssd_ref.bwd_dg_ref, (xs[0], xs[1], xs[2], dy), torch.tril),
+            (ssd_kernel.stage_dbc, ssd_ref.bwd_dbc_ref, (*xs, states, ds, dg, dy), None),
+        ):
+            tup = lambda t: (t,) if torch.is_tensor(t) else t
+            outs, outs2, wants = (tup(f(*args)) for f in (fn, fn, plain))
+            wants64 = tup(plain(*(t.double() for t in args)))
+            for o, o2, w, w64 in zip(outs, outs2, wants, wants64):
+                if mask is not None:
+                    o, o2, w, w64 = mask(o), mask(o2), mask(w), mask(w64)
+                assert near(o, w, w64) and torch.equal(o, o2)
+        leaves = [a.clone().requires_grad_(True) for a in xs]
+        grads = torch.autograd.grad(ssd_ops.SSDChunkScan.apply(*leaves), leaves, dy)
+        assert [g.dtype for g in grads] == [dtype] * 5
+
+
+def test_ssd_mixed_dtypes_take_each_inputs_dtype(cuda):
+    """Inputs that mix float32, bfloat16 and float16 run the float32 kernels
+    on exact float32 copies: y in x's dtype, each cotangent in its input's,
+    the values the float32 call's rounded once."""
+    xs = ssd_bwd_inputs(cuda, 1, 3, 100, 3, 48, 33)
+    mixed = [xs[0].bfloat16(), xs[1], xs[2], xs[3].half(), xs[4].half()]
+    exact = [t.float() for t in mixed]
+    y, states = ssd_kernel.ssd_chunk_scan(*mixed, return_states=True)
+    y32, states32 = ssd_kernel.ssd_chunk_scan(*exact, return_states=True)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y32.bfloat16())
+    assert torch.equal(states, states32)
+    dy = xs[6].bfloat16()
+    got = ssd_kernel.ssd_chunk_scan_bwd(*mixed, states, dy)
+    want = ssd_kernel.ssd_chunk_scan_bwd(*exact, states, dy.float())
+    for g, w, a in zip(got, want, mixed):
+        assert g.dtype == a.dtype and torch.equal(g, w.to(a.dtype))
 
 
 def test_ssd_autograd_on_the_card_runs_both_kernels(cuda):
