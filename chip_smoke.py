@@ -280,6 +280,22 @@ exit code and no result line:
              float32; below it the tile products of two 16-bit inputs at
              the dtype's tensor-core rate, the rest in 3xTF32).
 
+29. capture — the training steps as CUDA graphs (``repro_torch/capture.py``,
+             the port of ``jax.jit``; phases 1–28 run captured too): each
+             path below run captured and again under ``disable_capture()``
+             from the same init: (a) federated-arc resident, 2 rounds x 4
+             epochs; (b) rebuild staging, (c) ``cohort_chunk=8`` with
+             prefetch and ``hierarchical:4``, (d) the arc slice under
+             ``DPConfig(1.0, 1.0)``, (f) the sequential engine, each 2
+             rounds x 1 epoch; (e) ``fedbuff:35`` under constant latency,
+             4 flushes x 1 epoch (one-client tasks); (g) one central epoch.
+             Gated: params, every trainer call's per-client losses and
+             every participant generator's offset bit for bit, the GRU
+             launches equal, no capture after the first round or flush
+             (central: one capture, a replay a step); printed: round times
+             both ways, captures, capture seconds, graphs, the graph
+             pool's bytes, peak memory.
+
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -287,6 +303,8 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import atexit
+import contextlib
+import gc
 import json
 import math
 import os
@@ -478,6 +496,10 @@ def main() -> int:
 
     # -- 28. the SSD kernels' whole contract: bf16/f16, any L/P/N, > 65,535 rows -
     for kernel, n in run_ssd_contract_phase(torch, dev, SK, ssd_user_child).items():
+        launches[kernel] += n
+
+    # -- 29. the training steps captured as CUDA graphs, against eager --------
+    for kernel, n in run_capture_phase(torch, K, cohort).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -4837,6 +4859,183 @@ def run_ssd_contract_phase(torch, dev, SK, cpu_child=None) -> dict[str, int]:
          failures=failures)
     require(not failures, "; ".join(failures))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the training steps captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def record_calls(fed) -> list:
+    """Wrap ``fed``'s two trainers so that each call records, after it, its
+    per-client losses and its generators' offsets; returns the record."""
+    calls = []
+    cohort_trainer, local_trainer = fed.cohort_trainer, fed.trainer
+    train_cohort, train_client = cohort_trainer.train_cohort, local_trainer.train_client
+
+    def cohort_call(params, clients, rng, generators, steps_per_epoch=None):
+        out = train_cohort(params, clients, rng, generators, steps_per_epoch)
+        calls.append((out[1].tobytes(), [g.get_offset() for g in generators]))
+        return out
+
+    def client_call(params, client, rng, generator):
+        out = train_client(params, client, rng, generator)
+        calls.append((out[1], [generator.get_offset()]))
+        return out
+
+    cohort_trainer.train_cohort = cohort_call
+    local_trainer.train_client = client_call
+    return calls
+
+
+def captured_and_eager(torch, K, make):
+    """``make()``'s federation run from the seed-0 init captured, then
+    another under ``disable_capture()``: for each, the result, the trainer
+    calls' losses and offsets, the launches, the round stats and the
+    captures counted after each round or flush."""
+    from repro_torch.capture import disable_capture
+    from repro_torch.models.gru import GRUConfig, init_gru
+
+    out = {}
+    for mode in ("captured", "eager"):
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            fed = make()
+            calls = record_calls(fed)
+            caches = (fed.cohort_trainer.graphs, fed.trainer.graphs)
+            captures, stats = [], []
+
+            def on_round(record):
+                captures.append(sum(g.captures for g in caches))
+                if fed.cohort_trainer.last_round_stats is not None:
+                    stats.append(dict(fed.cohort_trainer.last_round_stats))
+
+            params0 = init_gru(torch.Generator().manual_seed(0), GRUConfig(), "cuda")
+            torch.cuda.synchronize()
+            reset_gru_counts(K)
+            result = fed.run(params0, progress=on_round)
+            out[mode] = dict(
+                result=result, calls=calls, launches=gru_counts(K), captures=captures,
+                stats=stats, graphs=dict(
+                    captures=sum(g.captures for g in caches),
+                    replays=sum(g.replays for g in caches),
+                    capture_seconds=sum(g.capture_seconds for g in caches),
+                    graphs=sum(len(g.entries) for g in caches),
+                    graph_pool_bytes=sum(g.pool_bytes for g in caches)))
+            # The wrapped trainers hold the federation in a cycle: collect it,
+            # so the next run's peak counts none of this one's memory.
+            del fed, caches, on_round
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_capture_path(torch, path: str, runs: dict) -> dict:
+    """Phase 29's gates on one federation path; what it prints of it."""
+    cap, eager = runs["captured"], runs["eager"]
+    same_params = same_bits(cap["result"].params, eager["result"].params)
+    same_losses = [a[0] == b[0] for a, b in zip(cap["calls"], eager["calls"])]
+    same_offsets = [a[1] == b[1] for a, b in zip(cap["calls"], eager["calls"])]
+    last = cap["stats"][-1] if cap["stats"] else {}
+    fields = dict(
+        path=path, rounds=len(cap["result"].history), trainer_calls=len(cap["calls"]),
+        round_times_s={m: [r.round_time_s for r in runs[m]["result"].history]
+                       for m in ("captured", "eager")},
+        captures_after_each_round=cap["captures"],
+        eager_captures=eager["captures"][-1], **cap["graphs"],
+        peak_device_bytes={m: (runs[m]["stats"][-1]["peak_device_bytes"]
+                               if runs[m]["stats"] else None) for m in ("captured", "eager")},
+        round_stats_captured={k: last.get(k) for k in
+                              ("captures", "replays", "capture_seconds", "graph_pool_bytes")},
+        launches={m: runs[m]["launches"] for m in ("captured", "eager")},
+        params_bitwise=same_params, losses_bitwise=all(same_losses),
+        offsets_bitwise=all(same_offsets),
+    )
+    emit(phase="capture", **fields)
+    require(len(cap["calls"]) == len(eager["calls"]) > 0,
+            f"capture {path}: {len(cap['calls'])} trainer calls captured, "
+            f"{len(eager['calls'])} eager")
+    require(same_params, f"capture {path}: the captured run's params differ from eager")
+    require(all(same_losses), f"capture {path}: per-client losses differ in calls "
+            f"{[i for i, ok in enumerate(same_losses) if not ok]}")
+    require(all(same_offsets), f"capture {path}: generator offsets differ in calls "
+            f"{[i for i, ok in enumerate(same_offsets) if not ok]}")
+    require(cap["launches"] == eager["launches"],
+            f"capture {path}: launches {cap['launches']} captured, {eager['launches']} eager")
+    require(cap["captures"][0] > 0 and len(set(cap["captures"])) == 1,
+            f"capture {path}: captures after each round {cap['captures']}: a round after "
+            "the first captured")
+    require(eager["captures"][-1] == 0, f"capture {path}: the eager run captured")
+    return cap["launches"]
+
+
+def run_capture_phase(torch, K, cohort) -> dict[str, int]:
+    """Phase 29: each federated path captured against ``disable_capture()``,
+    then one central epoch both ways."""
+    from repro_torch.capture import disable_capture
+    from repro_torch.data.pipeline import global_dataset
+    from repro_torch.data.synth_eicu import Cohort
+    from repro_torch.experiments.paper import ExperimentConfig, policies_for
+    from repro_torch.federated.central import CentralConfig, train_central
+    from repro_torch.models.gru import GRUConfig, init_gru, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.privacy.dp import DPConfig
+
+    t_phase = time.perf_counter()
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    four, one = ExperimentConfig(rounds=2, local_epochs=4), ExperimentConfig(rounds=2,
+                                                                             local_epochs=1)
+    recruited = policies_for("federated-arc", ExperimentConfig())["recruitment"]
+    paths = {
+        "a_resident": lambda: arc_federation(torch, cohort, four),
+        "b_rebuild": lambda: arc_federation(torch, cohort, one, staging="rebuild"),
+        "c_chunk8_prefetch": lambda: arc_federation(torch, cohort, one, cohort_chunk=8,
+                                                    prefetch=True),
+        "c_hierarchical4": lambda: arc_federation(torch, cohort, one,
+                                                  aggregator="hierarchical:4"),
+        "d_dp": lambda: arc_federation(torch, cohort, one, privacy=DPConfig(1.0, 1.0)),
+        "e_fedbuff35": lambda: async_federation(
+            torch, cohort, ExperimentConfig(rounds=4, local_epochs=1), recruitment=recruited,
+            aggregator="fedbuff:35", latency="constant"),
+        "f_sequential": lambda: arc_federation(torch, cohort, one, engine="sequential"),
+    }
+    for path, make in paths.items():
+        counts = check_capture_path(torch, path, captured_and_eager(torch, K, make))
+        total = {k: total[k] + counts[k] for k in total}
+        torch.cuda.empty_cache()
+
+    # (g) one central epoch: one capture, then a replay a step.
+    exp = ExperimentConfig()
+    train = global_dataset(cohort, Cohort.TRAIN)
+    central = {}
+    for mode in ("captured", "eager"):
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            params0 = init_gru(torch.Generator().manual_seed(0), GRUConfig(), "cuda")
+            torch.cuda.synchronize()
+            reset_gru_counts(K)
+            result = train_central(
+                CentralConfig(epochs=1, batch_size=exp.batch_size, seed=0), train, params0,
+                make_loss_fn(GRUConfig()),
+                AdamW(exp.learning_rate, weight_decay=exp.weight_decay), device="cuda")
+            central[mode] = (result, gru_counts(K))
+    (cap, cap_counts), (eager, eager_counts) = central["captured"], central["eager"]
+    emit(phase="capture", path="g_central", steps=cap.total_steps,
+         seconds={"captured": cap.total_wall_time_s, "eager": eager.total_wall_time_s},
+         steps_per_s={"captured": cap.total_steps / cap.total_wall_time_s,
+                      "eager": eager.total_steps / eager.total_wall_time_s},
+         captures=cap.captures, replays=cap.replays, capture_seconds=cap.capture_seconds,
+         launches={"captured": cap_counts, "eager": eager_counts},
+         epoch_losses={"captured": cap.epoch_losses, "eager": eager.epoch_losses},
+         params_bitwise=same_bits(cap.params, eager.params))
+    require(same_bits(cap.params, eager.params) and cap.epoch_losses == eager.epoch_losses,
+            "capture g_central: the captured epoch differs from eager")
+    require(cap_counts == eager_counts, f"capture g_central: launches {cap_counts} captured, "
+            f"{eager_counts} eager")
+    require(cap.captures == 1 and cap.replays == cap.total_steps and eager.captures == 0,
+            f"capture g_central: {cap.captures} captures and {cap.replays} replays for "
+            f"{cap.total_steps} steps")
+    total = {k: total[k] + cap_counts[k] for k in total}
+    emit(phase="capture_done", seconds=time.perf_counter() - t_phase)
+    return total
 
 
 if __name__ == "__main__":

@@ -1,0 +1,243 @@
+"""Training steps captured as CUDA graphs and replayed: the port of ``jax.jit``.
+
+The reference compiles every training step into one program (the local step
+``federated/client.py``, the central step ``federated/central.py``, the
+cohort round ``federated/cohort.py``).  The port's steps are eager PyTorch,
+a few hundred host-issued launches each; on the card a trainer captures its
+step into a ``torch.cuda.CUDAGraph`` the first time it meets the step's key
+and replays the graph after that.  A replay gives the eager step's bits.
+
+Routing follows the port's rule: a step on the card is captured (unless
+:func:`disable_capture` is active, the counterpart of ``jax.disable_jit`` and
+the only way to run the eager step on the card), a step on the CPU runs
+eagerly.  A capture that fails raises; nothing falls back to the eager step.
+
+What a graph bakes in is its key (:class:`GraphCache`): the shapes and
+dtypes of the params and the batch, the number of clients, DP on or off,
+the staging kind and the data pointers of every tensor it reads in place
+(the resident cohort's arrays).  Everything else a step reads goes through
+static buffers that the trainer allocates before capture and fills before
+each replay: the batch or the index plan, the AdamW coefficients, the
+step's validity mask.  Params and AdamW moments live in static buffers too
+and are updated in place by the graph.
+
+Generators.  A graph cannot take a generator object as an input, so each
+graph owns slot generators (one a client), registered with it through
+``CUDAGraph.register_generator_state``.  Before a client's first step the
+host moves its slot to the client generator's position (seed and Philox
+offset; :func:`position`, :func:`set_position`); a replay then draws what the
+eager step draws and advances the slot by the step's whole increment.  In
+the cohort step every client draws on every step; a client whose step is
+not valid has its slot moved back after the replay, so it draws nothing, as
+in the eager step.  At the end of a chunk each client generator takes its
+slot's position.
+
+Memory.  All graphs of one cache share one pool
+(``torch.cuda.graph_pool_handle``).  That is safe in any replay order
+because (1) every output a later step reads (params, moments) is written in
+place into a buffer allocated before capture, outside the pool, and (2) the
+one output left in the pool, the step's loss, is cloned out by
+:meth:`StepGraph.replay` before any other graph can run.
+
+Bookkeeping.  The kernel wrappers count their launches where they launch,
+which in a graph is once, at capture.  A capture records each counter's
+delta over the captured step and puts the counters back as they were before
+its warm-up; every replay then adds the deltas, so a captured run counts
+what the eager run counts.  A capture is reported as the port's compile
+(``kernels/backend.py::record_compile``), which ``obs/profile.py::
+CompileWatcher`` turns into ``jit.compiles`` and ``jit.compile_time_s``.
+
+On a CPU device (tests only: a CPU trainer runs eagerly) :meth:`GraphCache.
+capture` returns a stand-in that reruns the body at each replay, so the
+static-buffer step can be held against the eager one bit for bit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import time
+from typing import Any, Callable, Hashable, Iterator, Sequence
+
+import torch
+
+from repro_torch.kernels import backend
+from repro_torch.kernels.gru_scan import kernel as gru_kernel
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+# The kernel wrappers whose ``launches`` a replay must add.
+COUNTED = (
+    gru_kernel.gru_scan,
+    gru_kernel.gru_scan_bwd,
+    ssd_kernel.ssd_chunk_scan,
+    ssd_kernel.ssd_chunk_scan_bwd,
+)
+
+_capture_off: contextvars.ContextVar[bool] = contextvars.ContextVar("capture_off",
+                                                                    default=False)
+
+
+@contextlib.contextmanager
+def disable_capture() -> Iterator[None]:
+    """Run the trainers' steps eagerly inside the block, also on the card.
+
+    Nests and restores; it holds for the thread (the context) that enters
+    it."""
+    token = _capture_off.set(True)
+    try:
+        yield
+    finally:
+        _capture_off.reset(token)
+
+
+def capture_enabled(device: torch.device) -> bool:
+    """True where a trainer captures its step: on the card, outside
+    :func:`disable_capture`."""
+    return device.type == "cuda" and not _capture_off.get()
+
+
+def launch_counts() -> tuple[int, ...]:
+    return tuple(fn.launches for fn in COUNTED)
+
+
+def set_launch_counts(counts: Sequence[int]) -> None:
+    for fn, n in zip(COUNTED, counts):
+        fn.launches = n
+
+
+def position(generator: torch.Generator) -> Any:
+    """Where ``generator``'s stream stands: ``(seed, offset)`` on the card,
+    the whole state on the CPU."""
+    if generator.device.type == "cuda":
+        return generator.initial_seed(), generator.get_offset()
+    return generator.get_state()
+
+
+def set_position(generator: torch.Generator, pos: Any) -> None:
+    """Move ``generator`` to ``pos``, a :func:`position` of a generator on
+    the same device."""
+    if generator.device.type == "cuda":
+        seed, offset = pos
+        generator.manual_seed(seed)
+        generator.set_offset(offset)
+    else:
+        generator.set_state(pos)
+
+
+class _Rerun:
+    """The CPU stand-in of a captured graph: its replay reruns the body."""
+
+    def __init__(self, body: Callable[[], torch.Tensor]):
+        self.body = body
+
+    def replay(self) -> torch.Tensor:
+        return self.body()
+
+
+class StepGraph:
+    """One captured step: ``replay`` runs it, adds the capture's launch
+    deltas to the kernel counters and returns a clone of its loss."""
+
+    def __init__(self, graph: Any, output: torch.Tensor | None, launches: Sequence[int]):
+        self.graph = graph          # a torch.cuda.CUDAGraph, or anything with replay()
+        self.output = output        # the loss the graph writes (in the pool)
+        self.launches = tuple(launches)
+        self.replays = 0
+
+    def replay(self) -> torch.Tensor:
+        out = self.graph.replay()
+        out = self.output if out is None else out
+        set_launch_counts([n + d for n, d in zip(launch_counts(), self.launches)])
+        self.replays += 1
+        return out.clone()
+
+
+class GraphCache:
+    """A trainer's captured steps by key, in one memory pool, with its
+    capture and replay counts."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.entries: dict[Hashable, Any] = {}
+        self.pool = None
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+        self._graphs: list[StepGraph] = []
+
+    @property
+    def replays(self) -> int:
+        return sum(g.replays for g in self._graphs)
+
+    def lookup(self, key: Hashable, build: Callable[[], Any]) -> Any:
+        """The entry of ``key``, built (and captured) by ``build`` when new."""
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self.entries[key] = build()
+        return entry
+
+    def counts(self) -> tuple[int, int, float]:
+        return self.captures, self.replays, self.capture_seconds
+
+    def round_stats(self, before: tuple[int, int, float]) -> dict[str, Any]:
+        """``last_round_stats``' capture fields since ``before`` (a
+        :meth:`counts`): captures, replays, capture seconds, and the pool's
+        bytes."""
+        captures, replays, seconds = self.counts()
+        return {
+            "captures": captures - before[0],
+            "replays": replays - before[1],
+            "capture_seconds": seconds - before[2],
+            "graph_pool_bytes": self.pool_bytes,
+        }
+
+    def capture(self, body: Callable[[], torch.Tensor],
+                slots: Sequence[torch.Generator] = ()) -> StepGraph:
+        """Capture ``body`` (a step over static buffers, returning its loss)
+        with ``slots`` registered as its generators.
+
+        ``body`` runs once eagerly first, as capture needs (library loads,
+        cuBLAS handles, autograd's state), on a side stream on the card: it
+        must run on scratch buffers, as a trainer's freshly allocated static
+        buffers are.  The slots' positions and the launch counters are put
+        back after it, so the warm-up consumes nothing."""
+        t0 = time.perf_counter()
+        before = launch_counts()
+        saved = [position(g) for g in slots]
+        if self.device.type == "cuda":
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                body()
+            current.wait_stream(side)
+        else:
+            body()
+        for g, pos in zip(slots, saved):
+            set_position(g, pos)
+        warm = launch_counts()
+        if self.device.type == "cuda":
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            for g in slots:
+                graph.register_generator_state(g)
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="global"):
+                output = body()
+            self.pool_bytes = _pool_bytes(self.pool)
+            step = StepGraph(graph, output, [a - b for a, b in zip(launch_counts(), warm)])
+        else:
+            step = StepGraph(_Rerun(body), None, [0] * len(COUNTED))
+        set_launch_counts(before)
+        seconds = time.perf_counter() - t0
+        self.captures += 1
+        self.capture_seconds += seconds
+        self._graphs.append(step)
+        backend.record_compile(seconds)
+        return step
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of device memory the graph pool ``pool`` holds."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))

@@ -43,6 +43,22 @@ A step on which no client of the chunk is valid is skipped on the host (the
 reference computes it inside its scan, as a no-op): the results are the
 same bits, and a chunk costs ``local_epochs × max_c ceil(n_c / B)`` steps.
 
+On the card the batched step is captured as a CUDA graph and replayed
+(``capture.py``, the port of the reference's jitted round): one graph a key
+(the chunk's client count, the batch's shapes and dtypes, DP, the staging
+kind and the resident cohort's data pointers), all captured at the start of
+the round that first needs them, before any plan is staged, so no staging
+thread runs during a capture.  The graph's step (``_static_step``) reads
+static buffers (``_CohortStep``): a rebuilt chunk's ``(x, y, mask)`` at step
+t, or a plan's ``idx[t]`` with the chunk's ``limit`` and its offset into the
+resident cohort (a sliced chunk's start, so one graph serves every slice);
+the coefficients and the validity of step t.  It always takes the
+``torch.where`` path, which for a valid client is the in-place add bit for
+bit, and every client draws from its slot generator; an invalid client's
+slot is moved back after the replay, so the participant generators end
+where the eager step leaves them.  ``capture.disable_capture()`` runs the
+eager step on the card.
+
 Staging (``staging=``) controls how a round's batches reach the device:
 
 * ``"rebuild"`` (the trainer's default, kept as the staging reference):
@@ -100,6 +116,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.capture import GraphCache, capture_enabled, position, set_position
 from repro_torch.data.device_cohort import (
     DeviceCohort,
     Layout,
@@ -193,6 +210,8 @@ class _PlannedChunk(_Chunk):
     staged: torch.Tensor  # the plan's device buffer (every view above)
     ready: Any            # the side stream's copy event; None when copied inline
     sliced: bool          # the chunk's rows are a contiguous run, indexed from its start
+    cohort: tuple[torch.Tensor, torch.Tensor]  # the whole cohort's x and y, flat
+    origin: int           # the flat index in ``cohort`` of ``x[0]`` (0 unless sliced)
 
     def batch(self, t):
         ib = self.idx[t]
@@ -201,6 +220,88 @@ class _PlannedChunk(_Chunk):
         x = torch.index_select(self.x, 0, flat).view(c, b, *self.x.shape[1:])
         y = torch.index_select(self.y, 0, flat).view(c, b)
         return x, y, (ib < self.limit).to(torch.float32)
+
+
+class _CohortStep:
+    """A captured batched step of C clients and the static buffers it reads
+    and writes: the stacked params and AdamW moments (updated in place),
+    the step's inputs, coefficients and validity, and one slot generator a
+    client.  ``spec`` is ``_batch_spec``'s."""
+
+    def __init__(self, trainer: "CohortTrainer", c: int, params: PyTree, spec: tuple):
+        dev, b = trainer.device, trainer.batch_size
+        self.c = c
+        self.params = tree_map(
+            lambda q: torch.zeros((c, *q.shape), dtype=q.dtype, device=dev).requires_grad_(True),
+            params,
+        )
+        self.mu = tree_map(torch.zeros_like, self.params)
+        self.nu = tree_map(torch.zeros_like, self.params)
+        if spec[0] == "resident":
+            self.cohort = spec[1]
+            like = {"idx": ((c, b), torch.int32), "limit": ((c, 1), torch.int32),
+                    "origin": ((1,), torch.int32)}
+        else:
+            self.cohort = None
+            _, features, x_dtype, y_dtype = spec
+            like = {"x": ((c, b, *features), x_dtype), "y": ((c, b), y_dtype),
+                    "mask": ((c, b), torch.float32)}
+        self.inputs = {k: torch.zeros(shape, dtype=dtype, device=dev)
+                       for k, (shape, dtype) in like.items()}
+        self.coefficients = torch.zeros((3, c), device=dev)
+        self.keep = torch.zeros(c, dtype=torch.bool, device=dev)
+        self.slots = [torch.Generator(device=dev) for _ in range(c)]
+        self.graph = trainer.graphs.capture(lambda: trainer._static_step(self), self.slots)
+
+    def batch(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The step's ``(x, y, mask)``, each with a leading client axis: the
+        rebuilt batch, or the plan's gather from the resident cohort."""
+        if self.cohort is None:
+            return self.inputs["x"], self.inputs["y"], self.inputs["mask"]
+        x, y = self.cohort
+        idx = self.inputs["idx"]
+        c, b = idx.shape
+        flat = (idx + self.inputs["origin"]).view(-1)
+        return (torch.index_select(x, 0, flat).view(c, b, *x.shape[1:]),
+                torch.index_select(y, 0, flat).view(c, b),
+                (idx < self.inputs["limit"]).to(torch.float32))
+
+    def start(self, params: PyTree, chunk: _Chunk) -> None:
+        """A chunk's start: every client at ``params``, fresh moments."""
+        with torch.no_grad():
+            for s, q in zip(tree_leaves(self.params), tree_leaves(params)):
+                s.copy_(q.unsqueeze(0).expand_as(s))
+            for m in tree_leaves((self.mu, self.nu)):
+                m.zero_()
+        if isinstance(chunk, _PlannedChunk):
+            self.inputs["limit"].copy_(chunk.limit)
+            self.inputs["origin"].fill_(chunk.origin)
+
+    def load(self, chunk: _Chunk, t: int) -> None:
+        """Step ``t``'s inputs into the static buffers."""
+        if isinstance(chunk, _PlannedChunk):
+            self.inputs["idx"].copy_(chunk.idx[t])
+        else:
+            for k, v in zip(("x", "y", "mask"), chunk.batch(t)):
+                self.inputs[k].copy_(v)
+        self.coefficients.copy_(chunk.coefficients[t])
+        self.keep.copy_(chunk.valid[t])
+
+    def result(self) -> PyTree:
+        return tree_map(lambda q: q.detach().clone(), self.params)
+
+
+def _mean_last_losses(losses: list[torch.Tensor], valid: list[np.ndarray], c: int) -> np.ndarray:
+    """Each client's mean loss over its valid steps of the last epoch (NaN
+    without any), from one readback."""
+    per_client = np.full(c, np.nan)
+    if losses:
+        stacked = torch.stack(losses).double().cpu().numpy()
+        valid_last = np.stack(valid)
+        per_client = np.where(valid_last, stacked, 0.0).sum(axis=0) / np.maximum(
+            valid_last.sum(axis=0), 1
+        )
+    return per_client.astype(np.float32)
 
 
 @dataclasses.dataclass
@@ -263,6 +364,8 @@ class CohortTrainer:
         self._plan_buffers: list[torch.Tensor | None] = [None, None]
         self._plan_copied: list[Any] = [None, None]
         self._side_stream = None
+        # The captured batched steps (on the card), one a key.
+        self.graphs = GraphCache(self.device)
 
     # ------------------------------------------------------------------
     # staging
@@ -409,6 +512,8 @@ class CohortTrainer:
             staged=staged,
             ready=ready,
             sliced=sliced,
+            cohort=(dc.x.flatten(0, 1), dc.y.flatten(0, 1)),
+            origin=r0 * width,
         )
 
     def _plan_buffer(self, slot: int, nbytes: int) -> torch.Tensor:
@@ -440,12 +545,103 @@ class CohortTrainer:
     # one chunk's local training
     # ------------------------------------------------------------------
 
+    def _batch_spec(self, chunk: _Chunk | None = None,
+                    clients: Sequence[ClientDataset] = (), dc: DeviceCohort | None = None) -> tuple:
+        """What a step's graph reads of a chunk's batches: ``("resident",
+        (x, y))``, the resident cohort's flat arrays it gathers from, or
+        ``("rebuild", features, x dtype, y dtype)``; from a staged chunk or,
+        before staging, from the round's clients and device cohort."""
+        if isinstance(chunk, _PlannedChunk):
+            return ("resident", chunk.cohort)
+        if chunk is not None:
+            return ("rebuild", tuple(chunk.x.shape[3:]), chunk.x.dtype, chunk.y.dtype)
+        if dc is not None:
+            return ("resident", (dc.x.flatten(0, 1), dc.y.flatten(0, 1)))
+        x, y = clients[0].train.x, clients[0].train.y
+        return ("rebuild", tuple(x.shape[1:]), torch.from_numpy(x[:0]).dtype,
+                torch.from_numpy(y[:0]).dtype)
+
+    def _cohort_step(self, c: int, params: PyTree, spec: tuple) -> _CohortStep:
+        """The captured step of ``c`` clients for ``spec``, captured when new.
+
+        Its key: the client count, the batch size, the params' and the
+        batch's shapes and dtypes, DP on or off, the staging kind, and the
+        data pointers of the resident arrays it gathers from."""
+        if spec[0] == "resident":
+            x, y = spec[1]
+            batch_key = ("resident", tuple(x.shape), x.dtype, y.dtype, x.data_ptr(), y.data_ptr())
+        else:
+            batch_key = spec
+        key = (c, self.batch_size, batch_key, self.dp is not None,
+               tuple((tuple(q.shape), q.dtype) for q in tree_leaves(params)))
+        return self.graphs.lookup(key, lambda: _CohortStep(self, c, params, spec))
+
+    def _static_step(self, s: _CohortStep) -> torch.Tensor:
+        """The step a graph captures: one batched step over ``s``'s static
+        buffers, every client drawing from its slot; the params and moments
+        are updated in place where the step is valid (``torch.where`` for
+        every client).  Returns the per-client losses."""
+        leaves = tree_leaves(s.params)
+        if self._dp_grad is None:
+            loss = self.loss_fn(s.params, s.batch(), s.slots)
+            grads_iter = iter(torch.autograd.grad(loss.sum(), leaves))
+            grads = tree_map(lambda _: next(grads_iter), s.params)
+        else:
+            loss, grads = self._dp_grad(s.params, s.batch(), s.slots)
+        updates, new_state = self.optimizer.update_stacked(
+            grads, AdamWState(step=0, mu=s.mu, nu=s.nu), s.params, s.coefficients
+        )
+        with torch.no_grad():
+
+            def where(new, old):
+                return torch.where(s.keep.view(s.c, *([1] * (old.dim() - 1))), new, old)
+
+            for q, u in zip(leaves, tree_leaves(updates)):
+                q.copy_(where(q + u, q))
+            for old, new in zip(tree_leaves((s.mu, s.nu)),
+                                tree_leaves((new_state.mu, new_state.nu))):
+                old.copy_(where(new, old))
+        return loss.detach()
+
+    def _train_chunk_captured(
+        self, params: PyTree, chunk: _Chunk, generators: Sequence[torch.Generator]
+    ) -> tuple[PyTree, np.ndarray, int]:
+        """``_train_chunk`` through the chunk's captured step."""
+        t_total, c = chunk.valid_host.shape
+        spe = t_total // self.local_epochs
+        s = self._cohort_step(c, params, self._batch_spec(chunk))
+        s.start(params, chunk)
+        for slot, g in zip(s.slots, generators):
+            set_position(slot, position(g))
+        last_losses: list[torch.Tensor] = []
+        last_valid: list[np.ndarray] = []
+        executed = 0
+        for t in range(t_total):
+            valid = chunk.valid_host[t]
+            if not valid.any():
+                continue  # every client pads here: a no-op for all of them
+            executed += 1
+            s.load(chunk, t)
+            # A client that pads here draws nothing: its slot goes back.
+            held = [(slot, position(slot)) for slot, v in zip(s.slots, valid) if not v]
+            loss = s.graph.replay()
+            for slot, pos in held:
+                set_position(slot, pos)
+            if t >= t_total - spe:
+                last_losses.append(loss)
+                last_valid.append(valid)
+        for slot, g in zip(s.slots, generators):
+            set_position(g, position(slot))
+        return s.result(), _mean_last_losses(last_losses, last_valid, c), executed
+
     def _train_chunk(
         self, params: PyTree, chunk: _Chunk, generators: Sequence[torch.Generator]
     ) -> tuple[PyTree, np.ndarray, int]:
         """All local epochs of a chunk's clients from broadcast copies of
         ``params``.  Returns the stacked trained params, each client's mean
         loss over its last epoch's valid steps, and the steps executed."""
+        if capture_enabled(self.device):
+            return self._train_chunk_captured(params, chunk, generators)
         t_total, c = chunk.valid_host.shape
         spe = t_total // self.local_epochs
         p = tree_map(
@@ -494,15 +690,7 @@ class CohortTrainer:
             if t >= t_total - spe:
                 last_losses.append(loss.detach())
                 last_valid.append(valid)
-        per_client = np.full(c, np.nan)
-        if last_losses:
-            # One readback per chunk.
-            losses = torch.stack(last_losses).double().cpu().numpy()
-            valid_last = np.stack(last_valid)
-            per_client = np.where(valid_last, losses, 0.0).sum(axis=0) / np.maximum(
-                valid_last.sum(axis=0), 1
-            )
-        return tree_map(lambda q: q.detach(), p), per_client.astype(np.float32), executed
+        return tree_map(lambda q: q.detach(), p), _mean_last_losses(last_losses, last_valid, c), executed
 
     # ------------------------------------------------------------------
     # the round
@@ -554,6 +742,15 @@ class CohortTrainer:
             dcohort.ensure_resident(clients)
         if cuda and self.track_stats:
             torch.cuda.reset_peak_memory_stats(self.device)
+        graphs_before = self.graphs.counts()
+        if capture_enabled(self.device):
+            # Every capture the round needs happens here, before any plan is
+            # staged: no staging thread may run during a capture.
+            spec = self._batch_spec(clients=clients, dc=dcohort)
+            for start in starts:
+                c = int(np.count_nonzero(owners[start : start + chunk] == rank))
+                if c:
+                    self._cohort_step(c, params, spec)
 
         prefetch = resident and self.prefetch and len(starts) > 1
         side = None
@@ -663,6 +860,10 @@ class CohortTrainer:
             "pool_evictions": dcohort.evictions - pool_before[1] if pooled else 0,
             "pool_bytes_uploaded": dcohort.bytes_uploaded - pool_before[2] if pooled else 0,
             "pool_hits": dcohort.hits - pool_before[3] if pooled else 0,
+            # The round's captures and replays of its steps, the seconds its
+            # captures took, and the bytes of the trainer's graph pool (all
+            # 0 when the round ran eagerly).
+            **self.graphs.round_stats(graphs_before),
         }
         real_steps = sum(local_round_steps(n, self.batch_size, self.local_epochs) for n in sizes)
         return new_params, per_losses, real_steps

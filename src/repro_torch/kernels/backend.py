@@ -11,9 +11,10 @@ use with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface and loaded with ``ctypes``.  The library's name carries a hash of
 its source, so an edited source is rebuilt and a stale build never loads.
 
-The port has no jit: its compile events are these libraries' ``nvcc``
-builds and first loads in a process.  Each is counted with its host seconds
-in ``LIBRARY_EVENTS`` and handed to the listeners of
+The port's compile events are these libraries' ``nvcc`` builds and first
+loads in a process, and the trainers' CUDA graph captures (``capture.py``,
+the port of ``jax.jit``, through ``record_compile``).  Each is counted with
+its host seconds in ``LIBRARY_EVENTS`` and handed to the listeners of
 ``add_library_listener`` (``obs/profile.py::CompileWatcher`` turns them into
 the ``jit.*`` metrics).  Counting costs no device work.
 
@@ -69,6 +70,11 @@ def _library_event(seconds: float) -> None:
         LIBRARY_EVENTS["seconds"] += seconds
         for listener in _listeners:
             listener(seconds)
+
+
+def record_compile(seconds: float) -> None:
+    """Count a compile that is not a library's: a captured step's graph."""
+    _library_event(seconds)
 
 
 def route(*tensors: torch.Tensor) -> str:

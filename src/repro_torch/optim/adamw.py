@@ -12,7 +12,9 @@ the same tree.
 with a leading client axis), where each client has its own step count: the
 host computes each client's coefficients with ``coefficients`` and hands
 them over as a ``(3, C)`` tensor (``cohort_coefficients`` lays them out for
-a whole round).  Both forms apply a bias correction as a product with its
+a whole round).  ``update`` takes the same as a ``(3,)`` tensor when the
+caller passes one (``coefficient_table`` lays them out by step).  Both
+forms apply a bias correction as a product with its
 float32 reciprocal, ``m * (1 / b1c)``: CUDA divides a tensor by a host
 scalar that way but divides by a tensor exactly, so a division would round
 differently in the two forms.  With a product, each client of a stacked
@@ -80,16 +82,29 @@ class AdamW:
         index = np.where(step_valid, counts, 0)
         return np.ascontiguousarray(table[index].transpose(1, 2, 0))
 
+    def coefficient_table(self, steps: int) -> np.ndarray:
+        """``(steps, 3)`` float32: row ``k - 1`` holds ``coefficients(k)``."""
+        return np.asarray([self.coefficients(k) for k in range(1, steps + 1)],
+                          dtype=np.float32).reshape(steps, 3)
+
     @torch.no_grad()
     def update(
-        self, grads: PyTree, state: AdamWState, params: PyTree
+        self, grads: PyTree, state: AdamWState, params: PyTree,
+        coefficients: torch.Tensor | None = None,
     ) -> tuple[PyTree, AdamWState]:
-        """Returns (updates, new_state); apply with ``apply_updates``."""
+        """Returns (updates, new_state); apply with ``apply_updates``.
+
+        ``coefficients``, a ``(3,)`` tensor on the params' device holding
+        ``coefficients(state.step + 1)`` (a row of ``coefficient_table``),
+        takes the place of the host floats: a step that reads them from the
+        device can be captured once and replayed at any step count.  The
+        same bits either way."""
         step = state.step + 1
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (global_norm(grads) + 1e-12), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
-        mu, nu, updates = self._step(grads, state, params, self.coefficients(step))
+        coefs = self.coefficients(step) if coefficients is None else tuple(coefficients)
+        mu, nu, updates = self._step(grads, state, params, coefs)
         return updates, AdamWState(step=step, mu=mu, nu=nu)
 
     @torch.no_grad()
@@ -116,7 +131,8 @@ class AdamW:
 
     def _step(self, grads, state, params, coefs):
         """New moments and the updates.  ``coefs`` is ``(1/b1c, 1/b2c, -lr)``,
-        each a float or a ``(C,)`` tensor of one value per client."""
+        each a float, a 0-dim tensor, or a ``(C,)`` tensor of one value per
+        client."""
         b1, b2 = self.b1, self.b2
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * (g * g), state.nu, grads)
@@ -130,9 +146,9 @@ class AdamW:
 
 
 def _per_client(k, like: torch.Tensor):
-    """A float as is; a ``(C,)`` tensor shaped to broadcast over ``like``'s
-    non-client axes."""
-    if isinstance(k, float):
+    """A float or a 0-dim tensor as is; a ``(C,)`` tensor shaped to
+    broadcast over ``like``'s non-client axes."""
+    if isinstance(k, float) or k.dim() == 0:
         return k
     return k.view(k.shape[0], *([1] * (like.dim() - 1)))
 

@@ -35,7 +35,16 @@ engines (losses 1e-5, params 1e-4).
 
 The control plane: a small sync and a small async job preempted and
 resumed on the card give the uninterrupted run dir (``diff_runs`` empty).
+
+Captured steps (``repro_torch/capture.py``): the cohort step captured as a
+CUDA graph and replayed gives the eager step's bits (under
+``disable_capture()``) at C = 1, 4 and 35, with and without DP, on steps
+where only some clients are valid: params, losses, every generator's
+offset, the launches; so do the local and central steps; the wide GRU
+kernels capture in global mode.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -736,3 +745,136 @@ def test_a_job_cut_and_resumed_on_the_card_is_the_uninterrupted_job(cuda, tmp_pa
     assert resume_job(cut, device=cuda)["resumed_from"] == 1
     assert kernel.gru_scan.launches > before[0] and kernel.gru_scan_bwd.launches > before[1]
     assert diff_runs(cut, full) == []
+
+
+def captured_and_eager_rounds(cuda, trainer_for, clients, rounds=2):
+    """``rounds`` rounds of ``trainer_for()``'s ``train_cohort`` captured,
+    then of another under ``disable_capture()``, from one init and seeds:
+    for each, the params, every round's losses, the generators' offsets
+    after each round, the GRU launches and the round stats."""
+    from repro_torch.capture import disable_capture
+    from repro_torch.federated.cohort import client_generators
+    from repro_torch.models import gru
+
+    out = {}
+    for mode in ("captured", "eager"):
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            trainer = trainer_for()
+            params = gru.init_gru(torch.Generator().manual_seed(0), gru.GRUConfig(), cuda)
+            rng, gen_rng = np.random.default_rng(0), np.random.default_rng([0, 2])
+            before = (kernel.gru_scan.launches, kernel.gru_scan_bwd.launches)
+            losses, offsets, stats = [], [], []
+            for _ in range(rounds):
+                gens = client_generators(gen_rng, len(clients), cuda)
+                params, loss, _ = trainer.train_cohort(params, clients, rng, gens)
+                losses.append(loss)
+                offsets.append([g.get_offset() for g in gens])
+                stats.append(dict(trainer.last_round_stats))
+            launches = (kernel.gru_scan.launches - before[0],
+                        kernel.gru_scan_bwd.launches - before[1])
+            out[mode] = (params, losses, offsets, launches, stats)
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 4, 35])
+@pytest.mark.parametrize("dp", [False, True], ids=["no-dp", "dp"])
+def test_captured_cohort_rounds_replay_the_eager_bits(cuda, c, dp):
+    """The cohort step captured as a CUDA graph and replayed gives the
+    eager step's bits: params, losses, every generator's offset after each
+    round (dropout 0.05, DP with noise), on steps where only some clients
+    are valid; the launches are the eager ones, and round 2 captures
+    nothing."""
+    from repro_torch.federated.cohort import CohortTrainer
+    from repro_torch.models import gru
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.privacy.dp import DPConfig
+    from repro_torch.tree import tree_leaves
+
+    sizes = [1 + (37 * i) % 90 for i in range(c)]   # 1 to 6 batches of 16 a client
+    clients = dp_clients(np.random.default_rng(c), sizes)
+
+    def trainer_for():
+        return CohortTrainer(gru.make_loss_fn(gru.GRUConfig(dropout=0.05)), AdamW(), 16, 2,
+                             staging="resident", dp=DPConfig(1.0, 1.0) if dp else None,
+                             device=cuda)
+
+    out = captured_and_eager_rounds(cuda, trainer_for, clients)
+    (p_c, l_c, o_c, n_c, s_c), (p_e, l_e, o_e, n_e, s_e) = out["captured"], out["eager"]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p_c), tree_leaves(p_e)))
+    assert all(np.array_equal(a, b) for a, b in zip(l_c, l_e))
+    assert o_c == o_e and all(o > 0 for o in o_c[0])   # every client drew
+    assert n_c == n_e
+    assert [s["captures"] for s in s_c] == [1, 0] and [s["captures"] for s in s_e] == [0, 0]
+    assert all(s["replays"] == s["cohort_steps"] for s in s_c)
+    assert s_c[0]["graph_pool_bytes"] > 0 and s_c[0]["capture_seconds"] > 0
+
+
+@pytest.mark.parametrize("dp", [False, True], ids=["no-dp", "dp"])
+def test_captured_local_and_central_steps_replay_the_eager_bits(cuda, dp):
+    from repro_torch.capture import disable_capture
+    from repro_torch.federated.central import CentralConfig, train_central
+    from repro_torch.federated.client import LocalTrainer
+    from repro_torch.models import gru
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.privacy.dp import DPConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = gru.GRUConfig(dropout=0.05)
+    params = gru.init_gru(torch.Generator().manual_seed(0), cfg, cuda)
+    clients = dp_clients(np.random.default_rng(1), [70, 5, 33])
+    out = {}
+    for mode in ("captured", "eager"):
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            trainer = LocalTrainer(gru.make_loss_fn(cfg), AdamW(), 16, 2, device=cuda,
+                                   dp=DPConfig(1.0, 1.0) if dp else None)
+            rng = np.random.default_rng(0)
+            runs = []
+            for i, client in enumerate(clients):
+                gen = torch.Generator(device=cuda).manual_seed(i)
+                p, loss, _ = trainer.train_client(params, client, rng, gen)
+                runs.append((p, loss, gen.get_offset()))
+            central = train_central(CentralConfig(epochs=2, batch_size=16), clients[0].train,
+                                    params, gru.make_loss_fn(cfg), AdamW(), device=cuda)
+            out[mode] = (runs, central, trainer.graphs.captures, trainer.graphs.replays)
+    (runs_c, central_c, captures, replays), (runs_e, central_e, none, _) = (
+        out["captured"], out["eager"])
+    for (p_c, l_c, o_c), (p_e, l_e, o_e) in zip(runs_c, runs_e):
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p_c), tree_leaves(p_e)))
+        assert l_c == l_e and o_c == o_e
+    assert (captures, none) == (1, 0) and replays == sum(2 * -(-len(c.train) // 16)
+                                                        for c in clients)
+    assert central_c.epoch_losses == central_e.epoch_losses
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(central_c.params),
+                                                 tree_leaves(central_e.params)))
+    assert (central_c.captures, central_c.replays) == (1, central_c.total_steps)
+
+
+@pytest.mark.parametrize("n", [128, 1000])
+def test_wide_gru_kernels_capture_in_global_mode(cuda, n):
+    """The wide kernels' host calls (cudaGetDevice, cudaDeviceGetAttribute,
+    cudaFuncSetAttribute above 48 KB of shared memory) are legal under a
+    global-mode capture: the replayed layer gives the eager bits."""
+    from repro_torch.kernels.gru_scan.ops import GRUScan
+
+    xg, w, b, _ = inputs(cuda, 4, 8, n, lead=(2,))
+    w = w * min(1.0, 1.0 / (0.3 * n ** 0.5))
+    dy = torch.randn(2, 4, 8, n, device=cuda)
+
+    def body():
+        x = xg.clone().requires_grad_(True)
+        h = GRUScan.apply(x, w, b)
+        (dx,) = torch.autograd.grad(h, x, dy)
+        return h.detach(), dx
+
+    h_e, dx_e = body()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        h_g, dx_g = body()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(h_g, h_e) and torch.equal(dx_g, dx_e)
