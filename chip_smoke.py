@@ -194,18 +194,30 @@ exit code and no result line:
              the card against the CPU, and the card's decode path (the
              VLM's patches through ``token_embeds``) against its forward;
              (b) the published qwen3-1.7b (bfloat16): 4 prefill calls at
-             B=8 x 2,048, 16 prompt and 64 greedy tokens through the decode
-             path, two train steps at the largest of B=8, 4, 2 that fits;
-             (c) the published zamba2-7b: 2 prefill calls at B=8 x 2,048
-             with exactly 68 ``ssd_chunk_scan`` launches each, 32 decode
-             tokens with none, and a train step at B=1 x 2,048 cut to 60
-             layers (50 Mamba layers; printed in ``reduced``) with 100
-             forward and 50 backward SSD launches; (d) yi-9b,
+             B=8 x 2,048, 16 prompt and 64 greedy tokens through
+             ``make_serve_step`` (the cache donated) captured and again
+             under ``disable_capture()`` (``decode_both_ways``: every
+             step's logits, the greedy tokens and the cache bit for bit,
+             one capture, ms a step, 3 more steps each way profiled for
+             device operations and idle share, peak memory), then 3
+             ``make_train_step`` calls each way from one init at the
+             largest of B=8, 4, 2 that fits (``lm_train``: params, AdamW
+             moments and metrics bit for bit, SSD launches equal, one
+             capture and 2 replays; step seconds, peak memory);
+             (c) the published zamba2-7b uncut: 2 prefill calls at B=8 x
+             2,048 with exactly 68 ``ssd_chunk_scan`` launches each, 32
+             decode tokens with none, both ways, and 3 train steps each way
+             at B=1 x 2,048 with 136 forward and 68 backward SSD launches a
+             step (remat); (d) yi-9b,
              nemotron-4-15b and internvl2-26b at full width cut to 2 layers:
              prefill, the VLM's 256 patches through the decode path, 8
              greedy tokens, finite; (e) ``make_fed_round_step`` at
              full-width smollm-135m, 4 client slots of 3 local steps, one
-             of weight 0: every slot equal after the round, a finite loss.
+             of weight 0: every slot equal after the round, a finite loss
+             (each slot's steps through one captured train step, the
+             slots' trees swapped through its static trees); (f) the
+             published mamba2-130m: a prefill call, 16 + 64 tokens and 3
+             train steps at B=8 x 2,048, both ways as (b).
 25. mesh   — the client axis over several processes (``launch/mesh.py``):
              (a) federated-arc's round (35 clients, 1 local epoch) with
              ``mesh="auto"`` in this process, where no process group
@@ -234,8 +246,9 @@ exit code and no result line:
              router_aux, mtp_ce); (c) llama4-scout-17b-a16e, 8 of 48 layers
              served (B=8 x 2,048, 16 + 32 tokens), 1 trained; (d)
              seamless-m4t-large-v2 uncut: prefill at B=8 x 2,048 with 512
-             frames, ``encode_for_decode`` and 16 + 64 tokens, a train step.
-             The cuts are printed in ``reduced``; this path runs no kernel.
+             frames, ``encode_for_decode`` and 16 + 64 tokens, train steps.
+             Every decode and train step both ways, as phase 24 (b).  The
+             cuts are printed in ``reduced``; this path runs no kernel.
 27. GRU contract — the GRU kernels at every input the reference takes: (a)
              float32 at N = 65, 96 (3 clients), 128, 256, 1024 and 7000 (the
              wide kernels; at 7000 the backward's tile in device scratch),
@@ -281,7 +294,9 @@ exit code and no result line:
              the dtype's tensor-core rate, the rest in 3xTF32).
 
 29. capture — the training steps as CUDA graphs (``repro_torch/capture.py``,
-             the port of ``jax.jit``; phases 1–28 run captured too): each
+             the port of ``jax.jit``; phases 1–28 run captured too, the LM
+             train and decode steps of phases 7–12, 24, 26 and 28 among
+             them): each
              path below run captured and again under ``disable_capture()``
              from the same init: (a) federated-arc resident, 2 rounds x 4
              epochs; (b) rebuild staging, (c) ``cohort_chunk=8`` with
@@ -295,6 +310,12 @@ exit code and no result line:
              (central: one capture, a replay a step); printed: round times
              both ways, captures, capture seconds, graphs, the graph
              pool's bytes, peak memory.
+30. predict — ``experiments/paper.py::_predict`` on the paper's test set
+             (13,376 rows of the full cohort: 6 batches of 2,048 and a
+             ragged one) with the seed-0 GRU, 3 calls captured and 3 under
+             ``disable_capture()``: y_hat bit for bit, ``gru_scan`` 2 a
+             batch both ways, each captured call 2 captures (its own
+             cache) and a replay a batch; call seconds both ways.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -500,6 +521,10 @@ def main() -> int:
 
     # -- 29. the training steps captured as CUDA graphs, against eager --------
     for kernel, n in run_capture_phase(torch, K, cohort).items():
+        launches[kernel] += n
+
+    # -- 30. the paper's predict function captured, against eager -------------
+    for kernel, n in run_predict_phase(torch, K, cohort).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -3364,7 +3389,8 @@ LM_PARITY_B, LM_PARITY_S = 2, 40     # 40 is ragged against the reduced SSD chun
 LM_B, LM_PROMPT = 8, 2048            # (b) and (c): the prefill calls
 LM_FEED = 16                         # prompt tokens fed through the decode path before generating
 LM_TRAIN_B = (8, 4, 2)               # (b): the largest that fits
-HYBRID_TRAIN_LAYERS = 60             # (c): 10 of zamba2-7b's 13 groups, 50 Mamba layers
+LM_TRAIN_STEPS = 3                   # each way; captured: the warm-up (step 1) and 2 replays
+DECODE_PROFILE_STEPS = 3             # decode steps profiled each way
 WIDE_ARCHS = ("yi-9b", "nemotron-4-15b", "internvl2-26b")   # (d): full width, 2 layers
 WIDE_B, WIDE_S, WIDE_GEN = 2, 512, 8
 FED_C, FED_K, FED_B, FED_S = 4, 3, 2, 256   # (e)
@@ -3476,16 +3502,13 @@ def check_lm_zoo_parity(torch) -> None:
 def lm_serve(torch, SK, model, params, calls: int, gen: int, ssd_per_call: int,
              b: int = LM_B, frames: int = 0) -> tuple[dict, dict]:
     """``make_prefill_step`` at ``b`` x LM_PROMPT, ``calls`` times (the first
-    cold; with ``frames`` source frames for the encoder-decoder); then,
-    against a cache of LM_PROMPT + ``gen`` slots (a step attends over every
-    slot, masked, so its cost is that of a full context; the encoder's
-    K/V put in by ``encode_for_decode`` first), LM_FEED prompt tokens and
-    ``gen`` greedy tokens through ``make_serve_step``.  Prefill calls must
+    cold; with ``frames`` source frames for the encoder-decoder); then the
+    decode path both ways (``decode_both_ways``).  Prefill calls must
     launch ``ssd_chunk_scan`` ``ssd_per_call`` times each, decode steps
-    never.  Returns the numbers and the last cache."""
+    never.  Returns the numbers and the captured run's cache."""
     import numpy as np
 
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_prefill_step
 
     cfg = model.cfg
     toks = prompt_tokens(torch, cfg.vocab_size, b, LM_PROMPT, seed=0).cuda()
@@ -3493,7 +3516,7 @@ def lm_serve(torch, SK, model, params, calls: int, gen: int, ssd_per_call: int,
     if frames:
         batch["src_embeds"] = torch.from_numpy(np.random.default_rng(1).normal(
             size=(b, frames, cfg.d_model)).astype(np.float32)).cuda()
-    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    prefill = make_prefill_step(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     call_s, per_call = [], []
@@ -3506,91 +3529,264 @@ def lm_serve(torch, SK, model, params, calls: int, gen: int, ssd_per_call: int,
         per_call.append(SK.ssd_chunk_scan.launches - before)
     prefill_peak = torch.cuda.max_memory_allocated()
     short = prefill(params, {**batch, "tokens": toks[:, :LM_FEED]})
-
-    before = SK.ssd_chunk_scan.launches
-    cache = model.init_cache(b, LM_PROMPT + gen, "cuda")
-    t0 = time.perf_counter()
-    if frames:
-        with torch.inference_mode():
-            cache = model.encode_for_decode(params, batch["src_embeds"], cache)
-    torch.cuda.synchronize()
-    encode_s = time.perf_counter() - t0
-    feed_logits = None
-    for t in range(LM_FEED):
-        feed_logits, cache = serve(params, toks[:, t:t + 1], cache, t)
-    tok = torch.argmax(feed_logits, dim=-1)[:, None]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    generated = []
-    for k in range(gen):
-        lg, cache = serve(params, tok, cache, LM_FEED + k)
-        tok = torch.argmax(lg, dim=-1)[:, None]
-        generated.append(tok)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    decode_launches = SK.ssd_chunk_scan.launches - before
+    decode, cache = decode_both_ways(torch, SK, model, params, toks, batch.get("src_embeds"),
+                                     gen)
+    summary, feed_logits = decode.pop("summary"), decode.pop("feed_logits")
     warm = call_s[1:] or call_s
     out = dict(B=b, prompt=LM_PROMPT, frames=frames, prefill_call_s=call_s,
                prefill_tokens_per_s=b * LM_PROMPT * len(warm) / sum(warm),
                prefill_peak_mem_gb=prefill_peak / 1e9, ssd_launches_per_prefill=per_call,
-               encode_for_decode_s=encode_s if frames else None,
-               feed=LM_FEED, gen=gen, decode_tokens_per_s=b * gen / decode_s,
-               decode_step_ms=decode_s / gen * 1e3, decode_ssd_launches=decode_launches,
+               feed=LM_FEED, gen=gen, **summary, decode=decode,
                bf16_decode_vs_prefill_max_abs=float((feed_logits - short).abs().max()),
-               sample=torch.cat(generated, dim=1)[0, :16].tolist(),
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               finite=[bool(torch.isfinite(t).all()) for t in (logits, short, lg)])
-    require(all(out["finite"]), f"{cfg.name} serving outputs not finite: {out['finite']}")
+               finite=[bool(torch.isfinite(t).all()) for t in (logits, short)])
+    require(all(out["finite"]), f"{cfg.name} prefill outputs not finite: {out['finite']}")
     require(all(n == ssd_per_call for n in per_call),
             f"{cfg.name}: prefill calls launched ssd_chunk_scan {per_call}, not {ssd_per_call}")
-    require(decode_launches == 0, f"{cfg.name}: decode launched ssd_chunk_scan {decode_launches}")
     return out, cache
 
 
-def lm_train(torch, SK, model, params, batch_sizes, steps: int, frames: int | None = None) -> dict:
-    """``steps`` ``make_train_step`` calls with AdamW(TRAIN_LR) at the largest
-    of ``batch_sizes`` that fits x LM_PROMPT tokens, on one fixed batch (and
-    ``frames`` source frames for the encoder-decoder): step times, losses,
-    the last step's metrics, peak memory and SSD launches a step."""
-    import gc
+def decode_both_ways(torch, SK, model, params, toks, src, gen: int) -> tuple[dict, dict]:
+    """LM_FEED prompt tokens of ``toks`` and ``gen`` greedy tokens through
+    ``make_serve_step``, captured and again under ``disable_capture()``,
+    each against its own cache of LM_PROMPT + ``gen`` slots (a step attends
+    over every slot, masked, so its cost is that of a full context; the
+    encoder's K/V put in by ``encode_for_decode`` from ``src`` first).
+    Gated: every step's logits, the greedy tokens and the final cache bit
+    for bit, no SSD launch, one capture and a replay a later step.  Then
+    ``DECODE_PROFILE_STEPS`` more steps of each run under torch.profiler.
+    Returns the numbers (``summary`` for the caller's line, the captured
+    run's last prompt logits) and the captured run's cache."""
+    from repro_torch.capture import disable_capture
+    from repro_torch.launch.steps import make_serve_step
 
+    cfg, b = model.cfg, toks.shape[0]
+    cuda = torch.device("cuda")
+    runs = {}
+    for mode in ("captured", "eager"):
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            serve = make_serve_step(model)
+            cache = model.init_cache(b, LM_PROMPT + gen, "cuda")
+            t0 = time.perf_counter()
+            if src is not None:
+                with torch.inference_mode():
+                    cache = model.encode_for_decode(params, src, cache)
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            start_mem = torch.cuda.memory_allocated()
+            before = SK.ssd_chunk_scan.launches
+            logits = []
+            t0 = time.perf_counter()
+            for t in range(LM_FEED):
+                lg, cache = serve(params, toks[:, t:t + 1], cache, t)
+                logits.append(lg)
+            torch.cuda.synchronize()
+            feed_s = time.perf_counter() - t0
+            tok = torch.argmax(logits[-1], dim=-1)[:, None]
+            generated = []
+            t0 = time.perf_counter()
+            for k in range(gen):
+                lg, cache = serve(params, tok, cache, LM_FEED + k)
+                tok = torch.argmax(lg, dim=-1)[:, None]
+                logits.append(lg)
+                generated.append(tok)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            graphs = serve.graphs(cuda)
+            runs[mode] = dict(
+                serve=serve, cache=cache, tok=tok, logits=torch.stack(logits),
+                generated=torch.cat(generated, dim=1), encode_s=encode_s,
+                feed_step_ms=feed_s / LM_FEED * 1e3,
+                decode_step_ms=decode_s / gen * 1e3, decode_tokens_per_s=b * gen / decode_s,
+                ssd_launches=SK.ssd_chunk_scan.launches - before,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_over_start_gb=(torch.cuda.max_memory_allocated() - start_mem) / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                captures=graphs.captures, replays=graphs.replays,
+                capture_s=graphs.capture_seconds, graph_pool_gb=graphs.pool_bytes / 1e9)
+    cap, eager = runs["captured"], runs["eager"]
+    same = {"logits": torch.equal(cap["logits"], eager["logits"]),
+            "generated": torch.equal(cap["generated"], eager["generated"]),
+            "cache": same_bits(cap["cache"], eager["cache"])}
+    finite = bool(torch.isfinite(cap["logits"]).all())
+    steps = LM_FEED + gen
+    pos = steps
+    profiles = {}
+    for mode in ("captured", "eager"):
+        run = runs[mode]
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            profiles[mode] = profile_steps(
+                torch, lambda: run["serve"](params, run["tok"], run["cache"], pos),
+                DECODE_PROFILE_STEPS)
+    keys = ("feed_step_ms", "decode_step_ms", "decode_tokens_per_s", "ssd_launches",
+            "peak_mem_gb", "peak_over_start_gb", "peak_reserved_gb", "captures", "replays",
+            "capture_s", "graph_pool_gb", "encode_s")
+    out = {k: {m: runs[m][k] for m in runs} for k in keys}
+    out.update(bitwise=same, profile=profiles,
+               sample=cap["generated"][0, :16].tolist(), feed_logits=cap["logits"][LM_FEED - 1],
+               summary=dict(decode_step_ms=cap["decode_step_ms"],
+                            eager_decode_step_ms=eager["decode_step_ms"],
+                            decode_tokens_per_s=cap["decode_tokens_per_s"],
+                            decode_ssd_launches=cap["ssd_launches"] + eager["ssd_launches"],
+                            peak_mem_gb=cap["peak_mem_gb"]))
+    require(finite, f"{cfg.name}: decode logits not finite")
+    require(all(same.values()), f"{cfg.name}: captured decode differs from eager: {same}")
+    require(cap["ssd_launches"] == eager["ssd_launches"] == 0,
+            f"{cfg.name}: decode launched ssd_chunk_scan {cap['ssd_launches']} / "
+            f"{eager['ssd_launches']} times")
+    require((cap["captures"], cap["replays"]) == (1, steps - 1) and eager["captures"] == 0,
+            f"{cfg.name}: {cap['captures']} captures and {cap['replays']} replays for {steps} "
+            f"steps, {eager['captures']} eager captures")
+    cache = cap["cache"]
+    runs.clear()
+    return out, cache
+
+
+def profile_steps(torch, fn, n: int) -> dict:
+    """``fn()`` once to warm, then ``n`` calls under torch.profiler: wall ms
+    a call, device operations a call (kernels, copies and fills), device
+    busy ms a call and the idle share (None where the profile holds no
+    device event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    by_name, count = device_times(prof)
+    busy_s = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(calls=n, wall_ms=wall_s / n * 1e3, device_operations=count / n,
+                device_busy_ms=busy_s / n * 1e3 if busy_s > 0 else None,
+                device_idle_share=1.0 - busy_s / wall_s if busy_s > 0 else None,
+                top_device_us={name[:60]: us / n for name, us in top})
+
+
+def bits_digest(torch, t, chunk: int = 1 << 26) -> tuple[int, int]:
+    """Two sums mod 2^64 of ``t``'s bit patterns, plain and weighted by each
+    element's position (weights below 2^31 from a multiplicative hash):
+    equal for equal tensors, equal for unequal ones only by a chance of
+    about 2^-64.  Computed on ``t``'s device, a chunk at a time."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    x = t.detach().reshape(-1).view(ints)
+    plain = weighted = 0
+    for i in range(0, x.numel(), chunk):
+        part = x[i:i + chunk].to(torch.int64)
+        w = (torch.arange(i, i + part.numel(), device=x.device, dtype=torch.int64)
+             * 2654435761 + 12345) % (1 << 31)
+        plain += int(part.sum())
+        weighted += int((part * w).sum())
+    return plain % (1 << 64), weighted % (1 << 64)
+
+
+def lm_train(torch, SK, model, init, batch_sizes, steps: int = LM_TRAIN_STEPS,
+             frames: int | None = None) -> dict:
+    """``steps`` ``make_train_step`` calls with AdamW(TRAIN_LR) from
+    ``init()``'s params on one fixed batch (and ``frames`` source frames
+    for the encoder-decoder), captured and again under
+    ``disable_capture()`` from a fresh ``init()``, at the largest of
+    ``batch_sizes`` x LM_PROMPT tokens where both fit.  Gated: the params,
+    the AdamW moments and every step's metrics bit for bit, the SSD
+    launches of every step equal, one capture and a replay a later step.
+    Returns the captured run's step times, losses, metrics, peak memory and
+    SSD launches a step, and each number both ways."""
+    from repro_torch.capture import disable_capture
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves
 
     cfg = model.cfg
     opt = AdamW(TRAIN_LR)
-    step = make_train_step(model, opt)
+    cuda = torch.device("cuda")
     tried = []
     for b in batch_sizes:
         batch = {k: v.cuda() for k, v in lm_batch(torch, cfg.vocab_size, b, LM_PROMPT, 1).items()}
         if frames:
             g = torch.Generator(device="cuda").manual_seed(1)
             batch["src_embeds"] = torch.randn(b, frames, cfg.d_model, device="cuda", generator=g)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step_s, losses, per_step = [], [], []
+        runs, held, same = {}, None, None
+        start_gb = torch.cuda.memory_allocated() / 1e9
         try:
-            state = opt.init(params)
-            for _ in range(steps):
-                before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
-                t0 = time.perf_counter()
-                params, state, metrics = step(params, state, batch)
-                losses.append(float(metrics["loss"]))  # waits for the step
-                step_s.append(time.perf_counter() - t0)
-                per_step.append((SK.ssd_chunk_scan.launches - before[0],
-                                 SK.ssd_chunk_scan_bwd.launches - before[1]))
-        except torch.cuda.OutOfMemoryError:
+            for mode in ("captured", "eager"):
+                with disable_capture() if mode == "eager" else contextlib.nullcontext():
+                    params = init()
+                    state = opt.init(params)
+                    step = make_train_step(model, opt)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    run_start = torch.cuda.memory_allocated()
+                    step_s, metrics, per_step = [], [], []
+                    for _ in range(steps):
+                        before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+                        t0 = time.perf_counter()
+                        params, state, m = step(params, state, batch)
+                        metrics.append({k: float(v) for k, v in m.items()})  # waits for the step
+                        step_s.append(time.perf_counter() - t0)
+                        per_step.append((SK.ssd_chunk_scan.launches - before[0],
+                                         SK.ssd_chunk_scan_bwd.launches - before[1]))
+                    graphs = step.graphs(cuda)
+                    leaves = tree_leaves((params, state.mu, state.nu))
+                    runs[mode] = dict(
+                        step_s=step_s, metrics=metrics, ssd_launches_per_step=per_step,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        peak_over_start_gb=(torch.cuda.max_memory_allocated() - run_start) / 1e9,
+                        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                        captures=graphs.captures, replays=graphs.replays,
+                        capture_s=graphs.capture_seconds, graph_pool_gb=graphs.pool_bytes / 1e9)
+                    t0 = time.perf_counter()
+                    if held is None:  # the captured run's trees, or their digests
+                        tree_bytes = sum(t.numel() * t.element_size() for t in leaves)
+                        total = torch.cuda.get_device_properties(0).total_memory
+                        exact = tree_bytes + torch.cuda.max_memory_allocated() <= 0.8 * total
+                        held = leaves if exact else [bits_digest(torch, t) for t in leaves]
+                    elif exact:
+                        same = all(h.dtype == t.dtype and torch.equal(h, t)
+                                   for h, t in zip(held, leaves))
+                    else:
+                        same = held == [bits_digest(torch, t) for t in leaves]
+                    runs[mode]["compare_s"] = time.perf_counter() - t0
+                    del params, state, step, graphs, leaves
+                    gc.collect()
+                    torch.cuda.empty_cache()
+        except torch.cuda.OutOfMemoryError as e:
+            emit(phase="lm_train_out_of_memory", arch=cfg.name, layers=cfg.num_layers, B=b,
+                 runs_done=list(runs), error=str(e)[:400], allocated_gb_at_start=start_gb,
+                 allocated_gb=torch.cuda.memory_allocated() / 1e9)
             tried.append(b)
-        else:
-            return dict(B=b, seq=LM_PROMPT, lr=TRAIN_LR, out_of_memory_at_B=tried,
-                        step_s=step_s, tokens_per_s=b * LM_PROMPT / step_s[-1], losses=losses,
-                        metrics={k: float(v) for k, v in metrics.items()},
-                        ssd_launches_per_step=per_step,
-                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            runs = held = params = state = step = graphs = leaves = e = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
         finally:
-            state = batch = None
-        gc.collect()
-        torch.cuda.empty_cache()
+            batch = None
+        cap, eager = runs["captured"], runs["eager"]
+        keys = ("step_s", "ssd_launches_per_step", "peak_mem_gb", "peak_over_start_gb",
+                "peak_reserved_gb", "captures", "replays", "capture_s", "graph_pool_gb",
+                "compare_s")
+        out = dict(B=b, seq=LM_PROMPT, lr=TRAIN_LR, out_of_memory_at_B=tried,
+                   allocated_gb_at_start=start_gb,
+                   step_s=cap["step_s"], eager_step_s=eager["step_s"],
+                   tokens_per_s=b * LM_PROMPT / cap["step_s"][-1],
+                   losses=[m["loss"] for m in cap["metrics"]], metrics=cap["metrics"][-1],
+                   ssd_launches_per_step=cap["ssd_launches_per_step"],
+                   peak_mem_gb=cap["peak_mem_gb"],
+                   both={k: {m: runs[m][k] for m in runs} for k in keys},
+                   bitwise={"params_and_moments": same,
+                            "params_and_moments_by": "equal" if exact else "bits_digest",
+                            "metrics": cap["metrics"] == eager["metrics"]})
+        require(same and cap["metrics"] == eager["metrics"],
+                f"{cfg.name}: the captured train steps differ from eager: {out['bitwise']}")
+        require(cap["ssd_launches_per_step"] == eager["ssd_launches_per_step"],
+                f"{cfg.name}: SSD launches {cap['ssd_launches_per_step']} captured, "
+                f"{eager['ssd_launches_per_step']} eager")
+        require((cap["captures"], cap["replays"]) == (1, steps - 1) and eager["captures"] == 0,
+                f"{cfg.name}: {cap['captures']} captures and {cap['replays']} replays for "
+                f"{steps} steps, {eager['captures']} eager captures")
+        return out
     require(False, f"{cfg.name}: no train batch of {batch_sizes} fits")
 
 
@@ -3626,48 +3822,49 @@ def run_lm_zoo_phase(torch, SK) -> dict[str, int]:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # (b) qwen3-1.7b: 4 prefill calls, 64 decode tokens, a train step
+    # (b) qwen3-1.7b: 4 prefill calls, 64 decode tokens, train steps; decode and train both ways
     cfg = get_config("qwen3-1.7b")
     params, init_s = init(cfg)
-    serve, _ = lm_serve(torch, SK, Model(cfg), params, calls=4, gen=64, ssd_per_call=0)
-    trained = lm_train(torch, SK, Model(cfg), params, LM_TRAIN_B, steps=2)
-    emit(phase="lm_dense", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
-         params=sum(t.numel() for t in tree_leaves(params)), init_s=init_s, serve=serve,
-         train=trained)
-    require(all(math.isfinite(v) for v in trained["losses"]), f"qwen3 losses {trained['losses']}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    serve = lm_serve(torch, SK, Model(cfg), params, calls=4, gen=64, ssd_per_call=0)[0]
     del params
     release()
+    trained = lm_train(torch, SK, Model(cfg), lambda: init(cfg)[0], LM_TRAIN_B)
+    emit(phase="lm_dense", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+         params=n_params, init_s=init_s, serve=serve, train=trained)
+    require(all(math.isfinite(v) for v in trained["losses"]), f"qwen3 losses {trained['losses']}")
+    release()
 
-    # (c) zamba2-7b: prefill calls and 32 decode tokens at full depth; a train step cut in depth
+    # (c) zamba2-7b uncut: 2 prefill calls, 32 decode tokens, train steps; decode and
+    # train both ways
     cfg = get_config("zamba2-7b")
     groups, per_group, tail = hybrid_layout(cfg)
     mamba_layers = groups * per_group + tail
     params, init_s = init(cfg)
     before = SK.ssd_chunk_scan.launches
-    serve, _ = lm_serve(torch, SK, Model(cfg), params, calls=2, gen=32, ssd_per_call=mamba_layers)
+    serve = lm_serve(torch, SK, Model(cfg), params, calls=2, gen=32,
+                     ssd_per_call=mamba_layers)[0]
     launches = {"ssd_chunk_scan": SK.ssd_chunk_scan.launches - before}
     del params
     release()
-    cut = dataclasses.replace(cfg, num_layers=HYBRID_TRAIN_LAYERS)
-    g, pg, tl = hybrid_layout(cut)
-    cut_layers = g * pg + tl
-    params, cut_init_s = init(cut)
+    train_init_s = []
+
+    def init_again():
+        params, seconds = init(cfg)
+        train_init_s.append(seconds)
+        return params
+
     before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
-    trained = lm_train(torch, SK, Model(cut), params, (1,), steps=1)
+    trained = lm_train(torch, SK, Model(cfg), init_again, (1,))
     launches["ssd_chunk_scan"] += SK.ssd_chunk_scan.launches - before[0]
     launches["ssd_chunk_scan_bwd"] = SK.ssd_chunk_scan_bwd.launches - before[1]
     emit(phase="lm_hybrid", arch=cfg.name, dtype=cfg.dtype, layout=[groups, per_group, tail],
-         init_s=init_s, serve=serve, train=trained, train_init_s=cut_init_s,
-         train_layout=[g, pg, tl],
-         reduced={"train_num_layers": [HYBRID_TRAIN_LAYERS, cfg.num_layers],
-                  "why": "AdamW's functional update holds the old and new moments at once: "
-                         "7 bf16 copies of 5.74 B params (80.3 GB) do not fit in 80 GB"},
+         init_s=init_s, serve=serve, train=trained, train_init_s=train_init_s,
          launches=launches)
     require(all(math.isfinite(v) for v in trained["losses"]), f"zamba2 losses {trained['losses']}")
-    require(trained["ssd_launches_per_step"] == [(2 * cut_layers, cut_layers)],
+    require(trained["ssd_launches_per_step"] == [(2 * mamba_layers, mamba_layers)] * LM_TRAIN_STEPS,
             f"zamba2 train step SSD launches {trained['ssd_launches_per_step']}, expected "
-            f"{(2 * cut_layers, cut_layers)} (remat: the forward twice)")
-    del params
+            f"{(2 * mamba_layers, mamba_layers)} a step (remat: the forward twice)")
     release()
 
     # (d) the widest dense and VLM configs at full width, 2 layers
@@ -3708,6 +3905,7 @@ def run_lm_zoo_phase(torch, SK) -> dict[str, int]:
     batches = {"tokens": torch.from_numpy(toks[..., :-1].copy()).cuda(),
                "labels": torch.from_numpy(toks[..., 1:].copy()).cuda()}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params_c, state, loss = make_fed_round_step(model, opt)(params_c, opt.init(params_c), batches,
                                                             FED_WEIGHTS)
@@ -3723,6 +3921,25 @@ def run_lm_zoo_phase(torch, SK) -> dict[str, int]:
     require(math.isfinite(loss) and finite and equal,
             f"fed round: loss {loss}, finite {finite}, slots equal {equal}")
     del params_c, state, batches
+    release()
+
+    # (f) mamba2-130m: a prefill call, 64 decode tokens and train steps; decode and train both ways
+    cfg = get_config("mamba2-130m")
+    params, init_s = init(cfg)
+    before = (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan_bwd.launches)
+    serve = lm_serve(torch, SK, Model(cfg), params, calls=1, gen=64,
+                     ssd_per_call=cfg.num_layers)[0]
+    del params
+    release()
+    trained = lm_train(torch, SK, Model(cfg), lambda: init(cfg)[0], (TRAIN_B,))
+    launches["ssd_chunk_scan"] += SK.ssd_chunk_scan.launches - before[0]
+    launches["ssd_chunk_scan_bwd"] += SK.ssd_chunk_scan_bwd.launches - before[1]
+    emit(phase="lm_mamba2", arch=cfg.name, dtype=cfg.dtype, init_s=init_s, serve=serve,
+         train=trained)
+    layers = cfg.num_layers
+    require(trained["ssd_launches_per_step"] == [(2 * layers, layers)] * LM_TRAIN_STEPS,
+            f"mamba2 train step SSD launches {trained['ssd_launches_per_step']}, expected "
+            f"{(2 * layers, layers)} a step (remat: the forward twice)")
     release()
     emit(phase="lm_zoo_seconds", seconds=time.perf_counter() - t_phase, launches=launches)
     return launches
@@ -3904,8 +4121,9 @@ DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_B = 5, 2                # (b): 3 dense and
 DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_EXPERTS = 2, 16          # (b): 1 dense, 1 MoE
 LLAMA4_SERVE_LAYERS, LLAMA4_SERVE_B, LLAMA4_TRAIN_LAYERS = 8, 8, 1   # (c)
 SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_GEN = 8, 512, 64         # (d)
-MEMORY_WHY = ("AdamW's functional update holds 7 bf16 copies of the params "
-              "(old and new moments at once); 80 GB holds ~5.7 B params that way")
+MEMORY_WHY = ("a train step holds 5 bf16 copies of the params (the params, their gradients, "
+              "AdamW's two moments updated in place, the updates; 7 while the update was "
+              "functional)")
 
 
 def moe_case_config(arch: str, changes: dict, moe_changes: dict):
@@ -4053,14 +4271,19 @@ def run_moe_encdec_phase(torch, K, SK) -> dict[str, int]:
         torch.cuda.empty_cache()
 
     def train(cfg, batch_sizes, frames=None):
-        params, init_s = init(cfg)
-        out = lm_train(torch, SK, Model(cfg), params, batch_sizes, steps=1, frames=frames)
+        init_s = []
+
+        def fresh():
+            params, seconds = init(cfg)
+            init_s.append(seconds)
+            return params
+
+        out = lm_train(torch, SK, Model(cfg), fresh, batch_sizes, frames=frames)
         require(all(math.isfinite(v) for v in out["metrics"].values()),
                 f"{cfg.name} train metrics {out['metrics']}")
-        del params
         release()
         return dict(out, init_s=init_s, params=count_params_config(cfg),
-                    adamw_copies_gb=7 * 2 * count_params_config(cfg) / 1e9)
+                    train_copies_gb=5 * 2 * count_params_config(cfg) / 1e9)
 
     # (b) deepseek-v3-671b: 5 of 61 layers served; 2 layers with 16 of 256 experts trained
     full = get_config("deepseek-v3-671b")
@@ -5035,6 +5258,88 @@ def run_capture_phase(torch, K, cohort) -> dict[str, int]:
             f"{cap.total_steps} steps")
     total = {k: total[k] + cap_counts[k] for k in total}
     emit(phase="capture_done", seconds=time.perf_counter() - t_phase)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the paper's predict function captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+PREDICT_CALLS = 3   # each way
+
+
+def run_predict_phase(torch, K, cohort) -> dict[str, int]:
+    """Phase 30: ``experiments/paper.py::_predict`` on the paper's test set
+    (the cohort's TEST split in batches of 2,048 and a ragged last one) with
+    the seed-0 GRU, PREDICT_CALLS calls captured and as many under
+    ``disable_capture()``.  Gated: every call's y_hat bit for bit, the GRU
+    launches equal both ways (2 a batch), each captured call one capture a
+    batch shape (it has a cache of its own, as the reference traces afresh
+    each call) and a replay a batch, the metrics finite.  Returns the
+    launches of both ways."""
+    import numpy as np
+
+    from repro_torch.capture import GraphCache, disable_capture
+    from repro_torch.data.pipeline import global_dataset
+    from repro_torch.data.synth_eicu import Cohort
+    from repro_torch.experiments import paper
+    from repro_torch.metrics.regression import evaluate_predictions
+    from repro_torch.models.gru import GRUConfig, init_gru
+
+    t_phase = time.perf_counter()
+    test = global_dataset(cohort, Cohort.TEST)
+    rows = len(test)
+    batches = math.ceil(rows / 2048)
+    shapes = len({min(2048, rows - start) for start in range(0, rows, 2048)})
+    params = init_gru(torch.Generator().manual_seed(0), GRUConfig(), "cuda")
+    made = []
+
+    class Recorded(GraphCache):
+        def __init__(self, device):
+            super().__init__(device)
+            made.append(self)
+
+    total = {"gru_scan": 0, "gru_scan_bwd": 0}
+    runs = {}
+    paper.GraphCache = Recorded
+    try:
+        for mode in ("captured", "eager"):
+            with disable_capture() if mode == "eager" else contextlib.nullcontext():
+                made.clear()
+                torch.cuda.synchronize()
+                reset_gru_counts(K)
+                call_s, y = [], []
+                for _ in range(PREDICT_CALLS):
+                    t0 = time.perf_counter()
+                    y.append(paper._predict(params, GRUConfig(), test))
+                    call_s.append(time.perf_counter() - t0)
+                counts = gru_counts(K)
+                total = {k: total[k] + counts[k] for k in total}
+                runs[mode] = dict(call_s=call_s, y=y, launches=counts,
+                                  graphs=[g.counts() for g in made],
+                                  graph_pool_bytes=[g.pool_bytes for g in made])
+    finally:
+        paper.GraphCache = GraphCache
+    cap, eager = runs["captured"], runs["eager"]
+    same = [np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(cap["y"], eager["y"])]
+    metrics = evaluate_predictions(test.y, cap["y"][0])
+    emit(phase="predict", rows=rows, batches=batches, batch_shapes=shapes, calls=PREDICT_CALLS,
+         call_s={m: runs[m]["call_s"] for m in runs},
+         captured_calls_graphs=[dict(zip(("captures", "replays", "capture_s"), g))
+                                for g in cap["graphs"]],
+         graph_pool_bytes=cap["graph_pool_bytes"], launches={m: runs[m]["launches"] for m in runs},
+         y_hat_bitwise=same, metrics=metrics, seconds=time.perf_counter() - t_phase)
+    require(all(same) and all(np.array_equal(y, cap["y"][0]) for y in cap["y"]),
+            f"predict: the captured y_hat differs from eager: {same}")
+    require(cap["launches"] == eager["launches"] == {
+        "gru_scan": 2 * batches * PREDICT_CALLS, "gru_scan_bwd": 0},
+            f"predict launches {cap['launches']} captured, {eager['launches']} eager, "
+            f"expected {2 * batches * PREDICT_CALLS} forward")
+    require(len(cap["graphs"]) == PREDICT_CALLS and all(
+        g[:2] == (shapes, batches) for g in cap["graphs"]) and not eager["graphs"],
+            f"predict: graphs a call {cap['graphs']} captured, {eager['graphs']} eager; "
+            f"expected ({shapes}, {batches})")
+    require(all(math.isfinite(v) for v in metrics.values()), f"predict metrics {metrics}")
     return total
 
 

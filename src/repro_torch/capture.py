@@ -1,11 +1,13 @@
-"""Training steps captured as CUDA graphs and replayed: the port of ``jax.jit``.
+"""Steps captured as CUDA graphs and replayed: the port of ``jax.jit``.
 
 The reference compiles every training step into one program (the local step
 ``federated/client.py``, the central step ``federated/central.py``, the
-cohort round ``federated/cohort.py``).  The port's steps are eager PyTorch,
-a few hundred host-issued launches each; on the card a trainer captures its
-step into a ``torch.cuda.CUDAGraph`` the first time it meets the step's key
-and replays the graph after that.  A replay gives the eager step's bits.
+cohort round ``federated/cohort.py``, the LM train and decode steps
+``launch/steps.py``, the paper's predict function ``experiments/paper.py``).
+The port's steps are eager PyTorch, a few hundred to a few thousand
+host-issued launches each; on the card a step is captured into a
+``torch.cuda.CUDAGraph`` the first time its key is met and replayed after
+that.  A replay gives the eager step's bits.
 
 Routing follows the port's rule: a step on the card is captured (unless
 :func:`disable_capture` is active, the counterpart of ``jax.disable_jit`` and
@@ -31,6 +33,18 @@ the cohort step every client draws on every step; a client whose step is
 not valid has its slot moved back after the replay, so it draws nothing, as
 in the eager step.  At the end of a chunk each client generator takes its
 slot's position.
+
+Warm-up.  Capture needs the body run once eagerly first.  The trainers of
+the federated path and the predict function run it on their freshly
+allocated static buffers (scratch), and put the slots and counters back.
+A step whose static buffers are the caller's own (the LM train step's
+params and moments, the decode step's donated cache) cannot run on scratch
+without a second copy of them, and cannot run twice on them: the warm-up
+is then the caller's first step itself (``warmup_is_step``), whose effects
+and launches stay, and whose output is the first call's result
+(:attr:`StepGraph.first`); it runs on the caller's stream, as the eager
+step would, so it reuses the memory the caller's stream holds cached.  The
+capture records without running, so the first replay is the second step.
 
 Memory.  All graphs of one cache share one pool
 (``torch.cuda.graph_pool_handle``).  That is safe in any replay order
@@ -143,6 +157,7 @@ class StepGraph:
         self.output = output        # the loss the graph writes (in the pool)
         self.launches = tuple(launches)
         self.replays = 0
+        self.first = None           # the warm-up's output, when the warm-up was a step
 
     def replay(self) -> torch.Tensor:
         out = self.graph.replay()
@@ -192,29 +207,35 @@ class GraphCache:
         }
 
     def capture(self, body: Callable[[], torch.Tensor],
-                slots: Sequence[torch.Generator] = ()) -> StepGraph:
-        """Capture ``body`` (a step over static buffers, returning its loss)
-        with ``slots`` registered as its generators.
+                slots: Sequence[torch.Generator] = (), *,
+                warmup_is_step: bool = False) -> StepGraph:
+        """Capture ``body`` (a step over static buffers, returning its loss
+        or its output tensor) with ``slots`` registered as its generators.
 
         ``body`` runs once eagerly first, as capture needs (library loads,
-        cuBLAS handles, autograd's state), on a side stream on the card: it
-        must run on scratch buffers, as a trainer's freshly allocated static
-        buffers are.  The slots' positions and the launch counters are put
-        back after it, so the warm-up consumes nothing."""
+        cuBLAS handles, autograd's state).  By default it must run on
+        scratch buffers, as a trainer's freshly allocated static buffers
+        are: it runs on a side stream on the card, and the slots' positions
+        and the launch counters are put back after it, so the warm-up
+        consumes nothing.  With ``warmup_is_step`` the warm-up is the
+        caller's first step on its real buffers, run on the caller's
+        stream: its effects, draws and launch counts stay, and its output is
+        kept as the step's ``first``."""
         t0 = time.perf_counter()
         before = launch_counts()
         saved = [position(g) for g in slots]
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not warmup_is_step:
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(current)
             with torch.cuda.stream(side):
-                body()
+                first = body()
             current.wait_stream(side)
         else:
-            body()
-        for g, pos in zip(slots, saved):
-            set_position(g, pos)
+            first = body()
+        if not warmup_is_step:
+            for g, pos in zip(slots, saved):
+                set_position(g, pos)
         warm = launch_counts()
         if self.device.type == "cuda":
             if self.pool is None:
@@ -228,7 +249,9 @@ class GraphCache:
             step = StepGraph(graph, output, [a - b for a, b in zip(launch_counts(), warm)])
         else:
             step = StepGraph(_Rerun(body), None, [0] * len(COUNTED))
-        set_launch_counts(before)
+        set_launch_counts(warm if warmup_is_step else before)
+        if warmup_is_step:
+            step.first = first
         seconds = time.perf_counter() - t0
         self.captures += 1
         self.capture_seconds += seconds

@@ -32,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.capture import GraphCache, capture_enabled
 from repro_torch.core.recruitment import DATA_GREEDY, QUALITY_GREEDY
 from repro_torch.data.pipeline import (
     ArrayDataset,
@@ -234,13 +235,41 @@ def run_setting(
 
 @torch.no_grad()
 def _predict(params, model_cfg: GRUConfig, dataset: ArrayDataset, batch: int = 2048) -> np.ndarray:
-    """Predictions for ``dataset`` in batches of ``batch``, on the params' device."""
+    """Predictions for ``dataset`` in batches of ``batch``, on the params' device.
+
+    On the card the forward is captured as a CUDA graph (the port of the
+    reference's ``jax.jit`` of its predict function, traced afresh for each
+    call): one :class:`GraphCache` a call, one graph a batch shape (the
+    full batch, and a ragged last one), each reading its rows from a
+    static buffer and the params in place; on the CPU, and inside
+    ``capture.disable_capture()``, it runs eagerly."""
     dev = params["head"]["w"].device
+    forward = lambda x: gru_apply(params, model_cfg, x)
+    if capture_enabled(dev):
+        forward = _CapturedForward(GraphCache(dev), forward)
     outs = []
     for start in range(0, len(dataset), batch):
         x = torch.from_numpy(np.ascontiguousarray(dataset.x[start : start + batch])).to(dev)
-        outs.append(gru_apply(params, model_cfg, x).cpu().numpy())
+        outs.append(forward(x).cpu().numpy())
     return np.concatenate(outs)
+
+
+class _CapturedForward:
+    """``forward(x)`` through one captured graph per shape of ``x``: the
+    rows are copied into the graph's static buffer, and the graph (warmed
+    up on that buffer, zeros, before the rows go in) is replayed."""
+
+    def __init__(self, graphs: GraphCache, forward):
+        self.graphs, self.forward = graphs, forward
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        def build():
+            static = torch.zeros_like(x)
+            return static, self.graphs.capture(lambda: self.forward(static))
+
+        static, graph = self.graphs.lookup((tuple(x.shape), x.dtype), build)
+        static.copy_(x)
+        return graph.replay()
 
 
 def paper_scale_cohort_config(total_stays: int = 189 * 23) -> CohortConfig:

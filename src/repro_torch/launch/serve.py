@@ -6,8 +6,11 @@ embeddings through the encoder into the cache (``encode_for_decode``);
 the VLM's patch embeddings and then the prompt fed through the decode
 path token by token; then batched greedy decode, with tokens/step timings.
 The numpy draws come in the reference's order.  ``--device`` defaults to
-the card.  The decode path runs no kernel: the SSD kernel runs in the
-prefill step (``launch/steps.py::make_prefill_step``).
+the card, where each decode step is a replay of a captured CUDA graph that
+writes the donated cache in place (``launch/steps.py::make_serve_step``,
+the reference's ``jax.jit(..., donate_argnums=(2,))``).  The decode path
+runs no kernel: the SSD kernel runs in the prefill step
+(``launch/steps.py::make_prefill_step``).
 
     python -m repro_torch.launch.serve --arch mamba2-130m --batch 4 --prompt-len 16 --gen 32
     python -m repro_torch.launch.serve --arch internvl2-26b --device cpu

@@ -7,6 +7,17 @@ families) runs the SSD kernel forward with its entry states and, in the
 backward, the SSD backward kernel, while attention and the MLPs are plain
 PyTorch under autograd.  The federated round is the paper's FedAvg over a
 client-stacked tree.  Prefill and decode run under ``torch.inference_mode()``.
+
+The train and serve steps are the reference's jitted ones (``launch/
+train.py``, ``launch/serve.py``'s ``donate_argnums=(2,)``): on the card each
+is captured as a CUDA graph the first time it meets a key and replayed
+after that (``capture.py``); on the CPU, and inside
+``capture.disable_capture()``, they run eagerly.  A key's first call is
+the capture's warm-up, run eagerly on the caller's own tensors (they are
+the graph's static buffers, so there is no second copy of the params,
+moments or cache); later calls copy their inputs into static buffers and
+replay.  The federated round and prefill stay eager, as in the reference,
+which jits them only in its dry run.
 """
 
 from __future__ import annotations
@@ -16,19 +27,60 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.models.zoo import Model
+from repro_torch.capture import GraphCache, capture_enabled
+from repro_torch.models.attention import check_latent_position
+from repro_torch.models.zoo import Model, _latent_slots
 from repro_torch.optim.adamw import AdamW, AdamWState, apply_updates
 from repro_torch.tree import PyTree, tree_leaves, tree_map
+
+
+def _spec(tree: PyTree) -> tuple:
+    """The shapes and dtypes of ``tree``'s leaves, in order."""
+    return tuple((tuple(t.shape), t.dtype) for t in tree_leaves(tree))
+
+
+def _pointers(tree: PyTree) -> tuple[int, ...]:
+    return tuple(t.data_ptr() for t in tree_leaves(tree))
+
+
+class _Graphs:
+    """One :class:`GraphCache` a device, made at its first use; ``cuda``
+    without an index is the current card."""
+
+    def __init__(self):
+        self.by_device: dict[torch.device, GraphCache] = {}
+
+    def __call__(self, device: torch.device | str) -> GraphCache:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self.by_device:
+            self.by_device[device] = GraphCache(device)
+        return self.by_device[device]
 
 
 def make_train_step(model: Model, optimizer: AdamW) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
-    ``params`` are updated in place and returned; the AdamW moments keep the
-    params' dtype (bfloat16 for the published model), as in the reference.
-    ``metrics`` holds detached scalars: ``ce``, ``router_aux``, ``loss``."""
+    ``params`` and the AdamW moments are updated in place (``AdamW.
+    update_``) and returned; the moments keep the params' dtype (bfloat16
+    for the published model), as in the reference.  ``metrics`` holds
+    detached float32 scalars: ``ce``, ``router_aux``, ``loss`` (and
+    ``mtp_ce`` with DeepSeek's MTP head).
 
-    def train_step(params: PyTree, opt_state: AdamWState, batch: dict[str, torch.Tensor]):
+    On the card the step is captured at the first call of each key (the
+    shapes and dtypes of the params, the moments and the batch) and
+    replayed after that; ``train_step.graphs(device)`` is its
+    :class:`GraphCache`.  The graph updates in place the params and moments
+    of the call that captured it (its static trees), reads the batch and
+    the step's AdamW coefficients (a ``(3,)`` tensor) from static buffers
+    filled before each replay, and gives its metrics as one stacked
+    tensor.  A call with other trees of the same shapes swaps their values
+    with the static trees' before the replay and back after it, so every
+    tree keeps its own values and no extra copy is held."""
+
+    def eager(params: PyTree, opt_state: AdamWState, batch: dict[str, torch.Tensor],
+              coefficients: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         leaves = tree_leaves(params)
         flags = [leaf.requires_grad for leaf in leaves]
         with torch.enable_grad():
@@ -40,11 +92,79 @@ def make_train_step(model: Model, optimizer: AdamW) -> Callable:
             leaf.requires_grad_(flag)
         grads_iter = iter(grads_flat)
         grads = tree_map(lambda _: next(grads_iter), params)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
-        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+        apply_updates(params, optimizer.update_(grads, opt_state, params, coefficients))
+        return {k: v.detach() for k, v in metrics.items()}
 
+    graphs = _Graphs()
+
+    def train_step(params: PyTree, opt_state: AdamWState, batch: dict[str, torch.Tensor]):
+        device = tree_leaves(params)[0].device
+        if capture_enabled(device):
+            key = (_spec(params), _spec(opt_state.mu), _spec(opt_state.nu),
+                   tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())))
+            step = graphs(device).lookup(key, lambda: _TrainGraph(
+                graphs(device), eager, optimizer, params, opt_state, batch))
+            metrics = step(params, opt_state, batch)
+        else:
+            metrics = eager(params, opt_state, batch)
+        return params, AdamWState(opt_state.step + 1, opt_state.mu, opt_state.nu), metrics
+
+    train_step.graphs = graphs
     return train_step
+
+
+class _TrainGraph:
+    """``make_train_step``'s step captured for one key (see there)."""
+
+    def __init__(self, graphs: GraphCache, eager: Callable, optimizer: AdamW, params: PyTree,
+                 opt_state: AdamWState, batch: dict[str, torch.Tensor]):
+        dev = graphs.device
+        self.optimizer = optimizer
+        # The static trees: the capturing call's tensors, in trees of our own.
+        params, mu, nu = (tree_map(lambda t: t, tree) for tree in
+                          (params, opt_state.mu, opt_state.nu))
+        self.leaves = tree_leaves((params, mu, nu))
+        self.batch = {k: v.to(dev, copy=True) for k, v in batch.items()}
+        self.coefficients = torch.empty(3, dtype=torch.float32, device=dev)
+        self.names: list[str] = []
+        self._fill(opt_state.step)
+
+        def body() -> torch.Tensor:
+            metrics = eager(params, AdamWState(0, mu, nu), self.batch, self.coefficients)
+            self.names = list(metrics)
+            return torch.stack([metrics[k] for k in self.names])
+
+        self.graph = graphs.capture(body, warmup_is_step=True)
+
+    def _fill(self, step) -> None:
+        """The AdamW coefficients of step ``step + 1`` into the static buffer
+        (fills, not a host copy: nothing waits for the stream)."""
+        for i, c in enumerate(self.optimizer.coefficients(int(step) + 1)):
+            self.coefficients[i].fill_(c)
+
+    def __call__(self, params: PyTree, opt_state: AdamWState,
+                 batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        out, self.graph.first = self.graph.first, None
+        if out is None:  # a replay (the capturing call's step was the warm-up)
+            for k, v in batch.items():
+                self.batch[k].copy_(v)
+            self._fill(opt_state.step)
+            pairs = [(s, x) for s, x in zip(self.leaves, tree_leaves((params, opt_state.mu,
+                                                                      opt_state.nu)))
+                     if s.data_ptr() != x.data_ptr()]
+            _swap(pairs)
+            out = self.graph.replay()
+            _swap(pairs)
+        return dict(zip(self.names, out.unbind()))
+
+
+@torch.no_grad()
+def _swap(pairs: list[tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """Exchange the values of each pair of same-shaped tensors."""
+    for a, b in pairs:
+        held = a.clone()
+        a.copy_(b)
+        b.copy_(held)
 
 
 def make_fed_round_step(model: Model, optimizer: AdamW) -> Callable:
@@ -113,10 +233,69 @@ def make_prefill_step(model: Model) -> Callable:
 
 
 def make_serve_step(model: Model) -> Callable:
-    """One decode step: a new token for every sequence against the cache."""
+    """``serve_step(params, tokens, cache, pos) -> (logits, cache)``: one
+    decode step, a new token for every sequence against the cache, with
+    the cache donated (``Model.decode_step(..., donate=True)``): it is
+    written in place and the given tree comes back.
+
+    On the card the step is captured at the first call of each key (the
+    params', tokens' and cache's shapes and dtypes, and the params' and
+    cache's data pointers: the graph reads both in place) and replayed
+    after that; ``serve_step.graphs(device)`` is its :class:`GraphCache`,
+    whose entries keep the tensors they read alive.  The tokens go through
+    a static ``(B, 1)`` buffer and ``pos`` through a static 0-d int64 one,
+    so one graph serves every position (the reference's traced
+    ``jnp.int32(pos)``); with MLA an int position is checked against the
+    latent cache on the host first (``IndexError``), as ``decode_step``
+    does.  New ``cross_k``/``cross_v`` from ``encode_for_decode`` are new
+    tensors, so a new key: copy them into the served cache's to keep its
+    graph."""
+    cfg = model.cfg
+    graphs = _Graphs()
 
     @torch.inference_mode()
     def serve_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos):
-        return model.decode_step(params, tokens, cache, pos)
+        device = tokens.device
+        if not capture_enabled(device):
+            return model.decode_step(params, tokens, cache, pos, donate=True)
+        if cfg.mla is not None and not isinstance(pos, torch.Tensor):
+            check_latent_position(pos, _latent_slots(cache))
+        key = (_spec(params), _pointers(params), tuple(tokens.shape), tokens.dtype,
+               _spec(cache), _pointers(cache))
+        step = graphs(device).lookup(key, lambda: _ServeGraph(
+            graphs(device), model, params, tokens, cache, pos))
+        return step(tokens, pos), cache
 
+    serve_step.graphs = graphs
     return serve_step
+
+
+class _ServeGraph:
+    """``make_serve_step``'s step captured for one key (see there)."""
+
+    def __init__(self, graphs: GraphCache, model: Model, params: PyTree, tokens: torch.Tensor,
+                 cache: PyTree, pos):
+        self.tokens = tokens.to(graphs.device, copy=True)
+        self.pos = torch.empty((), dtype=torch.int64, device=graphs.device)
+        self._fill(pos)
+        self.reads = (params, cache)   # kept alive: the graph reads them in place
+
+        def body() -> torch.Tensor:
+            logits, _ = model.decode_step(params, self.tokens, cache, self.pos, donate=True)
+            return logits
+
+        self.graph = graphs.capture(body, warmup_is_step=True)
+
+    def _fill(self, pos) -> None:
+        if isinstance(pos, torch.Tensor):
+            self.pos.copy_(pos)
+        else:
+            self.pos.fill_(pos)   # a fill, not a host copy: nothing waits for the stream
+
+    def __call__(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        out, self.graph.first = self.graph.first, None
+        if out is None:
+            self.tokens.copy_(tokens)
+            self._fill(pos)
+            out = self.graph.replay()
+        return out

@@ -9,9 +9,13 @@ GQA reshapes the H query heads into (Hkv, group) and never repeats K/V.
 
 Decode runs against a ring-buffer cache (window-sized with a sliding
 window); ``slot_pos`` holds each slot's absolute position, -1 when empty.
-``gqa_decode`` returns new cache tensors and leaves the ones it was given
-untouched, so a cache that ``run_stack_decode`` restacks is never written
-through a view.
+By default ``gqa_decode`` and ``mla_decode`` return new cache tensors and
+leave the ones they were given untouched, the reference's functional
+contract.  With ``donate=True`` (the port of ``jax.jit``'s
+``donate_argnums``) they write the token's row into the given cache in
+place (``index_copy_``) and return it: a decode step then copies no cache,
+and a captured step reads and writes one set of buffers.  Both give the
+same bits.
 
 MLA (multi-head latent attention) trains and prefills with full-rank keys
 and values through ``blockwise_attention``, the shared rope key broadcast
@@ -167,6 +171,7 @@ def gqa_decode(
     x: torch.Tensor,         # (B, 1, D): one new token
     cache: PyTree,
     pos,                     # int or 0-d tensor: the new token's absolute position
+    donate: bool = False,    # write the new row into ``cache`` and return it
 ) -> tuple[torch.Tensor, PyTree]:
     b = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -175,9 +180,9 @@ def gqa_decode(
 
     size = cache["k"].shape[1]
     slot = pos_t % size
-    k_cache = cache["k"].index_copy(1, slot, k_new.to(cache["k"].dtype))
-    v_cache = cache["v"].index_copy(1, slot, v_new.to(cache["v"].dtype))
-    slot_pos = cache["slot_pos"].index_copy(0, slot, pos_t.to(torch.int32))
+    k_cache = _put(cache["k"], 1, slot, k_new, donate)
+    v_cache = _put(cache["v"], 1, slot, v_new, donate)
+    slot_pos = _put(cache["slot_pos"], 0, slot, pos_t, donate)
 
     group = cfg.num_heads // cfg.num_kv_heads
     qf = (q.float() * hd ** -0.5).reshape(b, cfg.num_kv_heads, group, hd)
@@ -189,8 +194,18 @@ def gqa_decode(
     attn = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", attn, v_cache.float())
     out = out.reshape(b, 1, cfg.num_heads * hd).to(x.dtype)
-    new_cache = {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
+    new_cache = cache if donate else {"k": k_cache, "v": v_cache, "slot_pos": slot_pos}
     return out @ params["w_o"], new_cache
+
+
+def _put(buf: torch.Tensor, dim: int, index: torch.Tensor, rows: torch.Tensor,
+         donate: bool) -> torch.Tensor:
+    """``buf`` with ``rows`` (cast to its dtype) at ``index`` along ``dim``:
+    written into ``buf`` itself with ``donate``, else into a copy."""
+    rows = rows.to(buf.dtype)
+    if donate:
+        return buf.index_copy_(dim, index, rows)
+    return buf.index_copy(dim, index, rows)
 
 
 # ==========================================================================
@@ -273,6 +288,7 @@ def mla_decode(
     x: torch.Tensor,         # (B, 1, D)
     cache: PyTree,
     pos,                     # int or 0-d tensor: the new token's absolute position
+    donate: bool = False,    # write the new latent row into ``cache`` and return it
 ) -> tuple[torch.Tensor, PyTree]:
     """Weight-absorbed decode over the compressed latent cache.
 
@@ -291,8 +307,8 @@ def mla_decode(
 
     c_kv_new = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
     k_rope_new = apply_rope((x @ params["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
-    c_kv = cache["c_kv"].index_copy(1, pos_t, c_kv_new.to(cache["c_kv"].dtype))
-    k_rope = cache["k_rope"].index_copy(1, pos_t, k_rope_new.to(cache["k_rope"].dtype))
+    c_kv = _put(cache["c_kv"], 1, pos_t, c_kv_new, donate)
+    k_rope = _put(cache["k_rope"], 1, pos_t, k_rope_new, donate)
 
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     # absorb W_uk: the query in latent space (B, H, R)
@@ -306,4 +322,4 @@ def mla_decode(
     out_lat = torch.einsum("bhs,bsr->bhr", attn, c_kv.float())          # (B, H, R)
     out = torch.einsum("bhr,rhd->bhd", out_lat, params["w_uv"].float())
     out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype)
-    return out @ params["w_o"], {"c_kv": c_kv, "k_rope": k_rope}
+    return out @ params["w_o"], cache if donate else {"c_kv": c_kv, "k_rope": k_rope}

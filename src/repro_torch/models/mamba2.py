@@ -8,10 +8,12 @@ The SSD layer computes, per head h with per-step decay ``a_t = exp(dt_t A)``::
 Prefill uses the chunked dual form through ``kernels/ssd``: the CUDA kernel
 on the card, its plain version on the CPU (the tensors' device decides;
 there is no ``use_pallas`` switch).  Decode is the O(1) recurrence on a
-cached state, in plain PyTorch.  A depthwise causal conv (width 4) precedes
-the SSM as in the reference implementation; its decode cache holds the last
-(d_conv - 1) inputs.  The casts are the JAX package's: x, dt, B and C go to
-float32 before the scan, and y comes back to the block input's dtype.
+cached state, in plain PyTorch; with ``donate=True`` it writes the new
+state into the given cache (``copy_``) instead of returning new tensors.
+A depthwise causal conv (width 4) precedes the SSM as in the reference
+implementation; its decode cache holds the last (d_conv - 1) inputs.  The
+casts are the JAX package's: x, dt, B and C go to float32 before the scan,
+and y comes back to the block input's dtype.
 """
 
 from __future__ import annotations
@@ -121,9 +123,10 @@ def mamba2_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> PyTree:
 
 
 def mamba2_decode(
-    params: PyTree, cfg: ArchConfig, u: torch.Tensor, cache: PyTree
+    params: PyTree, cfg: ArchConfig, u: torch.Tensor, cache: PyTree, donate: bool = False
 ) -> tuple[torch.Tensor, PyTree]:
-    """One-token SSD step.  u: (B, 1, D)."""
+    """One-token SSD step.  u: (B, 1, D).  With ``donate`` the new states
+    are written into ``cache``, which is returned; else new tensors."""
     s_cfg: SSMConfig = cfg.ssm
     b, _, d = u.shape
     d_in = s_cfg.d_inner(d)
@@ -156,6 +159,10 @@ def mamba2_decode(
     y = y * F.silu(z)
     y = rmsnorm(params["norm"], y[:, None, :], cfg.norm_eps)[:, 0]
     out = y @ params["out_proj"]
+    if donate:
+        cache["ssm_state"].copy_(state)
+        cache["conv_state"].copy_(new_conv_state)
+        return out[:, None, :], cache
     return out[:, None, :], {"ssm_state": state, "conv_state": new_conv_state}
 
 

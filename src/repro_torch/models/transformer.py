@@ -83,10 +83,11 @@ def _self_attn_apply(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *,
     return gqa_apply(params, cfg, x, causal=causal)
 
 
-def _self_attn_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree, pos):
+def _self_attn_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree, pos,
+                      donate: bool = False):
     if cfg.mla is not None:
-        return mla_decode(params, cfg, x, cache, pos)
-    return gqa_decode(params, cfg, x, cache, pos)
+        return mla_decode(params, cfg, x, cache, pos, donate)
+    return gqa_decode(params, cfg, x, cache, pos, donate)
 
 
 def _self_attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> PyTree:
@@ -126,9 +127,9 @@ def dense_block_apply(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *, use_m
 
 
 def dense_block_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree, pos, *,
-                       use_moe: bool) -> tuple[torch.Tensor, PyTree]:
+                       use_moe: bool, donate: bool = False) -> tuple[torch.Tensor, PyTree]:
     attn_out, new_cache = _self_attn_decode(
-        params["attn"], cfg, rmsnorm(params["ln1"], x, cfg.norm_eps), cache, pos)
+        params["attn"], cfg, rmsnorm(params["ln1"], x, cfg.norm_eps), cache, pos, donate)
     h = x + attn_out
     ff_in = rmsnorm(params["ln2"], h, cfg.norm_eps)
     if use_moe:
@@ -147,8 +148,10 @@ def mamba_block_apply(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch
     return x + mamba2_apply(params["mamba"], cfg, rmsnorm(params["ln"], x, cfg.norm_eps))
 
 
-def mamba_block_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree, _pos):
-    out, new_cache = mamba2_decode(params["mamba"], cfg, rmsnorm(params["ln"], x, cfg.norm_eps), cache)
+def mamba_block_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree, _pos,
+                       donate: bool = False):
+    out, new_cache = mamba2_decode(params["mamba"], cfg, rmsnorm(params["ln"], x, cfg.norm_eps),
+                                   cache, donate)
     return x + out, new_cache
 
 
@@ -211,11 +214,11 @@ def dec_block_apply(params: PyTree, cfg: ArchConfig, x: torch.Tensor,
 
 
 def dec_block_decode(params: PyTree, cfg: ArchConfig, x: torch.Tensor, cache: PyTree,
-                     pos) -> tuple[torch.Tensor, PyTree]:
+                     pos, donate: bool = False) -> tuple[torch.Tensor, PyTree]:
     """``cache`` holds ``self`` (the self-attention cache) and the layer's
     ``cross_k``/``cross_v``, which come back as they went in."""
     attn_out, self_cache = _self_attn_decode(
-        params["attn"], cfg, rmsnorm(params["ln1"], x, cfg.norm_eps), cache["self"], pos)
+        params["attn"], cfg, rmsnorm(params["ln1"], x, cfg.norm_eps), cache["self"], pos, donate)
     h = x + attn_out
     h = h + cross_attn_decode(params["cross"], cfg, rmsnorm(params["ln_x"], h, cfg.norm_eps),
                               cache["cross_k"], cache["cross_v"])
@@ -245,7 +248,10 @@ def run_stack(
     for i in range(_depth(stack_params)):
         p = layer(stack_params, i)
         if remat:
-            x, a = torch.utils.checkpoint.checkpoint(body, p, x, use_reentrant=False)
+            # no layer draws random numbers: no RNG state to keep (reading
+            # the card's would fail inside a captured step)
+            x, a = torch.utils.checkpoint.checkpoint(body, p, x, use_reentrant=False,
+                                                     preserve_rng_state=False)
         else:
             x, a = body(p, x)
         aux = aux + a
@@ -257,12 +263,18 @@ def run_stack_decode(
     caches: PyTree,
     x: torch.Tensor,
     body: Callable[[PyTree, torch.Tensor, PyTree], tuple[torch.Tensor, PyTree]],
+    donate: bool = False,
 ) -> tuple[torch.Tensor, PyTree]:
-    """One decode step through the stack; returns x and the new stacked caches."""
+    """One decode step through the stack; returns x and the new stacked
+    caches.  With ``donate`` each layer's body writes its cache in place
+    through its ``layer`` view, and ``caches`` itself is returned (nothing
+    restacked)."""
     new_caches = []
     for i in range(_depth(stack_params)):
         x, c = body(layer(stack_params, i), x, layer(caches, i))
         new_caches.append(c)
+    if donate:
+        return x, caches
     return x, tree_map(lambda *leaves: torch.stack(leaves), *new_caches)
 
 

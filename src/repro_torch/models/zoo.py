@@ -248,8 +248,10 @@ class Model:
         count = torch.zeros((), dtype=torch.int64, device=h.device)
         for k in range(nc):
             h_k, y_k = h[:, k * chunk:(k + 1) * chunk], labels[:, k * chunk:(k + 1) * chunk]
+            # the chunk draws nothing: no RNG state to keep (and reading the
+            # card's RNG state would fail inside a captured step)
             total = total + torch.utils.checkpoint.checkpoint(
-                _chunk_nll, h_k, y_k, head, use_reentrant=False)
+                _chunk_nll, h_k, y_k, head, use_reentrant=False, preserve_rng_state=False)
             count = count + (y_k >= 0).sum()
         return total / torch.clamp(count, min=1).float()
 
@@ -341,13 +343,21 @@ class Model:
         pos,
         *,
         token_embeds: torch.Tensor | None = None,
+        donate: bool = False,
     ) -> tuple[torch.Tensor, PyTree]:
         """One new token for every sequence.  tokens: (B, 1); pos: the new
         token's absolute position (int or 0-d tensor; with MLA an int past
         the latent cache raises ``IndexError``).  ``token_embeds`` (B, 1, D)
         bypasses the embedding table: the VLM's patches are prefilled
         through the decode path that way.  Returns (logits (B, vocab)
-        float32, new cache)."""
+        float32, new cache).
+
+        With ``donate`` (the reference's ``donate_argnums=(2,)``) every
+        layer writes its new cache into ``cache`` in place and ``cache``
+        itself comes back, each tensor at its own data pointer; the
+        encoder-decoder's ``cross_k``/``cross_v`` are not touched.  The
+        same bits as without, where a new cache is returned and the given
+        one is left as it was."""
         cfg = self.cfg
         at = cfg.arch_type
         if token_embeds is not None:
@@ -362,60 +372,66 @@ class Model:
             # the position on the device once for every layer, filled by a
             # kernel: a copy from host memory would wait for the stream
             pos = torch.full((), pos, dtype=torch.int64, device=x.device)
-        dense = lambda p, h, c: dense_block_decode(p, cfg, h, c, pos, use_moe=False)
-        mamba = lambda p, h, c: mamba_block_decode(p, cfg, h, c, pos)
+        dense = lambda p, h, c: dense_block_decode(p, cfg, h, c, pos, use_moe=False,
+                                                   donate=donate)
+        mamba = lambda p, h, c: mamba_block_decode(p, cfg, h, c, pos, donate)
+        stack = lambda p, c, h, body: run_stack_decode(p, c, h, body, donate)
 
         new_cache: dict[str, Any] = {}
         if at in (ArchType.DENSE, ArchType.VLM):
-            x, new_cache["blocks"] = run_stack_decode(params["blocks"], cache["blocks"], x, dense)
+            x, new_cache["blocks"] = stack(params["blocks"], cache["blocks"], x, dense)
         elif at == ArchType.SSM:
-            x, new_cache["blocks"] = run_stack_decode(params["blocks"], cache["blocks"], x, mamba)
+            x, new_cache["blocks"] = stack(params["blocks"], cache["blocks"], x, mamba)
         elif at == ArchType.MOE:
             def pair(p: PyTree, h: torch.Tensor, c: PyTree) -> tuple[torch.Tensor, PyTree]:
-                h, cd = dense_block_decode(p["dense"], cfg, h, c["dense"], pos, use_moe=False)
-                h, cm = dense_block_decode(p["moe"], cfg, h, c["moe"], pos, use_moe=True)
+                h, cd = dense_block_decode(p["dense"], cfg, h, c["dense"], pos, use_moe=False,
+                                           donate=donate)
+                h, cm = dense_block_decode(p["moe"], cfg, h, c["moe"], pos, use_moe=True,
+                                           donate=donate)
                 return h, {"dense": cd, "moe": cm}
 
-            moe = lambda p, h, c: dense_block_decode(p, cfg, h, c, pos, use_moe=True)
+            moe = lambda p, h, c: dense_block_decode(p, cfg, h, c, pos, use_moe=True,
+                                                     donate=donate)
             bodies = {"first_blocks": dense, "moe_blocks": moe, "pair_blocks": pair,
                       "tail_blocks": dense}
             for key, body in bodies.items():
                 if key in params:
-                    x, new_cache[key] = run_stack_decode(params[key], cache[key], x, body)
+                    x, new_cache[key] = stack(params[key], cache[key], x, body)
         elif at == ArchType.ENCDEC:
             blocks = cache["blocks"]
 
             def dec(p: PyTree, h: torch.Tensor, c: PyTree) -> tuple[torch.Tensor, PyTree]:
                 h, c_new = dec_block_decode(p["block"], cfg, h, {"self": c, "cross_k": p["cross_k"],
-                                                                 "cross_v": p["cross_v"]}, pos)
+                                                                 "cross_v": p["cross_v"]}, pos,
+                                            donate)
                 return h, c_new["self"]
 
             # the encoder's K/V ride with the layer params: only the self
             # caches are restacked, the cross caches come back as they are
             layers = {"block": params["blocks"], "cross_k": blocks["cross_k"],
                       "cross_v": blocks["cross_v"]}
-            x, self_cache = run_stack_decode(layers, blocks["self"], x, dec)
+            x, self_cache = stack(layers, blocks["self"], x, dec)
             new_cache["blocks"] = {**blocks, "self": self_cache}
         else:  # HYBRID
             shared = params["shared_attn"]
 
             def group_body(p: PyTree, h: torch.Tensor, c: PyTree) -> tuple[torch.Tensor, PyTree]:
-                h, c_group = run_stack_decode(p, c["group_mamba"], h, mamba)
+                h, c_group = stack(p, c["group_mamba"], h, mamba)
                 h, c_attn = dense(shared, h, c["shared_attn"])
                 return h, {"group_mamba": c_group, "shared_attn": c_attn}
 
-            x, groups = run_stack_decode(
+            x, groups = stack(
                 params["group_mamba"],
                 {"group_mamba": cache["group_mamba"], "shared_attn": cache["shared_attn"]},
                 x, group_body)
             new_cache.update(groups)
             if "tail_blocks" in params:
-                x, new_cache["tail_blocks"] = run_stack_decode(
+                x, new_cache["tail_blocks"] = stack(
                     params["tail_blocks"], cache["tail_blocks"], x, mamba)
 
         x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = (x[:, 0, :] @ self._head_matrix(params)).float()
-        return logits, new_cache
+        return logits, cache if donate else new_cache
 
     def encode_for_decode(self, params: PyTree, src_embeds: torch.Tensor, cache: PyTree) -> PyTree:
         """Run the encoder over ``src_embeds`` (B, T, D) and put every decoder

@@ -5,8 +5,10 @@ with the reference's order of operations (``torch.optim.AdamW`` orders them
 differently): the update is ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``,
 with bias corrections computed in float32 on the host and optional
 global-norm clipping.  ``update`` returns new moment tensors;
-``apply_updates`` adds the updates to the params **in place** and returns
-the same tree.
+``update_`` writes them into the state's own tensors (a step then holds
+one set of moments, not two, and a captured step updates its static
+buffers) with the same operations, so the same bits; ``apply_updates``
+adds the updates to the params **in place** and returns the same tree.
 
 ``update_stacked`` is the same step for a client-stacked tree (every leaf
 with a leading client axis), where each client has its own step count: the
@@ -18,7 +20,10 @@ forms apply a bias correction as a product with its
 float32 reciprocal, ``m * (1 / b1c)``: CUDA divides a tensor by a host
 scalar that way but divides by a tensor exactly, so a division would round
 differently in the two forms.  With a product, each client of a stacked
-step gets the same bits as the one-client step.
+step gets the same bits as the one-client step; a bfloat16 leaf takes each
+product with a coefficient tensor in float32, as it does with a host float
+(``_times``), so a step that reads its coefficients from the device gives
+the host form's bits in bfloat16 too.
 """
 
 from __future__ import annotations
@@ -100,12 +105,46 @@ class AdamW:
         device can be captured once and replayed at any step count.  The
         same bits either way."""
         step = state.step + 1
+        grads, coefs = self._clipped(grads, step, coefficients)
+        mu, nu, updates = self._step(grads, state, params, coefs)
+        return updates, AdamWState(step=step, mu=mu, nu=nu)
+
+    @torch.no_grad()
+    def update_(
+        self, grads: PyTree, state: AdamWState, params: PyTree,
+        coefficients: torch.Tensor | None = None,
+    ) -> PyTree:
+        """``update`` with the new moments written into ``state.mu`` and
+        ``state.nu`` in place; returns the updates.  The caller's new state
+        is ``AdamWState(state.step + 1, state.mu, state.nu)``.
+
+        Leaf by leaf, each moment takes ``update``'s operations in
+        ``update``'s order, the first of them in place (``b1 * m`` as
+        ``m.mul_(b1)``, then ``+ (1 - b1) * g`` as an ``add_``: the same
+        kernels, so the same bits in float32 and bfloat16, with clipping and
+        a schedule), and the update is computed from the new moments; a
+        leaf's step holds one or two temporaries of its size, not a new
+        moment and its parts.  ``coefficients`` as in ``update``; without it
+        the step count comes from ``state.step``."""
+        grads, coefs = self._clipped(grads, state.step + 1, coefficients)
+        updates = []
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
+                              tree_leaves(state.nu), tree_leaves(params)):
+            m.mul_(self.b1).add_((1 - self.b1) * g)
+            v.mul_(self.b2).add_((1 - self.b2) * (g * g))
+            updates.append(self._update(m, v, p, coefs))
+        it = iter(updates)
+        return tree_map(lambda _: next(it), params)
+
+    def _clipped(self, grads: PyTree, step, coefficients: torch.Tensor | None):
+        """The grads after global-norm clipping (when set) and the step's
+        coefficients: the host floats of ``step``, or ``coefficients``'
+        three 0-dim tensors."""
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (global_norm(grads) + 1e-12), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
         coefs = self.coefficients(step) if coefficients is None else tuple(coefficients)
-        mu, nu, updates = self._step(grads, state, params, coefs)
-        return updates, AdamWState(step=step, mu=mu, nu=nu)
+        return grads, coefs
 
     @torch.no_grad()
     def update_stacked(
@@ -133,16 +172,24 @@ class AdamW:
         """New moments and the updates.  ``coefs`` is ``(1/b1c, 1/b2c, -lr)``,
         each a float, a 0-dim tensor, or a ``(C,)`` tensor of one value per
         client."""
-        b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * (g * g), state.nu, grads)
+        mu = tree_map(self._mu, state.mu, grads)
+        nu = tree_map(self._nu, state.nu, grads)
+        return mu, nu, tree_map(lambda m, v, p: self._update(m, v, p, coefs), mu, nu, params)
 
-        def _update(m, v, p):
-            inv_b1c, inv_b2c, neg_lr = (_per_client(k, p) for k in coefs)
-            adam = (m * inv_b1c) / (torch.sqrt(v * inv_b2c) + self.eps)
-            return (neg_lr * (adam + self.weight_decay * p)).to(p.dtype)
+    def _mu(self, m, g):
+        return self.b1 * m + (1 - self.b1) * g
 
-        return mu, nu, tree_map(_update, mu, nu, params)
+    def _nu(self, v, g):
+        return self.b2 * v + (1 - self.b2) * (g * g)
+
+    def _update(self, m, v, p, coefs):
+        """``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``; each operation
+        after the first of a temporary is taken in place on it (the same
+        kernels: the same bits), so a leaf holds at most two temporaries."""
+        inv_b1c, inv_b2c, neg_lr = (_per_client(k, p) for k in coefs)
+        denom = _times(v, inv_b2c).sqrt_().add_(self.eps)
+        adam = _times(m, inv_b1c).div_(denom)
+        return _times(adam.add_(self.weight_decay * p), neg_lr).to(p.dtype)
 
 
 def _per_client(k, like: torch.Tensor):
@@ -151,6 +198,27 @@ def _per_client(k, like: torch.Tensor):
     if isinstance(k, float) or k.dim() == 0:
         return k
     return k.view(k.shape[0], *([1] * (like.dim() - 1)))
+
+
+_CHUNK = 1 << 24   # elements a float32 temporary of ``_times`` holds
+
+
+def _times(x: torch.Tensor, k) -> torch.Tensor:
+    """``x * k``, the same bits for ``k`` a host float and ``k`` a float32
+    tensor of its value.  A bfloat16 ``x`` times a host float multiplies in
+    float32 and rounds once; CUDA would first round a float32 tensor ``k``
+    to bfloat16, so that product is taken in float32 explicitly, a chunk of
+    ``_CHUNK`` elements at a time for a 0-dim ``k`` (a float32 copy of a
+    whole multi-GB leaf would not fit beside a large model's step)."""
+    if not isinstance(k, torch.Tensor) or k.dtype == x.dtype:
+        return x * k
+    if k.dim():   # one value a client, shaped to broadcast
+        return (x.to(k.dtype) * k).to(x.dtype)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    k = k.reshape(1)   # a 1-dim operand promotes the product to its float32
+    for part, dest in zip(x.reshape(-1).split(_CHUNK), out.view(-1).split(_CHUNK)):
+        dest.copy_(part * k)
+    return out
 
 
 @torch.no_grad()

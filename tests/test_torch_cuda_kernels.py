@@ -878,3 +878,135 @@ def test_wide_gru_kernels_capture_in_global_mode(cuda, n):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(h_g, h_e) and torch.equal(dx_g, dx_e)
+
+
+LM_CAPTURE_CASES = {
+    # name -> (arch, changes to its reduced config)
+    "smollm-window5": ("smollm-135m", {"sliding_window": 5}),
+    "mamba2-130m": ("mamba2-130m", {}),
+    "zamba2-5layers": ("zamba2-7b", {"num_layers": 5}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {}),
+    "llama4-moe-every2": ("llama4-scout-17b-a16e", {"num_layers": 5, "moe_every": 2}),
+    "seamless-m4t-large-v2": ("seamless-m4t-large-v2", {}),
+}
+
+
+def lm_case(cuda, name, dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.zoo import Model
+
+    arch, changes = LM_CAPTURE_CASES[name]
+    cfg = get_config(arch).reduced()
+    if "moe_every" in changes:
+        changes = {**changes, "moe": dataclasses.replace(cfg.moe, moe_every=changes["moe_every"])}
+        del changes["moe_every"]
+    cfg = dataclasses.replace(cfg, **changes, **({"dtype": dtype} if dtype else {}))
+    return cfg, lambda: Model(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+
+
+@pytest.mark.parametrize("name", list(LM_CAPTURE_CASES))
+def test_captured_serve_steps_replay_the_eager_bits(cuda, name):
+    """``make_serve_step`` captured (the cache donated, one graph for every
+    position) against ``disable_capture()``: every step's logits and the
+    cache bit for bit, one capture and a replay a later step."""
+    from repro_torch.capture import disable_capture
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.tree import tree_leaves
+
+    cfg, init = lm_case(cuda, name)
+    model = Model(cfg)
+    params = init()
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 12))).to(cuda)
+    src = torch.from_numpy(rng.normal(size=(3, 9, cfg.d_model)).astype(np.float32)).to(cuda)
+    out = {}
+    for mode in ("captured", "eager"):
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            serve = make_serve_step(model)
+            cache = model.init_cache(3, 12, cuda)
+            if cfg.arch_type.value == "encdec":
+                with torch.inference_mode():
+                    cache = model.encode_for_decode(params, src, cache)
+            pointers = [t.data_ptr() for t in tree_leaves(cache)]
+            logits = []
+            for t in range(12):
+                lg, back = serve(params, toks[:, t:t + 1], cache, t)
+                assert back is cache
+                logits.append(lg)
+            assert [t.data_ptr() for t in tree_leaves(cache)] == pointers
+            graphs = serve.graphs(cuda)
+            out[mode] = (torch.stack(logits), cache, graphs.captures, graphs.replays)
+    (lg_c, cache_c, captures, replays), (lg_e, cache_e, none, _) = out["captured"], out["eager"]
+    assert torch.equal(lg_c, lg_e)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(cache_c), tree_leaves(cache_e)))
+    assert (captures, replays, none) == (1, 11, 0)
+
+
+@pytest.mark.parametrize("name,dtype", [("mamba2-130m", "float32"), ("zamba2-5layers", "bfloat16"),
+                                        ("deepseek-v3-671b", "bfloat16")])
+def test_captured_train_steps_replay_the_eager_bits(cuda, name, dtype):
+    """``make_train_step`` captured (params and AdamW moments updated in
+    place, remat and the chunked CE's checkpoints inside the graph) against
+    ``disable_capture()``: params, moments and metrics bit for bit after 3
+    steps, the SSD launches equal; a cloned tree through the same graph
+    gets its own step and leaves the capturing tree as it was."""
+    from repro_torch.capture import disable_capture
+    from repro_torch.data.pipeline import lm_token_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.zoo import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, init = lm_case(cuda, name, dtype)
+    model = Model(cfg, loss_chunk=16)
+    opt = AdamW(1e-2, clip_norm=1.0, schedule=cosine_schedule(1, 4))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             lm_token_batch(np.random.default_rng(3), 2, 40, cfg.vocab_size).items()}
+    out = {}
+    for mode in ("captured", "eager"):
+        with disable_capture() if mode == "eager" else contextlib.nullcontext():
+            step = make_train_step(model, opt)
+            params = init()
+            state = opt.init(params)
+            before = (ssd_kernel.ssd_chunk_scan.launches, ssd_kernel.ssd_chunk_scan_bwd.launches)
+            metrics = []
+            for _ in range(3):
+                params, state, m = step(params, state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            launches = (ssd_kernel.ssd_chunk_scan.launches - before[0],
+                        ssd_kernel.ssd_chunk_scan_bwd.launches - before[1])
+            graphs = step.graphs(cuda)
+            out[mode] = (step, (params, state.mu, state.nu), metrics, launches, graphs.captures,
+                         graphs.replays)
+    (step, trees_c, m_c, n_c, captures, replays), (_, trees_e, m_e, n_e, none, _) = (
+        out["captured"], out["eager"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(trees_c), tree_leaves(trees_e)))
+    assert m_c == m_e and n_c == n_e and (captures, replays, none) == (1, 2, 0)
+    held = tree_map(torch.clone, trees_c)
+    other = init()
+    other, other_state, m = step(other, opt.init(other), batch)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(trees_c), tree_leaves(held)))
+    assert float(m["loss"]) == m_c[0]["loss"]
+
+
+def test_captured_predict_replays_the_eager_bits(cuda):
+    from repro_torch.capture import disable_capture
+    from repro_torch.data.pipeline import ArrayDataset
+    from repro_torch.experiments.paper import _predict
+    from repro_torch.models import gru
+
+    cfg = gru.GRUConfig()
+    params = gru.init_gru(torch.Generator().manual_seed(0), cfg, cuda)
+    rng = np.random.default_rng(4)
+    data = ArrayDataset(rng.normal(size=(5000, 24, cfg.input_dim)).astype(np.float32),
+                        rng.uniform(1, 9, size=5000).astype(np.float32))
+    before = kernel.gru_scan.launches
+    got = _predict(params, cfg, data)
+    captured = kernel.gru_scan.launches - before
+    with disable_capture():
+        want = _predict(params, cfg, data)
+    assert np.array_equal(got, want) and got.shape == (5000,)
+    assert captured == kernel.gru_scan.launches - before - captured == 2 * 3
