@@ -316,6 +316,14 @@ exit code and no result line:
              ``disable_capture()``: y_hat bit for bit, ``gru_scan`` 2 a
              batch both ways, each captured call 2 captures (its own
              cache) and a replay a batch; call seconds both ways.
+31. dryrun — ``launch/dryrun.py`` on meta tensors against the card, at
+             exactly what the card runs: qwen3-1.7b training at B=8 x
+             2,048, mamba2-130m training at B=8 x 2,048 (the SSD pair on
+             its path), qwen3-1.7b decode at B=8 against 2,048 slots; the
+             card's eager step's matmul FLOPs (the dry run's own counter)
+             equal the meta run's, the SSD launches equal its kernel calls,
+             the card's peak memory within 10% of its peak; the captured
+             step's time beside the datasheet's compute_s and memory_s.
 
 The line before the last lists each kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -339,10 +347,19 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
-PEAK_3XTF32_FLOPS = 495e12 / 3   # H100 SXM dense TF32 on the tensor cores, three products per product
-PEAK_16BIT_FLOPS = 989e12    # H100 SXM dense bf16 and fp16 on the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# The peaks, the bounds and the kernels' work are the package's, which the
+# dry run (phase 31) counts with too.
+from repro_torch.kernels.work import (  # noqa: E402
+    PEAK_BYTES_PER_S,
+    PEAK_F32_FLOPS,
+    bound_ms,
+    gru_work as work,
+    ssd_bwd_work,
+    ssd_work,
+    tensor_core_ms,
+)
+
 FWD_TOL = 1e-5
 DX_TOL = 1e-5
 DW_TOL = 1e-4                # times max(1, max|ref|): sums over B*T terms in another order
@@ -380,10 +397,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
 
     # -- 1. device ------------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -525,6 +538,10 @@ def main() -> int:
 
     # -- 30. the paper's predict function captured, against eager -------------
     for kernel, n in run_predict_phase(torch, K, cohort).items():
+        launches[kernel] += n
+
+    # -- 31. the dry run on meta tensors, against the same steps on the card -
+    for kernel, n in run_dryrun_phase(torch, SK).items():
         launches[kernel] += n
 
     for row in kernel_rows:
@@ -711,31 +728,6 @@ def gru_stage_ms(torch, dev, K, c, b, t, n) -> dict[str, float]:
             "gru_bwd_dw", (c, b, t, n, K.slice_rows(n, b * t)), (h, dxg, dgn), (partial, dw, db)),
             calls=calls),
     }
-
-
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    """The least time on this card: bytes over 3.35 TB/s or float32 ops over
-    67 TFLOP/s, whichever is larger, and which it was."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def work(b: int, t: int, n: int, elem: int = 4) -> tuple[int, int, int, int]:
-    """Bytes each kernel must move (inputs once, outputs once, ``elem`` bytes
-    an element) and its float ops.
-
-    Forward per (row, step): the (1,N)x(N,3N) product (2*N*3N) and ~20 ops per
-    unit for biases, two sigmoids, tanh and the blend.  Backward: the gate
-    rebuild, d_gh W^T and h^T d_gh products (3 * 2*N*3N) and ~40 ops per unit.
-    """
-    f = elem
-    w_bytes = f * (n * 3 * n + 3 * n)
-    fwd_bytes = f * (b * t * 3 * n + b * t * n) + w_bytes
-    bwd_bytes = f * (2 * b * t * 3 * n + 2 * b * t * n) + 2 * w_bytes
-    fwd_ops = b * t * (2 * n * 3 * n + 20 * n)
-    bwd_ops = b * t * (3 * 2 * n * 3 * n + 40 * n)
-    return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 10) -> float:
@@ -1098,17 +1090,6 @@ def ssd_bwd_timing(torch, dev, SK, case: str, args) -> dict:
     return row
 
 
-def tensor_core_ms(ops: int, mma: int, mma16: int = 0, elem: int = 4) -> float:
-    """The least time for ``ops`` float ops of which ``mma`` are tile products
-    on the tensor cores: in 3xTF32 at 495/3 TFLOP/s, except, with 16-bit
-    inputs (``elem`` 2), the ``mma16`` of them whose operands are both
-    16-bit inputs, which one bf16/fp16 product a product takes exactly, at
-    989 TFLOP/s; the rest of ``ops`` at 67 TFLOP/s on the CUDA cores."""
-    exact = mma16 if elem == 2 else 0
-    return (exact / PEAK_16BIT_FLOPS + (mma - exact) / PEAK_3XTF32_FLOPS
-            + (ops - mma) / PEAK_F32_FLOPS) * 1e3
-
-
 def ssd_side(name: str) -> str | None:
     """Which SSD call a device kernel belongs to: "fwd", "bwd" or None.  The
     stages that both run are instantiated once per direction
@@ -1127,64 +1108,6 @@ def stage_ms(torch, SK, stages: dict[str, tuple]) -> dict[str, float]:
     call skips the one chunk whose state the carry does not read."""
     return {name: time_ms(torch, lambda: SK._stage(*spec), iters=20, warmup=2)
             for name, spec in stages.items()}
-
-
-def ssd_bwd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int,
-                 elem: int = 4) -> tuple[int, int, int, int]:
-    """Bytes the backward must move, its float ops over the causal pairs, how
-    many of those are tile products (the kernels' tensor-core work), and how
-    many of those take two of the inputs (C B^T and dW = dy x^T).
-
-    Bytes: x, dy, dt, cum, B, C (``elem`` bytes an element) and the float32
-    entry states read once; dx, ddt, dcum, dB and dC written once.  Scratch
-    that one implementation keeps (the kernels' G, dG and dS) is not the
-    function's.
-    Per (batch, chunk) and causal pair, shared by the heads: C B^T
-    recomputed, and dC = dG B, dB = dG^T C from the head-summed dG (2N
-    each).  Per head and pair: dW = dy x^T and dx = W^T dy (2P each) and ~10
-    for the decay, the weights and the dt and cum sums.  Per head and row,
-    four products of 2NP each: U = (e dy) S (dC's carried term), V = B dS^T
-    (dx's state term), Z = x dS (dB's) and the update of dS; the y_inter term
-    of dcum is C . U (2N) and g is x . V (2P); ~10 for the decays.  The
-    tile products are the 2N and 2P per pair and the 2NP per row.
-    """
-    rows = b * nc * l_len
-    bytes_ = elem * (3 * rows * h * p + 4 * rows * h + 4 * rows * n) + 4 * b * nc * h * p * n
-    pairs = l_len * (l_len + 1) // 2
-    per_head = pairs * (4 * p + 10) + l_len * (8 * n * p + 2 * n + 2 * p + 10)
-    mma_per_head = pairs * 4 * p + l_len * 8 * n * p
-    return (bytes_, b * nc * (3 * 2 * n * pairs + h * per_head),
-            b * nc * (3 * 2 * n * pairs + h * mma_per_head),
-            b * nc * pairs * (2 * n + h * 2 * p))
-
-
-def ssd_work(b: int, nc: int, l_len: int, h: int, p: int, n: int,
-             elem: int = 4) -> tuple[int, int, int, int, int]:
-    """Bytes the call must move (inputs of ``elem`` bytes an element read
-    once, y written once),
-    its float ops counting the causal pairs l >= m of each L x L block that
-    the scan needs (and, beside it, the full L x L block), how many of the
-    causal count are tile products (C B^T, W x, C S and the state update:
-    the kernels' tensor-core work), and how many of those take two of the
-    inputs (C B^T).
-
-    Per (batch, chunk): C B^T once, 2N per pair (shared by the heads).  Per
-    head: the weights exp(cum_l - cum_m) dt_m G (a subtraction, an exp and
-    two products: 4 per pair) and W x (2P per pair); the carried-state term
-    C S and the state update (2NP per row each) and the per-row decays (4).
-    """
-    bytes_ = elem * (2 * b * nc * l_len * h * p + 2 * b * nc * l_len * h + 2 * b * nc * l_len * n)
-
-    def ops_for(pairs: int, tile_products_only: bool = False) -> int:
-        per_head = pairs * 2 * p + l_len * 4 * n * p
-        if not tile_products_only:
-            per_head += pairs * 4 + l_len * 4
-        return b * nc * (2 * n * pairs + h * per_head)
-
-    causal = l_len * (l_len + 1) // 2
-    return (bytes_, ops_for(causal), ops_for(l_len * l_len), ops_for(causal, True),
-            b * nc * 2 * n * causal)
-
 
 
 # ---------------------------------------------------------------------------
@@ -5340,6 +5263,123 @@ def run_predict_phase(torch, K, cohort) -> dict[str, int]:
             f"predict: graphs a call {cap['graphs']} captured, {eager['graphs']} eager; "
             f"expected ({shapes}, {batches})")
     require(all(math.isfinite(v) for v in metrics.values()), f"predict metrics {metrics}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_CASES = (          # arch, kind, B, S: exactly what the card runs
+    ("qwen3-1.7b", "train", 8, 2048),
+    ("mamba2-130m", "train", 8, 2048),   # the SSD pair on its path
+    ("qwen3-1.7b", "decode", 8, 2048),   # B=8 against 2,048 slots
+)
+DRYRUN_PEAK_TOL = 0.10    # the card's peak against the meta run's, relative
+DRYRUN_TIMED = 2          # captured steps timed a case
+
+
+def run_dryrun_phase(torch, SK) -> dict[str, int]:
+    """Phase 31: ``launch/dryrun.py::lower_combo`` on the host mesh, at each
+    case's exact shape, against the same step on the card.  Gated: the
+    matmul FLOPs of the card's eager step (``disable_capture()``), counted
+    by the dry run's own ``StepCounter``, equal the meta run's by dtype
+    exactly; the SSD wrappers' launches equal the meta run's kernel calls;
+    ``max_memory_allocated`` over the step, less what the process held
+    beside the step's arguments at its start, within DRYRUN_PEAK_TOL of the
+    meta run's peak.  Printed, not gated: the captured step's time beside
+    the datasheet's ``compute_s`` and ``memory_s``.  Returns the launches of
+    the eager steps."""
+    from repro_torch.capture import disable_capture
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import InputShape
+    from repro_torch.launch.step_analysis import run_counted
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    total = {"ssd_chunk_scan": 0, "ssd_chunk_scan_bwd": 0}
+    for arch, kind, b, s in DRYRUN_CASES:
+        t0 = time.perf_counter()
+        record = dryrun.lower_combo(arch, InputShape(f"chip_{kind}", s, b, kind), "host")
+        dry_s = time.perf_counter() - t0
+        analysis, roofline = record["hlo_analysis"], record["roofline"]
+        predicted_peak = record["memory"]["peak_memory_in_bytes"]
+
+        t0 = time.perf_counter()
+        shape, cfg, model, opt = dryrun.build_combo(arch, InputShape(f"chip_{kind}", s, b, kind))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        if kind == "train":
+            batch = {k: v.cuda() for k, v in lm_batch(torch, cfg.vocab_size, b, s, seed=31).items()}
+            args = [params, opt.init(params), batch]
+            step = make_train_step(model, opt)
+        else:
+            tokens = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32, device="cuda",
+                                   generator=torch.Generator("cuda").manual_seed(31))
+            args = [params, tokens, model.init_cache(b, s, "cuda"),
+                    torch.tensor(s // 2, dtype=torch.int32, device="cuda")]
+            step = make_serve_step(model)
+        arg_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(args)
+                        if isinstance(t, torch.Tensor))
+
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() - arg_bytes
+        t0 = time.perf_counter()
+        SK.ssd_chunk_scan.launches = 0
+        SK.ssd_chunk_scan_bwd.launches = 0
+        with disable_capture():
+            out, counter, _ = run_counted(step, *args, track_peak=False)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        card_peak = torch.cuda.max_memory_allocated() - held
+        launches = {"ssd_chunk_scan": SK.ssd_chunk_scan.launches,
+                    "ssd_chunk_scan_bwd": SK.ssd_chunk_scan_bwd.launches}
+        add_counts(total, launches)
+        finite = (float(out[2]["loss"]) if kind == "train" else float(out[0].float().abs().max()))
+        if kind == "train":
+            args[1] = out[1]
+
+        # The captured step: its key's first call captures, then replays.
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(DRYRUN_TIMED):
+            if kind == "train":
+                args[1] = out[1]
+            out = step(*args)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / DRYRUN_TIMED
+
+        calls = {k: analysis["kernels"].get(k, {}).get("calls", 0) for k in launches}
+        rel = abs(card_peak - predicted_peak) / predicted_peak
+        emit(phase="dryrun", arch=arch, kind=kind, B=b, S=s, dry_run_s=dry_s, init_s=init_s,
+             eager_counted_s=eager_s, first_captured_call_s=capture_s,
+             flops_by_dtype_card=counter.flops_by_dtype,
+             flops_by_dtype_dry=analysis["flops_by_dtype"], ssd_launches=launches,
+             kernel_calls_dry=calls, peak_card_bytes=card_peak,
+             peak_predicted_bytes=predicted_peak, peak_rel_err=rel, argument_bytes=arg_bytes,
+             captured_step_ms=step_s * 1e3, compute_s=roofline["compute_s"],
+             memory_s=roofline["memory_s"], step_over_compute_s=step_s / roofline["compute_s"],
+             step_over_memory_s=step_s / roofline["memory_s"],
+             compute_over_memory_s=roofline["compute_s"] / roofline["memory_s"],
+             datasheet="NVIDIA H100 80GB HBM3 (SXM5) at 700 W")
+        require(counter.flops_by_dtype == analysis["flops_by_dtype"],
+                f"dryrun {arch} {kind}: the card's matmul FLOPs {counter.flops_by_dtype} "
+                f"against the dry run's {analysis['flops_by_dtype']}")
+        require(launches == calls, f"dryrun {arch} {kind}: SSD launches {launches} against "
+                                   f"the dry run's kernel calls {calls}")
+        require(rel <= DRYRUN_PEAK_TOL, f"dryrun {arch} {kind}: peak {card_peak} B on the card "
+                                        f"against {predicted_peak} B predicted ({rel:.3f})")
+        require(math.isfinite(finite), f"dryrun {arch} {kind}: not finite")
+        del params, args, out, step, counter
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="dryrun_phase", seconds=time.perf_counter() - t_phase)
     return total
 
 

@@ -4,7 +4,9 @@ Routing is by the device of the tensors a wrapper is given, and by nothing
 else: CUDA tensors go to the hand-written kernel (or the call raises — a
 build failure, a refused launch or an unsupported shape is an error, never a
 reason to compute elsewhere); CPU tensors go to the plain PyTorch version in
-the kernel's ``ref.py``.  There is no environment switch.
+the kernel's ``ref.py``; meta tensors, which the dry run steps on, get empty
+outputs and the call's work recorded (``kernels/work.py``).  There is no
+environment switch.
 
 Kernels are CUDA C++ sources under ``repro_torch/csrc/``, compiled at first
 use with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
@@ -78,16 +80,21 @@ def record_compile(seconds: float) -> None:
 
 
 def route(*tensors: torch.Tensor) -> str:
-    """``"cuda"`` or ``"cpu"``: where a wrapper must run for these tensors.
+    """``"cuda"``, ``"cpu"`` or ``"meta"``: where a wrapper must run for these
+    tensors.
 
-    All tensors must share one device type; anything but CUDA or CPU raises.
+    All tensors must share one device type; anything else raises.  Only the
+    four main-path wrappers (``gru_scan``, ``gru_scan_bwd``,
+    ``ssd_chunk_scan``, ``ssd_chunk_scan_bwd``) take the meta route: they
+    return empty meta outputs of the kernel's shapes and dtypes and record
+    the call's work (``kernels/work.py``) for the dry run.
     """
     kinds = {t.device.type for t in tensors}
     if len(kinds) != 1:
         raise ValueError(f"tensors lie on more than one device: {sorted(kinds)}")
     kind = kinds.pop()
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"the port's kernels take CUDA or CPU tensors, got {kind}")
+    if kind not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"the port's kernels take CUDA, CPU or meta tensors, got {kind}")
     return kind
 
 

@@ -15,7 +15,9 @@ reach the kernels as float32.  The kernels compute in float32 and store
 ``h_seq`` and ``dx_gates`` in the activations' type; ``dw_hh`` and ``db_hh``
 are float32 sums returned in ``w_hh``'s and ``b_hh``'s types, as the
 reference does.  Other dtypes raise ``TypeError``.  On CPU tensors a wrapper
-returns the plain version from ``ref.py`` and counts nothing.
+returns the plain version from ``ref.py`` and counts nothing.  On meta
+tensors it returns empty meta outputs of those shapes and dtypes, records
+the call's work for the dry run (``kernels/work.py``) and counts nothing.
 
 ``gru_scan_bwd`` runs in two stages on the card: the reverse recurrence
 (``dx_gates``, and float32 ``dgn``, the n-part of ``d_gh``, or all of
@@ -31,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import backend
+from repro_torch.kernels import backend, work
 from repro_torch.kernels.gru_scan.ref import (
     gru_bwd_dw_ref,
     gru_bwd_recur_ref,
@@ -143,8 +145,12 @@ def _wide_scratch(c: int, b: int, n: int, bwd: bool, device) -> torch.Tensor | N
 def gru_scan(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
     """Hidden-state sequence ``(…, B, T, N)`` of the GRU recurrence."""
     c, b, t, n = _check_shapes(x_gates, w_hh, b_hh)
-    if backend.route(x_gates, w_hh, b_hh) == "cpu":
+    where = backend.route(x_gates, w_hh, b_hh)
+    if where == "cpu":
         return gru_scan_ref(x_gates, w_hh, b_hh)
+    if where == "meta":
+        work.record_gru("gru_scan", c, b, t, n, x_gates.element_size())
+        return torch.empty((*x_gates.shape[:-1], n), dtype=x_gates.dtype, device="meta")
     code = _check_cuda_inputs((x_gates,), (w_hh, b_hh))
     h_seq = torch.empty((*x_gates.shape[:-1], n), dtype=x_gates.dtype, device=x_gates.device)
     if h_seq.numel() == 0:
@@ -170,8 +176,12 @@ def gru_scan_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Residual backward: ``(dx_gates, dw_hh, db_hh)`` from the forward's ``h_seq``."""
     c, b, t, n = _check_bwd_shapes(x_gates, w_hh, b_hh, h_seq, dy)
-    if backend.route(x_gates, w_hh, b_hh, h_seq, dy) == "cpu":
+    where = backend.route(x_gates, w_hh, b_hh, h_seq, dy)
+    if where == "cpu":
         return gru_scan_bwd_ref(x_gates, w_hh, b_hh, h_seq, dy)
+    if where == "meta":
+        work.record_gru("gru_scan_bwd", c, b, t, n, x_gates.element_size())
+        return (torch.empty_like(x_gates), torch.empty_like(w_hh), torch.empty_like(b_hh))
     code = _check_cuda_inputs((x_gates, h_seq, dy), (w_hh, b_hh))
     dxg = torch.empty_like(x_gates)
     dw = torch.empty(w_hh.shape, dtype=torch.float32, device=w_hh.device)

@@ -29,8 +29,10 @@ head-summed dG, in the backward the carries dS (B, NC, H, P, N) and, above
 P = 64, the float32 partials of ddt and dcum (2, B, NC, L, H, ceil(P/64));
 the forward's entry states are always formed, in ``states``.  On CPU
 tensors a wrapper returns the plain versions from ``ref.py`` and counts
-nothing.  Padding a ragged sequence to whole chunks is the caller's
-(``ops.ssd_full``).
+nothing.  On meta tensors a wrapper allocates what the card route
+allocates (outputs and scratch) on the meta device, records the call's work
+for the dry run (``kernels/work.py``) and counts nothing.  Padding a ragged
+sequence to whole chunks is the caller's (``ops.ssd_full``).
 
 The ``stage_*`` functions launch one stage each, so that the card's checks
 can hold each stage against its plain version in ``ref.py``; they take one
@@ -44,7 +46,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import backend
+from repro_torch.kernels import backend, work
 from repro_torch.kernels.ssd import ref
 from repro_torch.kernels.ssd.ref import (
     ssd_chunk_scan_bwd_ref,
@@ -135,11 +137,14 @@ def ssd_chunk_scan(
     """y (B, NC, L, H, P) in x's dtype; with ``return_states`` also the
     float32 chunk-entry states (B, NC, H, P, N)."""
     b, nc, l_len, h, p, n = _check_shapes(xc, dtc, cum, bc, cc)
-    if backend.route(xc, dtc, cum, bc, cc) == "cpu":
+    where = backend.route(xc, dtc, cum, bc, cc)
+    if where == "cpu":
         y = ssd_chunk_scan_ref(xc, dtc, cum, bc, cc)
         if return_states:
             return y, ssd_chunk_states_ref(xc, dtc, cum, bc, cc)
         return y
+    if where == "meta":
+        return _meta_forward((b, nc, l_len, h, p, n), (xc, dtc, cum, bc, cc), return_states)
     code = _check_cuda_inputs((b, nc, l_len, h, p, n), (xc, dtc, cum, bc, cc))
     if code is None:  # mixed dtypes: float32 inside, y in x's dtype
         y, states = ssd_chunk_scan(*(t.float() for t in (xc, dtc, cum, bc, cc)),
@@ -193,9 +198,12 @@ def ssd_chunk_scan_bwd(
         if tuple(t.shape) != want:
             raise ValueError(f"{name} is {tuple(t.shape)}, expected {want} for x {tuple(xc.shape)}")
     tensors = (xc, dtc, cum, bc, cc, states, dy)
-    if backend.route(*tensors) == "cpu":
+    where = backend.route(*tensors)
+    if where == "cpu":
         return ssd_chunk_scan_bwd_ref(*tensors)
     inputs = (xc, dtc, cum, bc, cc)
+    if where == "meta":
+        return _meta_backward((b, nc, l_len, h, p, n), (*inputs, dy))
     code = _check_cuda_inputs((b, nc, l_len, h, p, n), (*inputs, dy), (states,),
                               what="ssd_chunk_scan_bwd")
     if code is None:  # mixed dtypes: float32 inside, each cotangent in its input's dtype
@@ -219,6 +227,45 @@ def ssd_chunk_scan_bwd(
 
 
 ssd_chunk_scan_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The meta route: what the card allocates, and the call's work, no launch.
+# ---------------------------------------------------------------------------
+
+
+def _elem(tensors) -> int:
+    """Bytes an element the kernels run in: the inputs' one dtype, or
+    float32 where they mix dtypes."""
+    dtypes = {t.dtype for t in tensors}
+    return tensors[0].element_size() if len(dtypes) == 1 else 4
+
+
+def _meta_scratch(b: int, nc: int, l_len: int, *sizes: tuple[int, ...]) -> None:
+    """Allocate and drop the card route's float32 scratch: G (B, NC, L, L)
+    and ``sizes``, so that a live-memory count of the step sees it."""
+    for shape in ((b, nc, l_len, l_len), *sizes):
+        torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+def _meta_forward(shape: tuple[int, ...], inputs, return_states: bool):
+    b, nc, l_len, h, p, n = shape
+    work.record_ssd("ssd_chunk_scan", shape, _elem(inputs))
+    y = torch.empty_like(inputs[0])
+    states = torch.empty((b, nc, h, p, n), dtype=torch.float32, device="meta")
+    _meta_scratch(b, nc, l_len)
+    return (y, states) if return_states else y
+
+
+def _meta_backward(shape: tuple[int, ...], tensors):
+    """``tensors``: x, dt, cum, B, C and dy; the grads take the first five's
+    shapes and dtypes."""
+    b, nc, l_len, h, p, n = shape
+    work.record_ssd("ssd_chunk_scan_bwd", shape, _elem(tensors))
+    grads = tuple(torch.empty_like(t) for t in tensors[:5])
+    parts = (() if p_tiles(p) == 1 else ((2, b, nc, l_len, h, p_tiles(p)),))
+    _meta_scratch(b, nc, l_len, (b, nc, h, p, n), *parts)
+    return grads
 
 
 # ---------------------------------------------------------------------------

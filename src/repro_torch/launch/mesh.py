@@ -24,21 +24,22 @@ across ranks by one all-reduce.
   multiple of the axis size and cut into contiguous blocks, rank ``k``
   taking block ``k`` (``block_of``).
 
+The production meshes of the reference, without devices:
+``make_production_mesh`` ((16, 16) over ``("data", "model")``, or (2, 16,
+16) over ``("pod", "data", "model")``) and ``make_host_mesh`` ((1, 1))
+return a ``distribution/sharding.py::AbstractMesh``, which the sharding
+rules (``launch/specs.py``) and the dry run (``launch/dryrun.py``) read
+through ``data_axes`` and ``axis_size``.  No program runs on them: the
+port executes no model axis.
+
 What of the reference has no counterpart, and why:
 
-* ``make_production_mesh`` and ``make_host_mesh``: the TPU pods' 2-D and
-  3-D meshes (256 and 512 chips, a ``"model"`` axis); the port shards only
-  the client axis.
-* ``distribution/compat.py``: shims over jax versions' mesh APIs.
+* ``distribution/compat.py``'s version shims over jax's mesh APIs.
 * ``distribution/sharding.py::constrain``: a sharding constraint that is a
   no-op on one device; a process group needs none.
 * The ``("pod", "data")`` mesh of ``federated/api.py``'s hierarchical
   aggregator, a region to a pod: the port's mesh is 1-D, and a grouped
   aggregator's regions are trained one after another, one all-reduce each.
-* ``data_axes``, ``axis_size`` and a mesh's ``axis_names`` and ``shape``:
-  the reference's sharding specs (``distribution/specs.py``) and dry run
-  (``launch/dryrun.py``) read them, and neither is ported; the engine reads
-  only ``DataMesh.size`` and ``rank``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distribution.sharding import AbstractMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +65,30 @@ class DataMesh:
     @property
     def backend(self) -> str:
         return str(dist.get_backend(self.group))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's TPU pod layouts: 256 chips as (16, 16) over
+    ``("data", "model")``, or 512 as (2, 16, 16) over ``("pod", "data",
+    "model")``."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh() -> AbstractMesh:
+    """The one-device layout, (1, 1) over ``("data", "model")``."""
+    return AbstractMesh((1, 1), ("data", "model"))
+
+
+def data_axes(mesh: AbstractMesh) -> tuple[str, ...]:
+    """Axes that carry the batch: ('pod','data') on multi-pod, ('data',) else."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def axis_size(mesh: AbstractMesh, name: str) -> int:
+    """The size of axis ``name``, 1 where the mesh lacks it."""
+    return mesh.shape.get(name, 1)
 
 
 def make_data_mesh(group: Any = None) -> DataMesh:

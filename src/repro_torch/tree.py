@@ -26,3 +26,15 @@ def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *items) for items in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_map_with_names(fn: Callable[[tuple[str, ...], Any], Any], tree: PyTree,
+                        names: tuple[str, ...] = ()) -> PyTree:
+    """``fn(names, leaf)`` over every leaf, ``names`` the dict keys on the
+    way down (list positions add none), as the reference's sharding rules
+    read a ``tree_flatten_with_path`` path."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_names(fn, tree[k], (*names, str(k))) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_names(fn, item, names) for item in tree)
+    return fn(names, tree)

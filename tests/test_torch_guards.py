@@ -3,7 +3,8 @@
 * ``repro_torch`` imports neither ``jax`` nor anything of ``repro``.
 * Entry points default to the card and raise where there is none.
 * CPU tensors go through the plain versions and count no kernel launch;
-  the router accepts nothing but CUDA and CPU tensors.
+  the router accepts nothing but CUDA, CPU and (for the dry run) meta
+  tensors, all on one device.
 * Every reference arch id builds its reduced ``Model`` on the CPU, the MoE
   and encoder-decoder families included.
 * Each kernel module's ctypes signatures match the C prototypes of its source.
@@ -240,11 +241,18 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
 
 
 def test_router_takes_only_cuda_or_cpu_tensors_on_one_device():
+    """CUDA or CPU tensors, and meta tensors for the dry run (shapes only: a
+    wrapper launches nothing and computes nothing there), all on one device."""
     assert backend.route(torch.zeros(1), torch.zeros(2)) == "cpu"
+    assert backend.route(torch.zeros(1, device="meta")) == "meta"
     with pytest.raises(ValueError):
-        backend.route(torch.zeros(1, device="meta"))
+        backend.route(torch.zeros(1), torch.zeros(1, device="meta"))
+    before = kernel.gru_scan.launches
+    h = kernel.gru_scan(torch.zeros(3, 4, 6, device="meta"), torch.zeros(2, 6, device="meta"),
+                        torch.zeros(6, device="meta"))
+    assert (h.shape, h.device.type, kernel.gru_scan.launches) == ((3, 4, 2), "meta", before)
     with pytest.raises(ValueError):
-        kernel.gru_scan(torch.zeros(3, 4, 6, device="meta"), torch.zeros(2, 6, device="meta"),
+        kernel.gru_scan(torch.zeros(3, 4, 6, device="meta"), torch.zeros(2, 6),
                         torch.zeros(6, device="meta"))
 
 
