@@ -1,0 +1,9 @@
+"""The benchmark's own tests: ``python -m pytest bench/tests`` from the root."""
+
+import sys
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parents[1]
+for p in (BENCH, BENCH.parent / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
