@@ -2919,7 +2919,7 @@ def run_observability_phase(torch, K, cohort) -> dict[str, int]:
         seconds = time.perf_counter() - t0
         check_launches(f"observability arc ({name})", counts,
                        sum(st["cohort_steps"] for st in stats), 0)
-        runs[name] = (result, add(counts), seconds)
+        runs[name] = (result, add(counts), seconds, sum(st["cohort_steps"] for st in stats))
         del fed
     torch.cuda.empty_cache()
     traced, untraced = runs["traced"][0], runs["untraced"][0]
@@ -2945,8 +2945,13 @@ def run_observability_phase(torch, K, cohort) -> dict[str, int]:
             f"the tracer changed the launches: {runs['traced'][1]} vs {runs['untraced'][1]}")
     require(round_spans == [r.round_time_s for r in traced.history],
             "the round spans differ from the records' round_time_s")
-    want = {"select": exp.rounds, "train": exp.rounds, "round": exp.rounds, "stage": exp.rounds}
+    want = {"select": exp.rounds, "train": exp.rounds, "round": exp.rounds, "stage": exp.rounds,
+            "generators": exp.rounds, "readback": exp.rounds,
+            "cohort_step": runs["traced"][3]}
     require(span_counts == want, f"span counts {span_counts}, predicted {want}")
+    device_steps = tracer.summary()["device"]["cohort_step"]["count"]
+    require(device_steps == runs["traced"][3],
+            f"{device_steps} replays timed on the device, {runs['traced'][3]} steps")
     require(tracer.dropped == 0, f"the tracer dropped {tracer.dropped} events")
     del traced, untraced, runs, doc
 

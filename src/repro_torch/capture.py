@@ -61,6 +61,13 @@ what the eager run counts.  A capture is reported as the port's compile
 (``kernels/backend.py::record_compile``), which ``obs/profile.py::
 CompileWatcher`` turns into ``jit.compiles`` and ``jit.compile_time_s``.
 
+Timing.  A cache on the card takes its owner's tracer (``obs/trace.py``).
+When that tracer is enabled, :meth:`StepGraph.replay` records a CUDA timing
+event on the current stream before the replay and another after it, and
+the tracer turns the pair into a span of the cache's ``name`` on its
+``device`` clock, with the replay's ``args``; no synchronize is added.
+With the null tracer a replay checks one attribute and records nothing.
+
 On a CPU device (tests only: a CPU trainer runs eagerly) :meth:`GraphCache.
 capture` returns a stand-in that reruns the body at each replay, so the
 static-buffer step can be held against the eager one bit for bit.
@@ -78,6 +85,7 @@ import torch
 from repro_torch.kernels import backend
 from repro_torch.kernels.gru_scan import kernel as gru_kernel
 from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.obs.trace import NULL_TRACER, Tracer, resolve_tracer
 
 # The kernel wrappers whose ``launches`` a replay must add.
 COUNTED = (
@@ -150,17 +158,27 @@ class _Rerun:
 
 class StepGraph:
     """One captured step: ``replay`` runs it, adds the capture's launch
-    deltas to the kernel counters and returns a clone of its loss."""
+    deltas to the kernel counters and returns a clone of its loss.  With an
+    enabled ``tracer`` each replay is a device span ``name``."""
 
-    def __init__(self, graph: Any, output: torch.Tensor | None, launches: Sequence[int]):
+    def __init__(self, graph: Any, output: torch.Tensor | None, launches: Sequence[int],
+                 tracer: Tracer = NULL_TRACER, name: str = "replay"):
         self.graph = graph          # a torch.cuda.CUDAGraph, or anything with replay()
         self.output = output        # the loss the graph writes (in the pool)
         self.launches = tuple(launches)
         self.replays = 0
         self.first = None           # the warm-up's output, when the warm-up was a step
+        self.tracer = tracer
+        self.name = name
 
-    def replay(self) -> torch.Tensor:
-        out = self.graph.replay()
+    def replay(self, **args: Any) -> torch.Tensor:
+        """Run the step; ``args`` label its device span when timed."""
+        if self.tracer.enabled:
+            start = self.tracer.device_start()
+            out = self.graph.replay()
+            self.tracer.device_end(start, self.name, **args)
+        else:
+            out = self.graph.replay()
         out = self.output if out is None else out
         set_launch_counts([n + d for n, d in zip(launch_counts(), self.launches)])
         self.replays += 1
@@ -169,10 +187,14 @@ class StepGraph:
 
 class GraphCache:
     """A trainer's captured steps by key, in one memory pool, with its
-    capture and replay counts."""
+    capture and replay counts.  On the card its replays are device spans
+    ``name`` of ``tracer`` (the owner's; None is the null tracer)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, tracer: Tracer | None = None,
+                 name: str = "replay"):
         self.device = device
+        self.tracer = resolve_tracer(tracer) if device.type == "cuda" else NULL_TRACER
+        self.name = name
         self.entries: dict[Hashable, Any] = {}
         self.pool = None
         self.captures = 0
@@ -246,9 +268,10 @@ class GraphCache:
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="global"):
                 output = body()
             self.pool_bytes = _pool_bytes(self.pool)
-            step = StepGraph(graph, output, [a - b for a, b in zip(launch_counts(), warm)])
+            step = StepGraph(graph, output, [a - b for a, b in zip(launch_counts(), warm)],
+                             self.tracer, self.name)
         else:
-            step = StepGraph(_Rerun(body), None, [0] * len(COUNTED))
+            step = StepGraph(_Rerun(body), None, [0] * len(COUNTED), self.tracer, self.name)
         set_launch_counts(warm if warmup_is_step else before)
         if warmup_is_step:
             step.first = first

@@ -57,9 +57,12 @@ Observability: each run folds its records and the cohort engine's
 events as the ``jit.*`` metrics (``obs/profile.py::CompileWatcher``).
 ``tracer=`` (a ``repro_torch.obs.Tracer``) records the reference's
 ``select``, ``train``, ``aggregate``, ``checkpoint`` and ``round`` spans,
-the cohort engine's ``stage`` / ``prefetch_wait`` / ``pool_upload`` spans
-below them; ``profiler=`` (an ``obs.profile.RoundProfiler``) brackets each
-round.  Both are off by default, and off they add no device work.
+the port's ``generators`` span (the round's dropout generators, inside
+``train``), the cohort engine's ``stage`` / ``prefetch_wait`` /
+``pool_upload`` / ``readback`` / ``cohort_step`` spans below them, and on
+the card the cohort steps' replays on the device clock; ``profiler=`` (an
+``obs.profile.RoundProfiler``) brackets each round.  Both are off by
+default, and off they add no device work.
 """
 
 from __future__ import annotations
@@ -1068,9 +1071,10 @@ class Federation:
                         "of the federation"
                     )
                 with tracer.span("train", round=rnd, participants=len(participants)):
-                    generators = client_generators(
-                        generator_rng, len(participants), self.device
-                    )
+                    with tracer.span("generators"):
+                        generators = client_generators(
+                            generator_rng, len(participants), self.device
+                        )
                     # The per-client loss readbacks inside wait for the
                     # clients' steps.
                     params, losses, steps = self._train_round(

@@ -135,7 +135,7 @@ from repro_torch.data.pipeline import (
 from repro_torch.device import resolve_device
 from repro_torch.federated.staging import StagingPipeline
 from repro_torch.launch.mesh import all_reduce_sum_, block_of, resolve_mesh
-from repro_torch.obs.trace import resolve_tracer
+from repro_torch.obs.trace import Tracer, resolve_tracer
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.privacy.dp import DPConfig, dp_value_and_grad, resolve_dp
 from repro_torch.tree import PyTree, tree_leaves, tree_map
@@ -291,12 +291,14 @@ class _CohortStep:
         return tree_map(lambda q: q.detach().clone(), self.params)
 
 
-def _mean_last_losses(losses: list[torch.Tensor], valid: list[np.ndarray], c: int) -> np.ndarray:
+def _mean_last_losses(losses: list[torch.Tensor], valid: list[np.ndarray], c: int,
+                      tracer: Tracer) -> np.ndarray:
     """Each client's mean loss over its valid steps of the last epoch (NaN
-    without any), from one readback."""
+    without any), from one readback (a ``readback`` span of ``tracer``)."""
     per_client = np.full(c, np.nan)
     if losses:
-        stacked = torch.stack(losses).double().cpu().numpy()
+        with tracer.span("readback"):
+            stacked = torch.stack(losses).double().cpu().numpy()
         valid_last = np.stack(valid)
         per_client = np.where(valid_last, stacked, 0.0).sum(axis=0) / np.maximum(
             valid_last.sum(axis=0), 1
@@ -341,7 +343,10 @@ class CohortTrainer:
     dp: DPConfig | dict | None = None
     # Observability: a repro_torch.obs Tracer records per-chunk "stage" spans
     # (on the staging thread when prefetching), the pipeline's
-    # "prefetch_wait" stalls and the device cohort's "pool_upload" spans.
+    # "prefetch_wait" stalls, the device cohort's "pool_upload" spans, each
+    # chunk's "readback" of its losses and, on the captured path, a
+    # "cohort_step" span of each step's host work and, on the card, a
+    # "cohort_step" span of its replay on the device clock.
     # None resolves to the shared no-op tracer.
     tracer: Any = None
     # Where to train: None is the card; "cpu" runs the plain versions.
@@ -365,7 +370,7 @@ class CohortTrainer:
         self._plan_copied: list[Any] = [None, None]
         self._side_stream = None
         # The captured batched steps (on the card), one a key.
-        self.graphs = GraphCache(self.device)
+        self.graphs = GraphCache(self.device, self.tracer, "cohort_step")
 
     # ------------------------------------------------------------------
     # staging
@@ -621,18 +626,20 @@ class CohortTrainer:
             if not valid.any():
                 continue  # every client pads here: a no-op for all of them
             executed += 1
-            s.load(chunk, t)
-            # A client that pads here draws nothing: its slot goes back.
-            held = [(slot, position(slot)) for slot, v in zip(s.slots, valid) if not v]
-            loss = s.graph.replay()
-            for slot, pos in held:
-                set_position(slot, pos)
+            pads = [slot for slot, v in zip(s.slots, valid) if not v]
+            with self.tracer.span("cohort_step", t=t, held=len(pads)):
+                s.load(chunk, t)
+                # A client that pads here draws nothing: its slot goes back.
+                held = [(slot, position(slot)) for slot in pads]
+                loss = s.graph.replay(t=t)
+                for slot, pos in held:
+                    set_position(slot, pos)
             if t >= t_total - spe:
                 last_losses.append(loss)
                 last_valid.append(valid)
         for slot, g in zip(s.slots, generators):
             set_position(g, position(slot))
-        return s.result(), _mean_last_losses(last_losses, last_valid, c), executed
+        return s.result(), _mean_last_losses(last_losses, last_valid, c, self.tracer), executed
 
     def _train_chunk(
         self, params: PyTree, chunk: _Chunk, generators: Sequence[torch.Generator]
@@ -690,7 +697,8 @@ class CohortTrainer:
             if t >= t_total - spe:
                 last_losses.append(loss.detach())
                 last_valid.append(valid)
-        return tree_map(lambda q: q.detach(), p), _mean_last_losses(last_losses, last_valid, c), executed
+        losses = _mean_last_losses(last_losses, last_valid, c, self.tracer)
+        return tree_map(lambda q: q.detach(), p), losses, executed
 
     # ------------------------------------------------------------------
     # the round

@@ -30,6 +30,7 @@ import torch
 from repro_torch.capture import GraphCache, capture_enabled
 from repro_torch.models.attention import check_latent_position
 from repro_torch.models.zoo import Model, _latent_slots
+from repro_torch.obs.trace import Tracer, resolve_tracer
 from repro_torch.optim.adamw import AdamW, AdamWState, apply_updates
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
@@ -45,17 +46,20 @@ def _pointers(tree: PyTree) -> tuple[int, ...]:
 
 class _Graphs:
     """One :class:`GraphCache` a device, made at its first use; ``cuda``
-    without an index is the current card."""
+    without an index is the current card.  ``tracer`` and ``name`` are the
+    caches' (their replays' device spans)."""
 
-    def __init__(self):
+    def __init__(self, tracer: Tracer | None = None, name: str = "replay"):
         self.by_device: dict[torch.device, GraphCache] = {}
+        self.tracer = tracer
+        self.name = name
 
     def __call__(self, device: torch.device | str) -> GraphCache:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device not in self.by_device:
-            self.by_device[device] = GraphCache(device)
+            self.by_device[device] = GraphCache(device, self.tracer, self.name)
         return self.by_device[device]
 
 
@@ -232,7 +236,7 @@ def make_prefill_step(model: Model) -> Callable:
     return prefill_step
 
 
-def make_serve_step(model: Model) -> Callable:
+def make_serve_step(model: Model, tracer: Tracer | None = None) -> Callable:
     """``serve_step(params, tokens, cache, pos) -> (logits, cache)``: one
     decode step, a new token for every sequence against the cache, with
     the cache donated (``Model.decode_step(..., donate=True)``): it is
@@ -249,22 +253,29 @@ def make_serve_step(model: Model) -> Callable:
     latent cache on the host first (``IndexError``), as ``decode_step``
     does.  New ``cross_k``/``cross_v`` from ``encode_for_decode`` are new
     tensors, so a new key: copy them into the served cache's to keep its
-    graph."""
+    graph.
+
+    ``tracer`` (a ``repro_torch.obs.Tracer``; None is the null tracer)
+    records a ``serve_step`` span of each call's host work (the key, the
+    lookup, the fills, the replay and the output's clone) and, on the card,
+    a ``serve_step`` span of each replay on its device clock."""
     cfg = model.cfg
-    graphs = _Graphs()
+    tracer = resolve_tracer(tracer)
+    graphs = _Graphs(tracer, "serve_step")
 
     @torch.inference_mode()
     def serve_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos):
-        device = tokens.device
-        if not capture_enabled(device):
-            return model.decode_step(params, tokens, cache, pos, donate=True)
-        if cfg.mla is not None and not isinstance(pos, torch.Tensor):
-            check_latent_position(pos, _latent_slots(cache))
-        key = (_spec(params), _pointers(params), tuple(tokens.shape), tokens.dtype,
-               _spec(cache), _pointers(cache))
-        step = graphs(device).lookup(key, lambda: _ServeGraph(
-            graphs(device), model, params, tokens, cache, pos))
-        return step(tokens, pos), cache
+        with tracer.span("serve_step"):
+            device = tokens.device
+            if not capture_enabled(device):
+                return model.decode_step(params, tokens, cache, pos, donate=True)
+            if cfg.mla is not None and not isinstance(pos, torch.Tensor):
+                check_latent_position(pos, _latent_slots(cache))
+            key = (_spec(params), _pointers(params), tuple(tokens.shape), tokens.dtype,
+                   _spec(cache), _pointers(cache))
+            step = graphs(device).lookup(key, lambda: _ServeGraph(
+                graphs(device), model, params, tokens, cache, pos))
+            return step(tokens, pos), cache
 
     serve_step.graphs = graphs
     return serve_step

@@ -8,11 +8,20 @@ virtual-clock task spans.  A copy of the JAX package's ``obs/report.py``:
 either package's report renders either package's run directory.  Robust
 to partial runs: each table is skipped with a note when its source file is
 absent.
+
+The port's report adds one table where the run traced device spans (its
+``trace.json`` carries ``baseTimeNanoseconds``) and ``RoundProfiler`` wrote
+``torch_profile/rounds_*.pt.trace.json``: the device's idle gaps in the
+profiled rounds, each put down to the innermost host span open at the
+gap's start on the clock both documents share, summed by span name.
+Without those files it prints what the reference prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
+import glob
 import json
 import os
 import sys
@@ -21,6 +30,10 @@ from typing import Any, Iterable, TextIO
 TRACE_FILE = "trace.json"
 METRICS_FILE = "metrics.jsonl"
 RECORDS_FILE = "records.jsonl"
+PROFILE_GLOB = os.path.join("torch_profile", "rounds_*.pt.trace.json")
+# The profiler's event categories of work on the device.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+NO_SPAN = "(no span)"
 
 
 def _fmt_table(rows: list[list[str]], header: list[str], out: TextIO) -> None:
@@ -34,9 +47,7 @@ def _fmt_table(rows: list[list[str]], header: list[str], out: TextIO) -> None:
         out.write("  ".join(cell.ljust(w) for cell, w in zip(row, widths)).rstrip() + "\n")
 
 
-def _load_trace_events(path: str) -> list[dict[str, Any]]:
-    with open(path) as fh:
-        doc = json.load(fh)
+def _trace_events(doc: Any) -> list[dict[str, Any]]:
     events = doc.get("traceEvents", []) if isinstance(doc, dict) else doc
     return [ev for ev in events if isinstance(ev, dict)]
 
@@ -69,6 +80,69 @@ def slowest_tracks(events: Iterable[dict[str, Any]], top_k: int) -> list[tuple[s
     return [(names.get(key, str(key)), total, count) for key, (total, count) in ranked]
 
 
+def idle_by_span(trace_doc: dict[str, Any], profile_doc: dict[str, Any]
+                 ) -> dict[str, dict[str, float]] | None:
+    """The device's idle gaps in ``profile_doc`` (a ``torch.profiler``
+    Chrome export), each put down to the innermost host span of
+    ``trace_doc`` (the tracer's export) open at the gap's start, summed by
+    span name: ``{name: {"gaps", "idle_s"}}``, :data:`NO_SPAN` where none is
+    open.  Both documents' ``ts`` are put on ``trace_doc``'s through their
+    ``baseTimeNanoseconds``; None when either lacks it."""
+    base, other = trace_doc.get("baseTimeNanoseconds"), profile_doc.get("baseTimeNanoseconds")
+    if base is None or other is None:
+        return None
+    shift = (int(other) - int(base)) / 1e3   # microseconds, taken exactly
+    ops = sorted((e["ts"] + shift, e["ts"] + shift + e.get("dur", 0.0))
+                 for e in profile_doc.get("traceEvents", [])
+                 if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    gaps, end = [], None
+    for start, stop in ops:
+        if end is not None and start > end:
+            gaps.append((end, start))
+        end = stop if end is None else max(end, stop)
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0.0), e["name"])
+             for e in trace_doc.get("traceEvents", [])
+             if e.get("ph") == "X" and e.get("cat") == "host"]
+    # The innermost span over each piece between two span boundaries: the
+    # spans painted longest first, so a shorter one inside overwrites.
+    bounds = sorted({t for start, stop, _ in spans for t in (start, stop)})
+    owner: list[str] = [NO_SPAN] * len(bounds)
+    for start, stop, name in sorted(spans, key=lambda s: s[0] - s[1]):
+        for k in range(bisect.bisect_left(bounds, start), bisect.bisect_left(bounds, stop)):
+            owner[k] = name
+    out: dict[str, dict[str, float]] = {}
+    for start, stop in gaps:
+        k = bisect.bisect_right(bounds, start) - 1
+        row = out.setdefault(owner[k] if k >= 0 else NO_SPAN, {"gaps": 0, "idle_s": 0.0})
+        row["gaps"] += 1
+        row["idle_s"] += (stop - start) / 1e6
+    return out
+
+
+def _idle_table(run_dir: str, events: list[dict[str, Any]], base: Any, out: TextIO) -> None:
+    """The idle-by-span table over the run's profiled rounds, if any."""
+    paths = sorted(glob.glob(os.path.join(run_dir, PROFILE_GLOB)))
+    if base is None or not paths:
+        return
+    totals: dict[str, dict[str, float]] = {}
+    for path in paths:
+        with open(path) as fh:
+            rows = idle_by_span({"traceEvents": events, "baseTimeNanoseconds": base},
+                                json.load(fh)) or {}
+        for name, row in rows.items():
+            total = totals.setdefault(name, {"gaps": 0, "idle_s": 0.0})
+            total["gaps"] += row["gaps"]
+            total["idle_s"] += row["idle_s"]
+    grand = sum(row["idle_s"] for row in totals.values())
+    if not grand:
+        return
+    out.write(f"\n## device idle by host span ({len(paths)} profiled segment(s))\n")
+    rows = [[name, f"{int(row['gaps'])}", f"{row['idle_s']:.4f}",
+             f"{100.0 * row['idle_s'] / grand:.1f}%"]
+            for name, row in sorted(totals.items(), key=lambda kv: -kv[1]["idle_s"])]
+    _fmt_table(rows, ["span", "gaps", "idle_s", "share"], out)
+
+
 def _read_jsonl(path: str) -> list[dict[str, Any]]:
     rows = []
     with open(path) as fh:
@@ -96,9 +170,11 @@ def render_report(run_dir: str, top_k: int = 5, out: TextIO | None = None) -> in
 
     trace_path = os.path.join(run_dir, TRACE_FILE)
     if os.path.exists(trace_path):
-        events = _load_trace_events(trace_path)
+        with open(trace_path) as fh:
+            doc = json.load(fh)
+        events = _trace_events(doc)
         breakdown = phase_breakdown(events)
-        for clock in ("host", "virtual"):
+        for clock in ("host", "virtual", "device"):
             phases = breakdown.get(clock)
             if not phases:
                 continue
@@ -122,6 +198,8 @@ def render_report(run_dir: str, top_k: int = 5, out: TextIO | None = None) -> in
                 ["client", "task_s", "tasks"],
                 out,
             )
+        base = doc.get("baseTimeNanoseconds") if isinstance(doc, dict) else None
+        _idle_table(run_dir, events, base, out)
     else:
         out.write(f"\n(no {TRACE_FILE}: submit with an 'observability' section to record spans)\n")
 

@@ -63,11 +63,13 @@ from repro_torch.federated.client import (  # noqa: E402
 from repro_torch.federated.cohort import CohortTrainer, client_generators  # noqa: E402
 from repro_torch.kernels.gru_scan import kernel as gru_kernel  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
-from repro_torch.obs import MetricsRegistry  # noqa: E402
+from repro_torch.obs import MetricsRegistry, trace  # noqa: E402
+from repro_torch.obs.trace import NULL_TRACER, Tracer  # noqa: E402
 from repro_torch.obs.profile import CompileWatcher  # noqa: E402
 from repro_torch.optim.adamw import AdamW, apply_updates, cosine_schedule  # noqa: E402
 from repro_torch.privacy.dp import DPConfig  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from _fake_events import FakeDevice  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -303,6 +305,49 @@ def test_a_replay_adds_the_captures_launch_deltas():
         assert torch.equal(loss, output) and loss.data_ptr() != output.data_ptr()
     finally:
         capture.set_launch_counts(before)
+
+
+class TimedStandIn:
+    """A graph whose replay takes ``seconds`` of a fake device's clock."""
+
+    def __init__(self, device, seconds):
+        self.device, self.seconds = device, seconds
+
+    def replay(self):
+        self.device.now += self.seconds
+
+
+def test_a_replay_under_the_null_tracer_records_nothing(monkeypatch):
+    device = FakeDevice().install(monkeypatch, trace)
+    before = capture.launch_counts()
+    step = capture.StepGraph(TimedStandIn(device, 1.0), torch.zeros(2), (0, 0, 0, 0))
+    assert step.tracer is NULL_TRACER
+    step.replay(t=0)
+    assert (device.created, device.synchronizes, NULL_TRACER.events()) == (0, 0, [])
+    # a cache on the CPU times nothing, whatever its owner's tracer
+    cache = capture.GraphCache(torch.device("cpu"), Tracer(), "cohort_step")
+    assert cache.tracer is NULL_TRACER
+    cache.capture(lambda: torch.zeros(1)).replay()
+    assert device.created == 0 and capture.launch_counts() == before
+
+
+def test_a_timed_replay_is_a_device_span_around_the_graph(monkeypatch):
+    device = FakeDevice(now=7.0).install(monkeypatch, trace)
+    tracer = Tracer()
+    step = capture.StepGraph(TimedStandIn(device, 0.003), torch.arange(2.0), (0, 0, 0, 0),
+                             tracer, "cohort_step")
+    for t in range(3):
+        out = step.replay(t=t, held=1)
+        device.done = device.now   # the replay finishes during
+        device.now += 0.001        # the host's work before the next one
+    assert torch.equal(out, torch.arange(2.0)) and step.replays == 3
+    spans = tracer.spans("cohort_step", clock="device")
+    assert [s.args for s in spans] == [{"t": t, "held": 1} for t in range(3)]
+    assert [s.dur for s in spans] == pytest.approx([0.003] * 3)
+    anchor = tracer._device.anchor_ts
+    assert [s.ts - anchor for s in spans] == pytest.approx([0.0, 0.004, 0.008])
+    # the anchor and two pairs: each pair is resolved at the next end, the third reuses the first's
+    assert device.created == 5
 
 
 def test_a_capture_puts_the_counters_back_after_its_warm_up():

@@ -40,6 +40,7 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.data.pipeline import ArrayDataset, ClientDataset, build_client_datasets  # noqa: E402
 from repro_torch.data.synth_eicu import CohortConfig, generate_cohort  # noqa: E402
 from repro_torch.experiments import paper  # noqa: E402
+from repro_torch.federated import cohort as cohort_module  # noqa: E402
 from repro_torch.federated.api import Federation, FederationConfig  # noqa: E402
 from repro_torch.federated.cohort import CohortTrainer, client_generators  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
@@ -371,6 +372,41 @@ def test_run_setting_reports_the_cohort_steps():
     assert seq["engine"] == "sequential" and seq["cohort_steps"] is None
 
 
+@pytest.mark.parametrize("chunk", [None, 3])
+def test_a_traced_round_has_a_cohort_step_span_a_step(model, monkeypatch, chunk):
+    """The captured path (forced on the CPU, where the stand-in graph reruns
+    the body): one ``cohort_step`` span per executed batched step, its
+    ``held`` the clients padding there; a ``readback`` a chunk and one
+    ``generators`` span a round, inside its ``train`` span."""
+    monkeypatch.setattr(cohort_module, "capture_enabled", lambda device: True)
+    cfg, params0 = model
+    rng = np.random.default_rng(4)
+    sizes = (3, 17, 40, 9, 25, 1)
+    clients = [make_client(i, n, rng) for i, n in enumerate(sizes)]
+    tracer = Tracer()
+    fed = Federation(FederationConfig(rounds=2, local_epochs=2, batch_size=8, seed=3,
+                                      recruitment="all", cohort_chunk=chunk),
+                     clients, gru.make_loss_fn(cfg), AdamW(), device="cpu", tracer=tracer)
+    stats = []
+    fed.run(params0, progress=lambda r: stats.append(dict(fed.cohort_trainer.last_round_stats)))
+    steps = tracer.spans("cohort_step")
+    assert len(steps) == sum(s["cohort_steps"] for s in stats) > 0
+    assert all(s["replays"] == s["cohort_steps"] for s in stats[1:])
+    assert {s.clock for s in steps} == {"host"}
+    # Each client's batches lead its epoch of 5 steps (the largest client's):
+    # step k of an epoch runs where some client of the chunk has a k-th batch.
+    width = chunk or len(sizes)
+    chunks = [[-(-n // 8) for n in sizes[i:i + width]] for i in range(0, len(sizes), width)]
+    want = [(e * 5 + k, sum(k >= m for m in per))
+            for _ in range(2) for per in chunks for e in range(2) for k in range(max(per))]
+    assert [(s.args["t"], s.args["held"]) for s in steps] == want
+    assert len(tracer.spans("readback")) == 2 * len(chunks)
+    generators, trains = tracer.spans("generators"), tracer.spans("train")
+    assert len(generators) == len(trains) == 2
+    for g, t in zip(generators, trains):
+        assert t.ts <= g.ts and g.ts + g.dur <= t.ts + t.dur
+
+
 # --------------------------------------------------------------------------
 # errors and defaults
 # --------------------------------------------------------------------------
@@ -402,13 +438,14 @@ def test_errors(model):
                 for t in (auto, plain))
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got[0]), tree_leaves(ref[0])))
     assert got[1].tobytes() == ref[1].tobytes() and auto.last_round_stats["shards"] == 1
-    # the tracer is ported: a traced trainer stages under a "stage" span
+    # the tracer is ported: a traced trainer stages under a "stage" span, and
+    # reads the chunk's losses back under the port's "readback" span
     tracer = Tracer()
     traced = trainer(tracer=tracer)
     assert traced.tracer is tracer
     traced.train_cohort(params0, clients, np.random.default_rng(6), gens)
     assert [(s.name, s.track, s.args) for s in tracer.spans()] == [
-        ("stage", "staging", {"chunk": 0})]
+        ("stage", "staging", {"chunk": 0}), ("readback", "server", None)]
     # DP-SGD is ported: the trainer takes a job-spec dict
     assert trainer(dp={"clip_norm": 1.0}).dp.clip_norm == 1.0
 

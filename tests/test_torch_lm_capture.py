@@ -55,6 +55,7 @@ from repro_torch.kernels.gru_scan import kernel as gru_kernel  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import gru  # noqa: E402
 from repro_torch.models.zoo import Model, params_from_jax  # noqa: E402
+from repro_torch.obs.trace import NULL_TRACER, Tracer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.adamw import AdamW, AdamWState, apply_updates, cosine_schedule  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -255,6 +256,36 @@ def test_serve_step_keys_and_cross_kv(forced):
     assert (graphs.captures, graphs.replays) == (1, 1)
     serve(params, toks[:, :1], other, 0)
     assert (graphs.captures, len(graphs.entries)) == (2, 2)
+
+
+@pytest.mark.parametrize("captured", [False, True], ids=["eager", "forced"])
+def test_a_traced_serve_loop_has_a_serve_step_span_a_call(captured, monkeypatch):
+    """One ``serve_step`` host span a call, the capture's first call and the
+    eager path included, each around the step's whole host work; the
+    traced loop serves the untraced loop's logits bit for bit."""
+    if captured:
+        monkeypatch.setattr(steps, "capture_enabled", lambda device: True)
+    cfg = config("mamba2-130m")
+    model = Model(cfg, remat=False)
+    params = init(cfg)
+    toks = tokens(cfg, STEPS, seed=4)
+    _, want = serve_run(model, params, toks, model.init_cache(B, STEPS, "cpu"), 0)
+    tracer = Tracer()
+    serve = steps.make_serve_step(model, tracer=tracer)
+    cache = model.init_cache(B, STEPS, "cpu")
+    got = []
+    for t in range(STEPS):
+        with tracer.span("loop"):
+            got.append(serve(params, toks[:, t:t + 1], cache, t)[0])
+    assert torch.equal(torch.stack(got, dim=1), want)
+    spans, loops = tracer.spans("serve_step"), tracer.spans("loop")
+    assert len(spans) == len(loops) == STEPS
+    assert {(s.clock, s.track, s.args) for s in spans} == {("host", "server", None)}
+    for span, loop in zip(spans, loops):
+        assert loop.ts <= span.ts and span.ts + span.dur <= loop.ts + loop.dur
+    graphs = serve.graphs(torch.device("cpu"))
+    assert graphs.tracer is NULL_TRACER   # the CPU times no replay
+    assert (graphs.captures, graphs.replays) == ((1, STEPS - 1) if captured else (0, 0))
 
 
 # ---------------------------------------------------------------------------

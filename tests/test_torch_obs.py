@@ -71,6 +71,7 @@ from repro_torch.obs.profile import CompileWatcher, RoundProfiler  # noqa: E402
 from repro_torch.obs.trace import NULL_TRACER, NullTracer, Tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from _fake_events import FakeDevice  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -872,6 +873,10 @@ def test_async_virtual_timeline_equals_the_references(pair, config):
     assert virtual_doc(ours_doc) == virtual_doc(ref_doc)
 
 
+# The port's host spans that the reference does not record.
+PORT_ONLY = ("generators", "readback", "cohort_step", "serve_step")
+
+
 def test_each_packages_report_renders_the_others_run_dir(tmp_path):
     ours_dir, ref_dir = str(tmp_path / "ours"), str(tmp_path / "ref")
     S.submit_job(copy.deepcopy(OBS_SPEC), ours_dir, device="cpu")
@@ -887,10 +892,157 @@ def test_each_packages_report_renders_the_others_run_dir(tmp_path):
         assert "final metrics snapshot (4 rounds streamed)" in outputs[name]
     assert outputs["ref_on_ours"] == outputs["ours_on_ours"]
 
-    def phase_counts(run_dir):
+    def phase_counts(run_dir, names=None):
         with open(os.path.join(run_dir, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
-        return {clock: {name: row["count"] for name, row in phases.items()}
+        return {clock: {name: row["count"] for name, row in phases.items()
+                        if (name in PORT_ONLY) == (names is PORT_ONLY)}
                 for clock, phases in report.phase_breakdown(events).items()}
 
+    # Every phase of the reference, counted alike; beside them the port's
+    # own: a round's generators and a chunk's loss readback (one chunk a
+    # round here; the CPU runs the step eagerly, so no cohort_step).
     assert phase_counts(ours_dir) == phase_counts(ref_dir)
+    assert phase_counts(ours_dir, PORT_ONLY) == {"host": {"generators": 4, "readback": 4}}
+    assert phase_counts(ref_dir, PORT_ONLY) == {"host": {}}
+
+
+# --------------------------------------------------------------------------
+# the port's device clock and the clock it shares with torch.profiler
+# --------------------------------------------------------------------------
+
+
+def test_device_spans_from_event_pairs_on_the_anchored_clock(monkeypatch):
+    """Fake event pairs: a span starts at the anchor's host time plus the
+    device time from the anchor, lasts the device time between its events,
+    and is recorded once its end event has completed (or the ring is read)."""
+    device = FakeDevice(now=50.0).install(monkeypatch, trace)
+    tracer = Tracer()
+    device.now = 51.0                       # the device runs ahead of the anchor below
+    first = tracer.device_start()           # anchors: a synchronize, an event at 51.0
+    anchor_ts = tracer._device.anchor_ts
+    assert device.synchronizes == 1 and tracer._device.anchor.t == 51.0
+    device.now = 51.25
+    tracer.device_end(first, "cohort_step", t=3)
+    assert tracer._device.pending and device.done == 51.0   # not finished: nothing waits
+    second = tracer.device_start()
+    device.now = 51.75
+    device.done = 51.25                     # the first pair's work has finished
+    tracer.device_end(second, "cohort_step", track="stream", t=4)
+    resolved = [e for e in tracer._events if e.clock == trace.DEVICE_CLOCK]
+    assert [e.args for e in resolved] == [{"t": 3}]   # by query: the second still runs
+    spans = tracer.spans("cohort_step", clock="device")   # reading waits for the rest
+    assert [(s.track, s.args) for s in spans] == [("device", {"t": 3}), ("stream", {"t": 4})]
+    assert spans[0].ts == pytest.approx(anchor_ts, abs=1e-12)
+    assert spans[0].dur == pytest.approx(0.25)
+    assert spans[1].ts == pytest.approx(anchor_ts + 0.25)
+    assert spans[1].dur == pytest.approx(0.5)
+    assert all(s.phase == "X" and s.clock == "device" for s in spans)
+    # resolved events are reused: a steady loop creates no event
+    created = device.created
+    for _ in range(5):
+        tracer.device_end(tracer.device_start(), "serve_step")
+    assert device.created == created and device.synchronizes == 1
+    assert list(tracer._device.streams) == [(0, 0)]   # one stream object, kept by handle
+    assert tracer.summary()["device"] == {
+        "cohort_step": {"count": 2, "total_s": pytest.approx(0.75)},
+        "serve_step": {"count": 5, "total_s": 0.0}}
+
+
+def test_the_null_tracer_times_nothing(monkeypatch):
+    device = FakeDevice().install(monkeypatch, trace)
+    assert NULL_TRACER.device_start() is None
+    NULL_TRACER.device_end(None, "x", t=1)
+    assert NULL_TRACER.events() == [] and device.created == device.synchronizes == 0
+
+
+def test_chrome_export_with_device_spans(monkeypatch, tmp_path):
+    """With device spans: the third process and ``baseTimeNanoseconds``, the
+    tracer's birth on the wall clock (``test_chrome_export`` holds the
+    document without them to the reference's)."""
+    FakeDevice().install(monkeypatch, trace)
+    before = time.time_ns()
+    tracer = record_sample(trace)
+    after = time.time_ns()
+    tracer.device_end(tracer.device_start(), "serve_step", pos=7)
+    doc = json.loads(open(tracer.export_chrome(str(tmp_path / "trace.json"))).read())
+    assert before <= doc["baseTimeNanoseconds"] <= after
+    procs = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"] if e["name"] == "process_name"}
+    assert procs == {1: "host clock", 2: "virtual clock", 3: "device (CUDA events)"}
+    step = next(e for e in doc["traceEvents"] if e["name"] == "serve_step")
+    assert (step["pid"], step["cat"], step["ph"], step["args"]) == (3, "device", "X", {"pos": 7})
+    threads = {(e["pid"], e["args"]["name"]) for e in doc["traceEvents"]
+               if e["name"] == "thread_name"}
+    assert (3, "device") in threads
+    # the rest of the document is the reference's
+    ref = record_sample(jax_trace).to_chrome()
+    ours = [e for e in doc["traceEvents"] if e.get("pid") != 3]
+    assert ours == json.loads(json.dumps(ref["traceEvents"]))
+
+
+def _profile_doc(base_ns, ops):
+    """A ``torch.profiler`` export: kernels ``(start_us, dur_us)`` on its own
+    clock, with a host runtime call the gaps must not be put down to."""
+    events = [{"ph": "X", "cat": "kernel", "name": f"k{i}", "ts": ts, "dur": dur}
+              for i, (ts, dur) in enumerate(ops)]
+    events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch",
+                   "ts": ops[0][0], "dur": 1e6})
+    return {"baseTimeNanoseconds": base_ns, "traceEvents": events}
+
+
+def test_idle_gaps_are_put_down_to_the_innermost_open_span():
+    """A hand-built pair: the profiler's clock starts 2.5 s after the
+    tracer's; each gap goes to the innermost host span open at its start."""
+    base = 1_700_000_000_000_000_000
+    host = [
+        {"ph": "X", "cat": "host", "name": "round", "ts": 0.0, "dur": 1_000_000.0},
+        {"ph": "X", "cat": "host", "name": "train", "ts": 10.0, "dur": 900_000.0},
+        {"ph": "X", "cat": "host", "name": "cohort_step", "ts": 100.0, "dur": 50.0},
+        {"ph": "X", "cat": "host", "name": "readback", "ts": 500.0, "dur": 300.0},
+        {"ph": "X", "cat": "virtual", "name": "task", "ts": 0.0, "dur": 5e9},
+        {"ph": "X", "cat": "host", "name": "stage", "ts": 0.0, "dur": 5e6, "tid": 2},
+    ]
+    shift = 2_500_000  # µs: the profiler's ts 0 is the tracer's 2.5 s
+    ops = [(120.0 - shift, 10.0),      # gap 130..140 opens inside cohort_step (100..150)
+           (140.0 - shift, 20.0),
+           (150.0 - shift, 10.0),      # overlaps: no gap at 160
+           (200.0 - shift, 300.0),     # gap 160..200 opens inside train, after cohort_step
+           (600.0 - shift, 10.0),      # gap 500..600 opens at readback's start
+           (1_000_005.0 - shift, 1.0)]  # gap 610..1,000,005 opens inside readback
+    rows = report.idle_by_span({"baseTimeNanoseconds": base, "traceEvents": host},
+                               _profile_doc(base + shift * 1000, ops))
+    assert {k: v["gaps"] for k, v in rows.items()} == {"cohort_step": 1, "train": 1, "readback": 2}
+    assert rows["cohort_step"]["idle_s"] == pytest.approx(10e-6)
+    assert rows["train"]["idle_s"] == pytest.approx(40e-6)
+    assert rows["readback"]["idle_s"] == pytest.approx(100e-6 + (1_000_005 - 610) * 1e-6)
+    # outside every host span, and a document without the shared clock
+    late = report.idle_by_span({"baseTimeNanoseconds": base, "traceEvents": host[:1]},
+                               _profile_doc(base, [(2e6, 1.0), (3e6, 1.0)]))
+    assert late == {report.NO_SPAN: {"gaps": 1, "idle_s": pytest.approx(1.0 - 1e-6)}}
+    assert report.idle_by_span({"traceEvents": host}, _profile_doc(base, ops)) is None
+
+
+def test_report_adds_the_idle_table_only_with_device_spans_and_a_profile(
+        monkeypatch, tmp_path, capsys):
+    FakeDevice().install(monkeypatch, trace)
+    run_dir = tmp_path / "run"
+    (run_dir / "torch_profile").mkdir(parents=True)
+    tracer = Tracer()
+    with tracer.span("cohort_step", t=0):
+        time.sleep(0.002)
+    base = tracer._birth_ns
+    start = tracer.spans("cohort_step")[0].ts * 1e6
+    profile_doc = _profile_doc(base, [(start + 100.0, 10.0), (start + 1500.0, 10.0)])
+    (run_dir / "torch_profile" / "rounds_0.pt.trace.json").write_text(json.dumps(profile_doc))
+    tracer.export_chrome(str(run_dir / "trace.json"))   # no device span: no shared clock
+    assert report.render_report(str(run_dir)) == 0
+    assert "device idle" not in capsys.readouterr().out
+    tracer.device_end(tracer.device_start(), "cohort_step", t=0)
+    tracer.export_chrome(str(run_dir / "trace.json"))
+    assert report.render_report(str(run_dir)) == 0
+    out = capsys.readouterr().out
+    assert "device idle by host span (1 profiled segment(s))" in out
+    assert "per-phase time breakdown (device clock)" in out
+    table = out.split("device idle by host span")[1].splitlines()
+    assert table[1].split() == ["span", "gaps", "idle_s", "share"]
+    assert table[3].split() == ["cohort_step", "1", "0.0014", "100.0%"]
