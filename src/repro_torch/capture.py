@@ -28,11 +28,13 @@ graph owns slot generators (one a client), registered with it through
 ``CUDAGraph.register_generator_state``.  Before a client's first step the
 host moves its slot to the client generator's position (seed and Philox
 offset; :func:`position`, :func:`set_position`); a replay then draws what the
-eager step draws and advances the slot by the step's whole increment.  In
-the cohort step every client draws on every step; a client whose step is
-not valid has its slot moved back after the replay, so it draws nothing, as
-in the eager step.  At the end of a chunk each client generator takes its
-slot's position.
+eager step draws and advances the slot by the step's whole increment.  The
+cohort step has one graph a width over the same slots, and a graph of
+width w registers only slots ``[0, w)``: every client inside the width
+draws on every replay, the slots past it are not touched.  A client inside
+the width whose step is not valid has its slot moved back after the
+replay, so it draws nothing, as in the eager step.  At the end of a chunk
+each client generator takes its slot's position.
 
 Warm-up.  Capture needs the body run once eagerly first.  The trainers of
 the federated path and the predict function run it on their freshly
@@ -201,6 +203,9 @@ class GraphCache:
         self.capture_seconds = 0.0
         self.pool_bytes = 0
         self._graphs: list[StepGraph] = []
+        # The warm-ups' stream, one a cache: the library's products keep a
+        # workspace a stream for the process's life (64 MiB on an H100).
+        self._side = None
 
     @property
     def replays(self) -> int:
@@ -237,7 +242,8 @@ class GraphCache:
         ``body`` runs once eagerly first, as capture needs (library loads,
         cuBLAS handles, autograd's state).  By default it must run on
         scratch buffers, as a trainer's freshly allocated static buffers
-        are: it runs on a side stream on the card, and the slots' positions
+        are: it runs on the cache's side stream on the card (one for all
+        its warm-ups, so they share one workspace), and the slots' positions
         and the launch counters are put back after it, so the warm-up
         consumes nothing.  With ``warmup_is_step`` the warm-up is the
         caller's first step on its real buffers, run on the caller's
@@ -248,7 +254,9 @@ class GraphCache:
         saved = [position(g) for g in slots]
         if self.device.type == "cuda" and not warmup_is_step:
             current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
+            if self._side is None:
+                self._side = torch.cuda.Stream(self.device)
+            side = self._side
             side.wait_stream(current)
             with torch.cuda.stream(side):
                 first = body()

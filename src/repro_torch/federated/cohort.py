@@ -23,13 +23,20 @@ Parity with the sequential engine holds by construction:
   own step count (``AdamW.cohort_coefficients``, computed on the host);
 * FedAvg: each client's weighted params go into one float32 accumulator,
   in client order, divided once by the total weight at the end of the
-  round.  The order is the clients', not the chunk's: a chunk's
-  ``weighted_sum_stacked`` sums its clients in an order that on the card
-  depends on the chunk's size, and local training amplifies that last-bit
-  difference (3.3e-6 in params after two rounds of a 4-client federation
-  on an H100).  A client's own training gives the same bits in any chunk
-  of two or more clients (``tests/test_torch_cuda_kernels.py``), so a
-  chunked round gives the unchunked round's params.
+  round.  The order is the clients', not the chunk's (nor its slots'): a
+  chunk's ``weighted_sum_stacked`` sums its clients in an order that on the
+  card depends on the chunk's size, and local training amplifies that
+  last-bit difference (3.3e-6 in params after two rounds of a 4-client
+  federation on an H100).
+
+A client's own training does not always keep its bits across step widths:
+a batched step's products and reductions may sum in another order at
+another batch count.  On an H100 a client's loss and gradients keep their
+bits in a step of 2 to 16 clients, but in a step of 8 to 128 of the 189
+hospitals they lie up to a few units in the last place from the 189-wide
+step's (``tests/test_torch_cuda_kernels.py``); on the CPU some small shapes
+differ too.  The eager and the captured step therefore run each step at the
+same width, and a round's bits are those of its widths.
 
 With ``dp`` (DP-SGD, ``privacy/dp.py``) a step's gradients come from
 ``dp_value_and_grad``: each client's batch of B becomes B per-example
@@ -43,21 +50,35 @@ A step on which no client of the chunk is valid is skipped on the host (the
 reference computes it inside its scan, as a no-op): the results are the
 same bits, and a chunk costs ``local_epochs × max_c ceil(n_c / B)`` steps.
 
-On the card the batched step is captured as a CUDA graph and replayed
-(``capture.py``, the port of the reference's jitted round): one graph a key
-(the chunk's client count, the batch's shapes and dtypes, DP, the staging
-kind and the resident cohort's data pointers), all captured at the start of
-the round that first needs them, before any plan is staged, so no staging
-thread runs during a capture.  The graph's step (``_static_step``) reads
-static buffers (``_CohortStep``): a rebuilt chunk's ``(x, y, mask)`` at step
-t, or a plan's ``idx[t]`` with the chunk's ``limit`` and its offset into the
-resident cohort (a sliced chunk's start, so one graph serves every slice);
-the coefficients and the validity of step t.  It always takes the
-``torch.where`` path, which for a valid client is the in-place add bit for
-bit, and every client draws from its slot generator; an invalid client's
-slot is moved back after the replay, so the participant generators end
-where the eager step leaves them.  ``capture.disable_capture()`` runs the
-eager step on the card.
+A step runs only as wide as the clients still training.  A client's valid
+steps are the first ``ceil(n_c / B)`` of each epoch, so staging puts a
+chunk's clients in slots by that count, longest first (stable): the
+clients with a batch at step t are then slots ``[0, a_t)``.  The step runs
+at the smallest width of the chunk's ladder, the powers of two from 2 up to
+C and C itself, at or above its last valid slot (``step_width``; a chunk of
+one client runs at 1); slots past the width are not touched.  The staged
+tensors, the stacked params and the losses are in slot order; the
+accumulator takes the clients in client order.
+
+On the card the batched step is captured as CUDA graphs and replayed
+(``capture.py``, the port of the reference's jitted round): one set of
+static buffers a key (the chunk's client count, the batch's shapes and
+dtypes, DP, the staging kind and the resident cohort's data pointers), and
+over them one graph a width the chunk's steps use (``step_widths``), each
+captured over views ``[:w]`` of the same buffers with slot generators
+``[:w]`` registered.  Every graph a round needs is captured at its start,
+widest first (the narrower reuse its blocks of the pool), before any plan
+is staged, so no staging thread runs during a capture.  A
+graph's step (``_static_step``) reads the static buffers (``_CohortStep``):
+a rebuilt chunk's ``(x, y, mask)`` at step t, or a plan's ``idx[t]`` with
+the chunk's ``limit`` and its offset into the resident cohort (a sliced
+chunk's start, so one graph serves every slice); the coefficients and the
+validity of step t.  It always takes the ``torch.where`` path, which for a
+valid client is the in-place add bit for bit, and every client inside the
+width draws from its slot generator; an invalid client's slot is moved back
+after the replay, so the participant generators end where the eager step
+leaves them.  ``capture.disable_capture()`` runs the eager step on the
+card, at the same widths.
 
 Staging (``staging=``) controls how a round's batches reach the device:
 
@@ -116,7 +137,13 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.capture import GraphCache, capture_enabled, position, set_position
+from repro_torch.capture import (
+    GraphCache,
+    StepGraph,
+    capture_enabled,
+    position,
+    set_position,
+)
 from repro_torch.data.device_cohort import (
     DeviceCohort,
     Layout,
@@ -158,16 +185,48 @@ def client_generators(
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
-def _runs(mine: np.ndarray):
-    """The chunk's runs of clients that are, or are not, this rank's, in
-    order: ``(lo, hi, first)``, ``first`` the run's index among this rank's
-    clients, or None for a run of others'."""
-    first, lo = 0, 0
-    for hi in range(1, len(mine) + 1):
-        if hi == len(mine) or mine[hi] != mine[lo]:
-            yield lo, hi, (first if mine[lo] else None)
-            first += (hi - lo) if mine[lo] else 0
-            lo = hi
+def _ladder(c: int) -> list[int]:
+    """The widths a chunk of ``c`` clients runs its steps at: the powers of
+    two from 2 up to ``c``, and ``c``; ``[1]`` for one client."""
+    if c == 1:
+        return [1]
+    return [2 ** k for k in range(1, c.bit_length()) if 2 ** k < c] + [c]
+
+
+def step_width(valid: np.ndarray) -> int:
+    """The width of a step whose clients' validity, in slot order, is
+    ``valid``: the smallest of the chunk's ladder that holds its last valid
+    slot."""
+    last = int(np.flatnonzero(valid)[-1]) + 1
+    return next(w for w in _ladder(len(valid)) if w >= last)
+
+
+def _batches(sizes: Sequence[int], batch_size: int) -> np.ndarray:
+    """Each client's batches an epoch: its valid steps lead every epoch."""
+    return np.asarray([-(-int(n) // batch_size) for n in sizes])
+
+
+def step_widths(sizes: Sequence[int], batch_size: int) -> list[int]:
+    """Every width the steps of a chunk of clients of ``sizes`` run at: the
+    ``step_width`` of each step's validity, the slots in order of batches."""
+    steps = np.sort(_batches(sizes, batch_size))[::-1]
+    return sorted({step_width(steps > j) for j in range(int(steps.max(initial=0)))})
+
+
+def _slot_order(sizes: Sequence[int], batch_size: int) -> np.ndarray:
+    """The clients (indices into ``sizes``) in slot order: by their batches
+    an epoch, longest first, stable."""
+    return np.argsort(-_batches(sizes, batch_size), kind="stable")
+
+
+def _placed(part: Sequence[ClientDataset], mine: np.ndarray, order: np.ndarray):
+    """The chunk's clients in client order, each with its slot, or None for
+    another rank's client; ``order`` is this rank's clients in slot order."""
+    slot = np.empty(len(order), dtype=np.int64)
+    slot[order] = np.arange(len(order))
+    own = iter(slot.tolist())
+    for p, m in zip(part, mine):
+        yield p, (next(own) if m else None)
 
 
 @dataclasses.dataclass
@@ -178,12 +237,14 @@ class _Chunk:
     coefficients: torch.Tensor  # (T, 3, C): AdamW's 1/b1c, 1/b2c, -lr per client
     valid_host: np.ndarray      # (T, C) bool
     weights: np.ndarray         # (C,) float32 n_c
-    members: np.ndarray         # (C,) the clients' positions in the round
+    members: np.ndarray         # (C,) the clients' positions in the round, in slot order
     nbytes: int                 # host bytes staged
     seconds: float              # host seconds staging took
 
-    def batch(self, t: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Step ``t``'s ``(x, y, mask)``, each with a leading client axis."""
+    def batch(self, t: int, w: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Step ``t``'s ``(x, y, mask)`` of slots ``[0, w)`` (all by
+        default), each with a leading client axis."""
         raise NotImplementedError
 
 
@@ -195,8 +256,8 @@ class _RebuiltChunk(_Chunk):
     y: torch.Tensor     # (T, C, B)
     mask: torch.Tensor  # (T, C, B)
 
-    def batch(self, t):
-        return self.x[t], self.y[t], self.mask[t]
+    def batch(self, t, w=None):
+        return self.x[t, :w], self.y[t, :w], self.mask[t, :w]
 
 
 @dataclasses.dataclass
@@ -213,45 +274,43 @@ class _PlannedChunk(_Chunk):
     cohort: tuple[torch.Tensor, torch.Tensor]  # the whole cohort's x and y, flat
     origin: int           # the flat index in ``cohort`` of ``x[0]`` (0 unless sliced)
 
-    def batch(self, t):
-        ib = self.idx[t]
-        c, b = ib.shape
-        flat = ib.view(-1)
-        x = torch.index_select(self.x, 0, flat).view(c, b, *self.x.shape[1:])
-        y = torch.index_select(self.y, 0, flat).view(c, b)
-        return x, y, (ib < self.limit).to(torch.float32)
+    def batch(self, t, w=None):
+        ib = self.idx[t, :w]
+        flat = ib.reshape(-1)
+        x = torch.index_select(self.x, 0, flat).view(*ib.shape, *self.x.shape[1:])
+        y = torch.index_select(self.y, 0, flat).view(ib.shape)
+        return x, y, (ib < self.limit[:w]).to(torch.float32)
 
 
-class _CohortStep:
-    """A captured batched step of C clients and the static buffers it reads
-    and writes: the stacked params and AdamW moments (updated in place),
-    the step's inputs, coefficients and validity, and one slot generator a
-    client.  ``spec`` is ``_batch_spec``'s."""
+@dataclasses.dataclass
+class _Buffers:
+    """A captured step's static buffers: the stacked params and AdamW
+    moments (updated in place), the step's inputs, coefficients and
+    validity, and one slot generator a client; ``cohort`` is the resident
+    cohort's flat ``(x, y)`` a plan gathers from (None for a rebuilt
+    batch)."""
 
-    def __init__(self, trainer: "CohortTrainer", c: int, params: PyTree, spec: tuple):
-        dev, b = trainer.device, trainer.batch_size
-        self.c = c
-        self.params = tree_map(
-            lambda q: torch.zeros((c, *q.shape), dtype=q.dtype, device=dev).requires_grad_(True),
-            params,
+    params: PyTree
+    mu: PyTree
+    nu: PyTree
+    inputs: dict[str, torch.Tensor]
+    coefficients: torch.Tensor  # (3, C)
+    keep: torch.Tensor          # (C,) bool
+    slots: list[torch.Generator]
+    cohort: tuple[torch.Tensor, torch.Tensor] | None
+
+    def narrow(self, w: int) -> "_Buffers":
+        """Views of slots ``[0, w)``, the params' views leaves of autograd."""
+        return _Buffers(
+            params=tree_map(lambda q: q[:w].requires_grad_(True), self.params),
+            mu=tree_map(lambda q: q[:w], self.mu),
+            nu=tree_map(lambda q: q[:w], self.nu),
+            inputs={k: v if k == "origin" else v[:w] for k, v in self.inputs.items()},
+            coefficients=self.coefficients[:, :w],
+            keep=self.keep[:w],
+            slots=self.slots[:w],
+            cohort=self.cohort,
         )
-        self.mu = tree_map(torch.zeros_like, self.params)
-        self.nu = tree_map(torch.zeros_like, self.params)
-        if spec[0] == "resident":
-            self.cohort = spec[1]
-            like = {"idx": ((c, b), torch.int32), "limit": ((c, 1), torch.int32),
-                    "origin": ((1,), torch.int32)}
-        else:
-            self.cohort = None
-            _, features, x_dtype, y_dtype = spec
-            like = {"x": ((c, b, *features), x_dtype), "y": ((c, b), y_dtype),
-                    "mask": ((c, b), torch.float32)}
-        self.inputs = {k: torch.zeros(shape, dtype=dtype, device=dev)
-                       for k, (shape, dtype) in like.items()}
-        self.coefficients = torch.zeros((3, c), device=dev)
-        self.keep = torch.zeros(c, dtype=torch.bool, device=dev)
-        self.slots = [torch.Generator(device=dev) for _ in range(c)]
-        self.graph = trainer.graphs.capture(lambda: trainer._static_step(self), self.slots)
 
     def batch(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The step's ``(x, y, mask)``, each with a leading client axis: the
@@ -266,39 +325,78 @@ class _CohortStep:
                 torch.index_select(y, 0, flat).view(c, b),
                 (idx < self.inputs["limit"]).to(torch.float32))
 
+
+class _CohortStep:
+    """The captured batched steps of a chunk of C clients: one set of static
+    buffers (``full``; ``spec`` is ``_batch_spec``'s) and over it one graph a
+    width, each over the buffers' views ``[:w]``."""
+
+    def __init__(self, trainer: "CohortTrainer", c: int, params: PyTree, spec: tuple):
+        dev, b = trainer.device, trainer.batch_size
+        if spec[0] == "resident":
+            cohort = spec[1]
+            like = {"idx": ((c, b), torch.int32), "limit": ((c, 1), torch.int32),
+                    "origin": ((1,), torch.int32)}
+        else:
+            cohort = None
+            _, features, x_dtype, y_dtype = spec
+            like = {"x": ((c, b, *features), x_dtype), "y": ((c, b), y_dtype),
+                    "mask": ((c, b), torch.float32)}
+        stacked = tree_map(lambda q: torch.zeros((c, *q.shape), dtype=q.dtype, device=dev),
+                           params)
+        self.full = _Buffers(
+            params=stacked,
+            mu=tree_map(torch.zeros_like, stacked),
+            nu=tree_map(torch.zeros_like, stacked),
+            inputs={k: torch.zeros(shape, dtype=dtype, device=dev)
+                    for k, (shape, dtype) in like.items()},
+            coefficients=torch.zeros((3, c), device=dev),
+            keep=torch.zeros(c, dtype=torch.bool, device=dev),
+            slots=[torch.Generator(device=dev) for _ in range(c)],
+            cohort=cohort,
+        )
+        self.graphs: dict[int, StepGraph] = {}
+
     def start(self, params: PyTree, chunk: _Chunk) -> None:
         """A chunk's start: every client at ``params``, fresh moments."""
+        full = self.full
         with torch.no_grad():
-            for s, q in zip(tree_leaves(self.params), tree_leaves(params)):
+            for s, q in zip(tree_leaves(full.params), tree_leaves(params)):
                 s.copy_(q.unsqueeze(0).expand_as(s))
-            for m in tree_leaves((self.mu, self.nu)):
+            for m in tree_leaves((full.mu, full.nu)):
                 m.zero_()
         if isinstance(chunk, _PlannedChunk):
-            self.inputs["limit"].copy_(chunk.limit)
-            self.inputs["origin"].fill_(chunk.origin)
+            full.inputs["limit"].copy_(chunk.limit)
+            full.inputs["origin"].fill_(chunk.origin)
 
-    def load(self, chunk: _Chunk, t: int) -> None:
-        """Step ``t``'s inputs into the static buffers."""
+    def load(self, chunk: _Chunk, t: int, w: int) -> None:
+        """Step ``t``'s inputs of slots ``[0, w)`` into the static buffers."""
+        inputs = self.full.inputs
         if isinstance(chunk, _PlannedChunk):
-            self.inputs["idx"].copy_(chunk.idx[t])
+            inputs["idx"][:w].copy_(chunk.idx[t, :w])
         else:
-            for k, v in zip(("x", "y", "mask"), chunk.batch(t)):
-                self.inputs[k].copy_(v)
-        self.coefficients.copy_(chunk.coefficients[t])
-        self.keep.copy_(chunk.valid[t])
+            for k, v in zip(("x", "y", "mask"), chunk.batch(t, w)):
+                inputs[k][:w].copy_(v)
+        self.full.coefficients[:, :w].copy_(chunk.coefficients[t, :, :w])
+        self.full.keep[:w].copy_(chunk.valid[t, :w])
 
     def result(self) -> PyTree:
-        return tree_map(lambda q: q.detach().clone(), self.params)
+        return tree_map(lambda q: q.clone(), self.full.params)
 
 
 def _mean_last_losses(losses: list[torch.Tensor], valid: list[np.ndarray], c: int,
                       tracer: Tracer) -> np.ndarray:
     """Each client's mean loss over its valid steps of the last epoch (NaN
-    without any), from one readback (a ``readback`` span of ``tracer``)."""
+    without any), from one readback (a ``readback`` span of ``tracer``); a
+    step's losses cover its width, the slots past it being invalid there."""
     per_client = np.full(c, np.nan)
     if losses:
         with tracer.span("readback"):
-            stacked = torch.stack(losses).double().cpu().numpy()
+            flat = torch.cat(losses).double().cpu().numpy()
+        stacked = np.zeros((len(losses), c))
+        widths = [len(loss) for loss in losses]
+        for row, part in zip(stacked, np.split(flat, np.cumsum(widths)[:-1])):
+            row[: len(part)] = part
         valid_last = np.stack(valid)
         per_client = np.where(valid_last, stacked, 0.0).sum(axis=0) / np.maximum(
             valid_last.sum(axis=0), 1
@@ -345,8 +443,9 @@ class CohortTrainer:
     # (on the staging thread when prefetching), the pipeline's
     # "prefetch_wait" stalls, the device cohort's "pool_upload" spans, each
     # chunk's "readback" of its losses and, on the captured path, a
-    # "cohort_step" span of each step's host work and, on the card, a
-    # "cohort_step" span of its replay on the device clock.
+    # "cohort_step" span of each step's host work (args t, its width and
+    # held, the padding slots inside the width) and, on the card, a
+    # "cohort_step" span of its replay on the device clock (t, width).
     # None resolves to the shared no-op tracer.
     tracer: Any = None
     # Where to train: None is the card; "cpu" runs the plain versions.
@@ -414,6 +513,7 @@ class CohortTrainer:
         mine = np.ones(len(part), dtype=bool) if mine is None else mine
         own = [p for p, m in zip(part, mine) if m]
         c, b, t = len(own), self.batch_size, spe * self.local_epochs
+        order = _slot_order([p.n_train for p in own], b)
         x0, y0 = own[0].train.x, own[0].train.y
         layout = Layout({
             "x": ((t, c, b, *x0.shape[1:]), x0.dtype),
@@ -426,22 +526,20 @@ class CohortTrainer:
         host = layout.host_views(buf)
         # The fill writes client-major (C, T, ...) views of the step-major buffer.
         views = [host[k].swapaxes(0, 1) for k in ("x", "y", "mask", "valid")]
-        for lo, hi, slot in _runs(mine):
-            if slot is None:
-                skip_cohort_draws([p.n_train for p in part[lo:hi]], self.local_epochs, rng)
+        for p, at in _placed(part, mine, order):
+            if at is None:
+                skip_cohort_draws([p.n_train], self.local_epochs, rng)
                 continue
-            fill_cohort_schedule(
-                [p.train for p in part[lo:hi]], b, self.local_epochs, rng, spe,
-                *(v[slot : slot + hi - lo] for v in views),
-            )
+            fill_cohort_schedule([p.train], b, self.local_epochs, rng, spe,
+                                 *(v[at : at + 1] for v in views))
         valid_host = host["valid"].copy()
         host["coefficients"][...] = self.optimizer.cohort_coefficients(valid_host.T)
         staged = layout.device_views(torch.from_numpy(buf).to(self.device))
         return _RebuiltChunk(
             **staged,
             valid_host=valid_host,
-            weights=np.asarray([p.n_train for p in own], dtype=np.float32),
-            members=np.flatnonzero(mine),
+            weights=np.asarray([own[i].n_train for i in order], dtype=np.float32),
+            members=np.flatnonzero(mine)[order],
             nbytes=layout.nbytes,
             seconds=time.perf_counter() - t0,
         )
@@ -470,13 +568,15 @@ class CohortTrainer:
                 f"a device cohort of {dc.num_rows} rows of {width} samples is above "
                 "the int32 index range of a plan"
             )
-        rows = np.asarray([dc.row_of(p) for p in own], dtype=np.int64)
-        contiguous = np.array_equal(rows, np.arange(rows[0], rows[0] + c))
-        full = c == dc.num_rows and contiguous and rows[0] == 0
+        order = _slot_order([p.n_train for p in own], b)
+        rows = np.asarray([dc.row_of(own[i]) for i in order], dtype=np.int64)
+        first = int(rows.min())
+        contiguous = np.array_equal(np.sort(rows), np.arange(first, first + c))
+        full = c == dc.num_rows and contiguous and first == 0
         sliced = self.slice_fastpath and contiguous and not full
-        r0 = int(rows[0]) if sliced else 0
+        r0 = first if sliced else 0
         base = (rows - r0) * width
-        sizes = np.asarray([p.n_train for p in own], dtype=np.int64)
+        sizes = np.asarray([own[i].n_train for i in order], dtype=np.int64)
         layout = Layout({
             "idx": ((t, c, b), np.int32),
             "valid": ((t, c), np.bool_),
@@ -487,15 +587,13 @@ class CohortTrainer:
         views = layout.host_views(host.numpy())
         views["valid"][...] = False
         idx, valid = views["idx"].swapaxes(0, 1), views["valid"].swapaxes(0, 1)
-        for lo, hi, first in _runs(mine):
-            if first is None:
-                skip_cohort_draws([p.n_train for p in part[lo:hi]], self.local_epochs, rng)
+        for p, at in _placed(part, mine, order):
+            if at is None:
+                skip_cohort_draws([p.n_train], self.local_epochs, rng)
                 continue
-            own_run = slice(first, first + hi - lo)
-            fill_cohort_plan(
-                sizes[own_run], b, self.local_epochs, rng, spe, dc.pad_index,
-                idx[own_run], valid[own_run], base=base[own_run],
-            )
+            one = slice(at, at + 1)
+            fill_cohort_plan(sizes[one], b, self.local_epochs, rng, spe, dc.pad_index,
+                             idx[one], valid[one], base=base[one])
         valid_host = views["valid"].copy()
         views["coefficients"][...] = self.optimizer.cohort_coefficients(valid_host.T)
         views["limit"][:, 0] = base + sizes
@@ -507,7 +605,7 @@ class CohortTrainer:
             coefficients=plan["coefficients"],
             valid_host=valid_host,
             weights=sizes.astype(np.float32),
-            members=np.flatnonzero(mine),
+            members=np.flatnonzero(mine)[order],
             nbytes=layout.nbytes,
             seconds=time.perf_counter() - t0,
             idx=plan["idx"],
@@ -581,7 +679,16 @@ class CohortTrainer:
                tuple((tuple(q.shape), q.dtype) for q in tree_leaves(params)))
         return self.graphs.lookup(key, lambda: _CohortStep(self, c, params, spec))
 
-    def _static_step(self, s: _CohortStep) -> torch.Tensor:
+    def _capture_width(self, s: _CohortStep, w: int) -> None:
+        """``s``'s graph of width ``w`` over its buffers' views ``[:w]``,
+        captured when new.  On the card ``s`` holds no reference back to
+        the trainer (a CUDA graph keeps no body), so a trainer that goes
+        frees its device memory at once."""
+        if w not in s.graphs:
+            view = s.full.narrow(w)
+            s.graphs[w] = self.graphs.capture(lambda: self._static_step(view), view.slots)
+
+    def _static_step(self, s: _Buffers) -> torch.Tensor:
         """The step a graph captures: one batched step over ``s``'s static
         buffers, every client drawing from its slot; the params and moments
         are updated in place where the step is valid (``torch.where`` for
@@ -597,9 +704,10 @@ class CohortTrainer:
             grads, AdamWState(step=0, mu=s.mu, nu=s.nu), s.params, s.coefficients
         )
         with torch.no_grad():
+            keep = s.keep
 
             def where(new, old):
-                return torch.where(s.keep.view(s.c, *([1] * (old.dim() - 1))), new, old)
+                return torch.where(keep.view(len(keep), *([1] * (old.dim() - 1))), new, old)
 
             for q, u in zip(leaves, tree_leaves(updates)):
                 q.copy_(where(q + u, q))
@@ -610,95 +718,102 @@ class CohortTrainer:
 
     def _train_chunk_captured(
         self, params: PyTree, chunk: _Chunk, generators: Sequence[torch.Generator]
-    ) -> tuple[PyTree, np.ndarray, int]:
-        """``_train_chunk`` through the chunk's captured step."""
+    ) -> tuple[PyTree, np.ndarray, int, int]:
+        """``_train_chunk`` through the chunk's captured steps."""
         t_total, c = chunk.valid_host.shape
         spe = t_total // self.local_epochs
         s = self._cohort_step(c, params, self._batch_spec(chunk))
         s.start(params, chunk)
-        for slot, g in zip(s.slots, generators):
+        slots = s.full.slots
+        for slot, g in zip(slots, generators):
             set_position(slot, position(g))
         last_losses: list[torch.Tensor] = []
         last_valid: list[np.ndarray] = []
-        executed = 0
+        executed = slot_steps = 0
         for t in range(t_total):
             valid = chunk.valid_host[t]
             if not valid.any():
                 continue  # every client pads here: a no-op for all of them
+            w = step_width(valid)
             executed += 1
-            pads = [slot for slot, v in zip(s.slots, valid) if not v]
-            with self.tracer.span("cohort_step", t=t, held=len(pads)):
-                s.load(chunk, t)
+            slot_steps += w
+            pads = [slot for slot, v in zip(slots[:w], valid[:w]) if not v]
+            with self.tracer.span("cohort_step", t=t, width=w, held=len(pads)):
+                s.load(chunk, t, w)
                 # A client that pads here draws nothing: its slot goes back.
                 held = [(slot, position(slot)) for slot in pads]
-                loss = s.graph.replay(t=t)
+                loss = s.graphs[w].replay(t=t, width=w)
                 for slot, pos in held:
                     set_position(slot, pos)
             if t >= t_total - spe:
                 last_losses.append(loss)
                 last_valid.append(valid)
-        for slot, g in zip(s.slots, generators):
+        for slot, g in zip(slots, generators):
             set_position(g, position(slot))
-        return s.result(), _mean_last_losses(last_losses, last_valid, c, self.tracer), executed
+        losses = _mean_last_losses(last_losses, last_valid, c, self.tracer)
+        return s.result(), losses, executed, slot_steps
 
     def _train_chunk(
         self, params: PyTree, chunk: _Chunk, generators: Sequence[torch.Generator]
-    ) -> tuple[PyTree, np.ndarray, int]:
+    ) -> tuple[PyTree, np.ndarray, int, int]:
         """All local epochs of a chunk's clients from broadcast copies of
-        ``params``.  Returns the stacked trained params, each client's mean
-        loss over its last epoch's valid steps, and the steps executed."""
+        ``params``, each step at its ``step_width``.  Returns the stacked
+        trained params and each client's mean loss over its last epoch's
+        valid steps (both in slot order), the steps executed and the sum of
+        their widths."""
         if capture_enabled(self.device):
             return self._train_chunk_captured(params, chunk, generators)
         t_total, c = chunk.valid_host.shape
         spe = t_total // self.local_epochs
-        p = tree_map(
-            lambda q: q.detach().unsqueeze(0).expand(c, *q.shape).clone().requires_grad_(True),
-            params,
-        )
-        leaves = tree_leaves(p)
-        state = self.optimizer.init(p)._replace(step=np.zeros(c, dtype=np.int64))
+        p = tree_map(lambda q: q.detach().unsqueeze(0).expand(c, *q.shape).clone(), params)
+        mu, nu = tree_map(torch.zeros_like, p), tree_map(torch.zeros_like, p)
         last_losses: list[torch.Tensor] = []
         last_valid: list[np.ndarray] = []
-        executed = 0
+        executed = slot_steps = 0
         for t in range(t_total):
             valid = chunk.valid_host[t]
             if not valid.any():
                 continue  # every client pads here: a no-op for all of them
+            w = step_width(valid)
             executed += 1
-            gens = [g if v else None for g, v in zip(generators, valid)]
+            slot_steps += w
+            pw = tree_map(lambda q: q[:w].requires_grad_(True), p)
+            leaves = tree_leaves(pw)
+            gens = [g if v else None for g, v in zip(generators[:w], valid[:w])]
             if self._dp_grad is None:
-                loss = self.loss_fn(p, chunk.batch(t), gens)
+                loss = self.loss_fn(pw, chunk.batch(t, w), gens)
                 grads_flat = torch.autograd.grad(loss.sum(), leaves)
                 grads_iter = iter(grads_flat)
-                grads = tree_map(lambda _: next(grads_iter), p)
+                grads = tree_map(lambda _: next(grads_iter), pw)
             else:
-                loss, grads = self._dp_grad(p, chunk.batch(t), gens)
+                loss, grads = self._dp_grad(pw, chunk.batch(t, w), gens)
+            mw, nw = (tree_map(lambda m: m[:w], m) for m in (mu, nu))
             updates, new_state = self.optimizer.update_stacked(
-                grads, state, p, chunk.coefficients[t]
+                grads, AdamWState(step=0, mu=mw, nu=nw), pw, chunk.coefficients[t, :, :w]
             )
+            moments = tree_leaves((mw, nw))
             with torch.no_grad():
-                if valid.all():  # the common step: no client to hold back, no where()
+                new_moments = tree_leaves((new_state.mu, new_state.nu))
+                if valid[:w].all():  # the common step: no client to hold back, no where()
                     for q, u in zip(leaves, tree_leaves(updates)):
                         q.add_(u)
-                    state = new_state
+                    for old, new in zip(moments, new_moments):
+                        old.copy_(new)
                 else:
-                    keep = chunk.valid[t]
+                    keep = chunk.valid[t, :w]
 
                     def where(new, old):
-                        return torch.where(keep.view(c, *([1] * (old.dim() - 1))), new, old)
+                        return torch.where(keep.view(w, *([1] * (old.dim() - 1))), new, old)
 
                     for q, u in zip(leaves, tree_leaves(updates)):
                         q.copy_(where(q + u, q))
-                    state = AdamWState(
-                        step=state.step + valid,
-                        mu=tree_map(where, new_state.mu, state.mu),
-                        nu=tree_map(where, new_state.nu, state.nu),
-                    )
+                    for old, new in zip(moments, new_moments):
+                        old.copy_(where(new, old))
             if t >= t_total - spe:
                 last_losses.append(loss.detach())
                 last_valid.append(valid)
         losses = _mean_last_losses(last_losses, last_valid, c, self.tracer)
-        return tree_map(lambda q: q.detach(), p), losses, executed
+        return p, losses, executed, slot_steps
 
     # ------------------------------------------------------------------
     # the round
@@ -756,9 +871,13 @@ class CohortTrainer:
             # staged: no staging thread may run during a capture.
             spec = self._batch_spec(clients=clients, dc=dcohort)
             for start in starts:
-                c = int(np.count_nonzero(owners[start : start + chunk] == rank))
-                if c:
-                    self._cohort_step(c, params, spec)
+                own = [n for n, o in zip(sizes[start : start + chunk],
+                                         owners[start : start + chunk]) if o == rank]
+                if own:
+                    # Widest first: the narrower graphs reuse its pool blocks.
+                    s = self._cohort_step(len(own), params, spec)
+                    for w in reversed(step_widths(own, self.batch_size)):
+                        self._capture_width(s, w)
 
         prefetch = resident and self.prefetch and len(starts) > 1
         side = None
@@ -799,6 +918,7 @@ class CohortTrainer:
         for start in starts:
             total_weight += float(np.asarray(sizes[start : start + chunk], np.float32).sum())
         bytes_staged, num_chunks, executed, stage_s, slice_chunks, trained = 0, 0, 0, 0.0, 0, 0
+        slot_steps = 0
         per_losses = np.full(len(clients), np.nan, dtype=np.float32)
         held: _Chunk | None = None
         try:
@@ -814,16 +934,17 @@ class CohortTrainer:
                         current.wait_event(staged.ready)
                         staged.staged.record_stream(current)
                 members = start + staged.members
-                stacked, losses, steps = self._train_chunk(
+                stacked, losses, steps, widths = self._train_chunk(
                     params, staged, [generators[i] for i in members]
                 )
-                acc = self._accumulate(acc, stacked, staged.weights)
+                acc = self._accumulate(acc, stacked, staged.weights, staged.members)
                 if not self.donate:
                     held = staged
                 per_losses[members] = losses
                 bytes_staged += staged.nbytes
                 stage_s += staged.seconds
                 executed += steps
+                slot_steps += widths
                 trained += len(members)
                 del stacked, staged
         finally:
@@ -856,8 +977,10 @@ class CohortTrainer:
             # included); None on the CPU or without track_stats.
             "peak_device_bytes": (torch.cuda.max_memory_allocated(self.device)
                                   if cuda and self.track_stats else None),
-            # This rank's batched steps.
+            # This rank's batched steps, and the sum of their widths (the
+            # client slots they ran).
             "cohort_steps": executed,
+            "cohort_slot_steps": slot_steps,
             # Under DP, the largest share of a chunk's per-example clients on
             # the GRU kernels' client axis (share × batch); 0 without DP.
             "per_example_clients": 0 if self.dp is None else launched,
@@ -907,10 +1030,13 @@ class CohortTrainer:
         summed = tree_map(lambda a: next(it).view(a.shape).to(a.dtype), acc)
         return summed, parts[-1].cpu().numpy().astype(np.float32)
 
-    def _accumulate(self, acc: PyTree, stacked: PyTree, weights: np.ndarray) -> PyTree:
-        """``acc + sum_c w_c * stacked[c]``, client by client: in place with
-        ``donate``, else out of place (the same bits either way)."""
-        for c, w in enumerate(weights.tolist()):
+    def _accumulate(self, acc: PyTree, stacked: PyTree, weights: np.ndarray,
+                    members: np.ndarray) -> PyTree:
+        """``acc + sum_c w_c * stacked[c]``, slot by slot in client order (by
+        ``members``): in place with ``donate``, else out of place (the same
+        bits either way)."""
+        for c in np.argsort(members).tolist():
+            w = float(weights[c])
             if self.donate:
                 for a, q in zip(tree_leaves(acc), tree_leaves(stacked)):
                     a.add_(q[c], alpha=w)

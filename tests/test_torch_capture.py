@@ -18,9 +18,15 @@ bookkeeping and the compile events.
   for the sequential engine and the central trainer.
 * The forced path against the JAX package's vectorized round (dropout 0,
   DP with noise 0): round losses within 1e-5, params within 1e-4.
+* The width ladder: on a federation whose clients with a batch left fall
+  through four widths, whole and chunked, both stagings, with and without
+  DP, the forced path is the eager path bit for bit, with one graph a
+  width and the expected slot-steps and span widths; at this shape it is
+  also the round whose every step runs the whole chunk; clients with as
+  many batches each take one full-width graph.
 * Keys: a chunk's key holds across epochs and rounds (no capture after the
-  first round); a chunked federation has one key a chunk size; sliced
-  resident chunks share one key.
+  first round); a chunked federation has one key a chunk size, and a graph
+  a width its steps use; sliced resident chunks share one key.
 * A replay adds the capture's launch deltas (a stand-in graph object); a
   capture restores the counters after its warm-up; a capture counts as a
   compile (``jit.compiles``), and a steady round as none.
@@ -161,10 +167,13 @@ def test_captured_cohort_step_is_the_eager_step(monkeypatch, staging, dp):
     got = run_federation(staging=staging, dp=dp)
     assert_same_run(got, eager)
     fed, _, calls = got
-    # Chunks of 4 and 2: two keys, captured in round 1 and replayed after.
-    assert [c[2]["captures"] for c in calls] == [2, 0]
+    # Chunks of 4 and 2: two keys, the first's steps at widths 4 and 2, the
+    # second's at 2; three graphs, captured in round 1 and replayed after.
+    assert [c[2]["captures"] for c in calls] == [3, 0]
     assert all(c[2]["replays"] == c[2]["cohort_steps"] > 0 for c in calls)
-    assert len(fed.cohort_trainer.graphs.entries) == 2
+    entries = fed.cohort_trainer.graphs.entries
+    assert len(entries) == 2
+    assert [sorted(s.graphs) for s in entries.values()] == [[2, 4], [2]]
     assert [c[2]["captures"] for c in eager[2]] == [0, 0]
 
 
@@ -191,6 +200,89 @@ def test_captured_central_step_is_the_eager_step(monkeypatch):
                                                  tree_leaves(eager.params)))
     assert (got.captures, got.replays, eager.captures, eager.replays) == (1, 10, 0, 0)
     assert got.capture_seconds > 0.0 == eager.capture_seconds
+
+
+# --------------------------------------------------------------------------
+# the width ladder: each step only as wide as the clients still training
+# --------------------------------------------------------------------------
+
+# Batches of 8 an epoch: 1, 4, 1, 9, 2, 3, 1, 2, 1.  The clients with a batch
+# left fall 9, 5, 3, 2, 1, 1, 1, 1, 1 over an epoch: the whole chunk's steps
+# run at widths 9, 8, 4, 2, 2, 2, 2, 2, 2, so the 70-stay client trains alone
+# for five steps an epoch.
+LADDER_SIZES = (5, 30, 1, 70, 12, 20, 8, 9, 3)
+# chunk -> (each key's widths, by its chunk size; the slots a round runs)
+LADDER = {
+    None: ({9: [2, 4, 8, 9]}, 2 * 33),
+    # (5, 30, 1, 70, 12): 5, 4, 2, 2, 2, 2, 2, 2, 2; (20, 8, 9, 3): 4, 2, 2
+    5: ({5: [2, 4, 5], 4: [2, 4]}, 2 * 31),
+}
+
+
+def run_ladder(staging, dp, chunk, sizes=LADDER_SIZES, tracer=None):
+    cfg, params = model()
+    fed = Federation(
+        FederationConfig(rounds=2, local_epochs=2, batch_size=8, seed=5, staging=staging,
+                         cohort_chunk=chunk, recruitment="all", privacy=dp),
+        make_clients(sizes, seed=1), gru.make_loss_fn(cfg), AdamW(), device="cpu",
+        tracer=tracer,
+    )
+    calls = record_calls(fed)
+    return fed, fed.run(params), calls
+
+
+@pytest.mark.parametrize("chunk", [None, 5], ids=["whole", "chunked"])
+@pytest.mark.parametrize("staging", ["rebuild", "resident"])
+@pytest.mark.parametrize("dp", [None, DP], ids=["no-dp", "dp"])
+def test_the_ladder_round_is_the_eager_round(monkeypatch, staging, dp, chunk):
+    """A federation whose clients with a batch left fall through four
+    widths: the captured round (one graph a width over one set of buffers)
+    is the eager round bit for bit, its slot-steps and its spans' widths
+    the expected ladder."""
+    eager = run_ladder(staging, dp, chunk)
+    monkeypatch.setattr(cohort_module, "capture_enabled", lambda device: True)
+    tracer = Tracer()
+    got = run_ladder(staging, dp, chunk, tracer=tracer)
+    assert_same_run(got, eager)
+    widths, slot_steps = LADDER[chunk]
+    fed, _, calls = got
+    entries = fed.cohort_trainer.graphs.entries
+    assert {key[0]: sorted(s.graphs) for key, s in entries.items()} == widths
+    assert [c[2]["captures"] for c in calls] == [sum(map(len, widths.values())), 0]
+    assert all(c[2]["cohort_slot_steps"] == slot_steps for c in calls + eager[2])
+    spans = tracer.spans("cohort_step")
+    assert len(spans) == sum(c[2]["cohort_steps"] for c in calls)
+    assert sum(s.args["width"] for s in spans) == 2 * slot_steps
+    assert {s.args["width"] for s in spans} == set().union(*widths.values())
+
+
+@pytest.mark.parametrize("staging", ["rebuild", "resident"])
+@pytest.mark.parametrize("dp", [None, DP], ids=["no-dp", "dp"])
+def test_the_ladder_keeps_the_full_width_bits(monkeypatch, staging, dp):
+    """On the CPU at this model's shape a client's step does not depend on
+    how many clients share it, so the ladder's round is the round whose
+    every step runs the whole chunk (each step's width forced to the chunk's
+    size) bit for bit: the same work, fewer slots."""
+    ladder = run_ladder(staging, dp, None)
+    monkeypatch.setattr(cohort_module, "step_width", lambda valid: len(valid))
+    full = run_ladder(staging, dp, None)
+    assert_same_run(ladder, full)
+    assert all(c[2]["cohort_slot_steps"] == 9 * c[2]["cohort_steps"] for c in full[2])
+    assert all(c[2]["cohort_slot_steps"] == LADDER[None][1] for c in ladder[2])
+
+
+@pytest.mark.parametrize("staging", ["rebuild", "resident"])
+def test_equal_clients_take_one_full_width_graph(forced, staging):
+    """Clients with as many batches each keep every step at the chunk's
+    size: one graph, as many slots as steps times clients."""
+    cfg, _ = model()
+    trainer = CohortTrainer(gru.make_loss_fn(cfg), AdamW(), batch_size=8, local_epochs=2,
+                            staging=staging, device="cpu")
+    stats = train_rounds(trainer, make_clients((17, 20, 24, 22)))
+    (step,) = trainer.graphs.entries.values()
+    assert list(step.graphs) == [4]
+    assert [s["captures"] for s in stats] == [1, 0]
+    assert all(s["cohort_slot_steps"] == 4 * s["cohort_steps"] == 4 * 6 for s in stats)
 
 
 # --------------------------------------------------------------------------
@@ -243,6 +335,11 @@ def train_rounds(trainer, clients, rounds=2, seed=0):
     return stats
 
 
+# The graphs of each chunk size's key: the widths its chunks' steps run at
+# (SIZES at batch 8 are 1, 3, 5, 2, 4 and 1 batches an epoch).
+GRAPHS = {None: 3, 4: 3, 3: 2, 2: 1, 5: 4}   # {2, 4, 6}; {2, 4} + {2}; {2, 3}; {2}; {2, 4, 5} + {1}
+
+
 @pytest.mark.parametrize("chunk,staging,keys", [
     (None, "rebuild", 1), (4, "rebuild", 2), (3, "rebuild", 1), (2, "resident", 1),
     (4, "resident", 2), (5, "resident", 2),
@@ -253,7 +350,7 @@ def test_a_chunks_key_holds_across_epochs_and_rounds(forced, chunk, staging, key
                             cohort_chunk=chunk, staging=staging, device="cpu")
     stats = train_rounds(trainer, make_clients())
     assert len(trainer.graphs.entries) == keys
-    assert [s["captures"] for s in stats] == [keys, 0]
+    assert [s["captures"] for s in stats] == [GRAPHS[chunk], 0]
     assert all(s["replays"] == s["cohort_steps"] for s in stats)
     if staging == "resident" and chunk == 2:   # three slices from rows 0, 2, 4: one graph
         assert all(s["slice_chunks"] == 3 for s in stats)
@@ -410,7 +507,7 @@ def test_a_capture_counts_as_a_compile(forced):
     )
     fed.run(params)
     snap = metrics.snapshot()
-    assert snap["counters"]["jit.compiles"] == 2   # two keys, captured in round 1
+    assert snap["counters"]["jit.compiles"] == 3   # two keys, three widths, in round 1
     assert snap["gauges"]["jit.round_compiles"] == 0   # round 2 replays
 
 

@@ -20,6 +20,8 @@ and against the port's own sequential engine.
 """
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -124,7 +126,8 @@ def test_schedules_are_bit_equal_to_jax(epochs, spe):
 
 def test_staged_chunk_holds_the_schedule_step_major(model):
     """The trainer's one-buffer staging holds ``build_cohort_schedule``'s
-    arrays step-major, with each client's AdamW coefficients at its own
+    arrays step-major, the clients in slot order (by their batches an
+    epoch, longest first), with each client's AdamW coefficients at its own
     step count, and consumes the generator the same way."""
     cfg, _ = model
     rng = np.random.default_rng(4)
@@ -135,20 +138,50 @@ def test_staged_chunk_holds_the_schedule_step_major(model):
     chunk = trainer._stage_rebuild(clients, rng_a, spe=6)
     sched = pipeline.build_cohort_schedule([c.train for c in clients], 8, 2, rng_b, steps_per_epoch=6)
     assert rng_a.bit_generator.state == rng_b.bit_generator.state
-    assert np.array_equal(chunk.x.numpy().swapaxes(0, 1), sched.x)
-    assert np.array_equal(chunk.y.numpy().swapaxes(0, 1), sched.y)
-    assert np.array_equal(chunk.mask.numpy().swapaxes(0, 1), sched.mask)
-    assert np.array_equal(chunk.valid.numpy().T, sched.step_valid)
-    assert np.array_equal(chunk.valid_host.T, sched.step_valid)
+    order = chunk.members   # slot s holds client order[s]
+    assert order.tolist() == [2, 1, 0]   # 5, 3 and 1 batches an epoch
+    assert np.array_equal(chunk.weights, sched.weights[order])
+    assert np.array_equal(chunk.x.numpy().swapaxes(0, 1), sched.x[order])
+    assert np.array_equal(chunk.y.numpy().swapaxes(0, 1), sched.y[order])
+    assert np.array_equal(chunk.mask.numpy().swapaxes(0, 1), sched.mask[order])
+    assert np.array_equal(chunk.valid.numpy().T, sched.step_valid[order])
+    assert np.array_equal(chunk.valid_host.T, sched.step_valid[order])
     coef = chunk.coefficients.numpy()
-    for c in range(3):
+    for s, c in enumerate(order):
         k = 0
         for t in range(12):
             if sched.step_valid[c, t]:
                 k += 1
-                assert tuple(coef[t, :, c]) == tuple(np.float32(v) for v in opt.coefficients(k))
+                assert tuple(coef[t, :, s]) == tuple(np.float32(v) for v in opt.coefficients(k))
             else:
-                assert tuple(coef[t, :, c]) == (1.0, 1.0, 0.0)
+                assert tuple(coef[t, :, s]) == (1.0, 1.0, 0.0)
+
+
+def test_a_step_runs_as_wide_as_its_clients_still_training():
+    """The ladder of widths, a step's width from its slots' validity, and
+    the widths of the paper's whole federation: the 189 hospitals of the
+    synthetic cohort at seed 0 (the benchmark's frozen structure), batch
+    128, run 748 client-slots an epoch at seven widths where the full step
+    ran 66 × 189."""
+    assert cohort_module._ladder(1) == [1] and cohort_module._ladder(2) == [2]
+    assert cohort_module._ladder(3) == [2, 3]
+    assert cohort_module._ladder(8) == [2, 4, 8]
+    assert cohort_module._ladder(189) == [2, 4, 8, 16, 32, 64, 128, 189]
+    assert cohort_module.step_width(np.array([True])) == 1
+    assert cohort_module.step_width(np.array([True, False, False, False, False])) == 2
+    assert cohort_module.step_width(np.array([True, True, True, False, False])) == 4
+    assert cohort_module.step_width(np.array([True, False, False, False, True])) == 5
+    assert cohort_module.step_widths([3, 17, 40], 8) == [2, 3]
+    assert cohort_module.step_widths([17, 20, 24], 8) == [3]
+    assert cohort_module._slot_order([3, 17, 40, 9, 25, 1], 8).tolist() == [2, 4, 1, 3, 0, 5]
+    structure = Path(__file__).parents[1] / "bench" / "configs" / "gru-eicu" / "cohort.json"
+    sizes = [h["n_train"] for h in json.loads(structure.read_text())["hospitals"]]
+    steps = np.asarray([-(-n // 128) for n in sizes])
+    assert (len(sizes), int(steps.max()), int(steps.sum())) == (189, 66, 579)
+    assert cohort_module.step_widths(sizes, 128) == [2, 4, 8, 16, 32, 64, 189]
+    order = cohort_module._slot_order(sizes, 128)
+    valid = steps[order][None, :] > np.arange(66)[:, None]   # (step, slot)
+    assert sum(cohort_module.step_width(v) for v in valid) == 748
 
 
 # --------------------------------------------------------------------------
@@ -376,8 +409,9 @@ def test_run_setting_reports_the_cohort_steps():
 def test_a_traced_round_has_a_cohort_step_span_a_step(model, monkeypatch, chunk):
     """The captured path (forced on the CPU, where the stand-in graph reruns
     the body): one ``cohort_step`` span per executed batched step, its
-    ``held`` the clients padding there; a ``readback`` a chunk and one
-    ``generators`` span a round, inside its ``train`` span."""
+    ``width`` the slots it runs and its ``held`` the clients padding inside
+    that width; a ``readback`` a chunk and one ``generators`` span a round,
+    inside its ``train`` span."""
     monkeypatch.setattr(cohort_module, "capture_enabled", lambda device: True)
     cfg, params0 = model
     rng = np.random.default_rng(4)
@@ -394,12 +428,20 @@ def test_a_traced_round_has_a_cohort_step_span_a_step(model, monkeypatch, chunk)
     assert all(s["replays"] == s["cohort_steps"] for s in stats[1:])
     assert {s.clock for s in steps} == {"host"}
     # Each client's batches lead its epoch of 5 steps (the largest client's):
-    # step k of an epoch runs where some client of the chunk has a k-th batch.
-    width = chunk or len(sizes)
-    chunks = [[-(-n // 8) for n in sizes[i:i + width]] for i in range(0, len(sizes), width)]
-    want = [(e * 5 + k, sum(k >= m for m in per))
-            for _ in range(2) for per in chunks for e in range(2) for k in range(max(per))]
-    assert [(s.args["t"], s.args["held"]) for s in steps] == want
+    # step k of an epoch runs where some client of the chunk has a k-th batch,
+    # as wide as the smallest of 2, 4, ... and the chunk's size that holds
+    # the clients with a k-th batch (the longest first in the slots).
+    size = chunk or len(sizes)
+    chunks = [[-(-n // 8) for n in sizes[i:i + size]] for i in range(0, len(sizes), size)]
+
+    def width(active, c):
+        return min(c, max(2, 1 << (active - 1).bit_length()))
+
+    want = [(e * 5 + k, width(a, len(per)), width(a, len(per)) - a)
+            for _ in range(2) for per in chunks for e in range(2) for k in range(max(per))
+            for a in [sum(m > k for m in per)]]
+    assert [(s.args["t"], s.args["width"], s.args["held"]) for s in steps] == want
+    assert sum(s["cohort_slot_steps"] for s in stats) == sum(w for _, w, _ in want)
     assert len(tracer.spans("readback")) == 2 * len(chunks)
     generators, trains = tracer.spans("generators"), tracer.spans("train")
     assert len(generators) == len(trains) == 2
